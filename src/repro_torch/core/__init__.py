@@ -1,0 +1,29 @@
+"""The in-situ runtime (the paper's contribution), ported to PyTorch.
+
+New code uses the declarative API (``repro_torch.insitu``, implemented in
+``repro_torch.core.session``).
+"""
+from repro_torch.core.runtime import (FanoutStage, PipelineRuntime,
+                                      PipelineTask, Placement, Stage,
+                                      TaskResult, TransientError,
+                                      split_payload)
+from repro_torch.core.session import (Adaptive, Every, InSituPlan,
+                                      InSituTaskError, Interval, PlanError,
+                                      Session, StreamSpec, TaskSpec, When,
+                                      preset_names, register_preset)
+from repro_torch.core.staging import PendingHandoff, StagedItem, StagingBuffer
+from repro_torch.core.telemetry import Telemetry
+from repro_torch.core.transport import (CallableSink, FileSink, FileSource,
+                                        Frame, FrameCorruptError, MemorySink,
+                                        Sink, Source, StreamGapError,
+                                        TransportError, as_sink, connect)
+
+__all__ = ["FanoutStage", "PipelineRuntime", "PipelineTask", "Placement",
+           "Stage", "TaskResult", "TransientError", "split_payload",
+           "Adaptive", "Every", "InSituPlan", "InSituTaskError", "Interval",
+           "PlanError", "Session", "StreamSpec", "TaskSpec", "When",
+           "preset_names", "register_preset",
+           "PendingHandoff", "StagedItem", "StagingBuffer", "Telemetry",
+           "CallableSink", "FileSink", "FileSource", "Frame",
+           "FrameCorruptError", "MemorySink", "Sink", "Source",
+           "StreamGapError", "TransportError", "as_sink", "connect"]

@@ -1,0 +1,129 @@
+"""Serving-state layouts, dense GQA family.
+
+  dense GQA : k/v (L, B, S, N, hd) — N = kv heads (GQA shrinks the cache
+              by heads/N vs MHA).
+
+The paged engine turns every leaf whose sequence axis spans ``max_len``
+into a block-indexed page pool ``(L, num_pages, page_size, N, hd)``.
+``init_cache`` / ``init_paged_cache`` return concrete zeros on a device.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.pytree import tree_map
+
+PyTree = Any
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+           "float16": torch.float16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+def _is_desc(x: Any) -> bool:
+    return (isinstance(x, tuple) and len(x) in (3, 4)
+            and isinstance(x[0], tuple))
+
+
+def _gqa_kv(cfg: ModelConfig, layers: int, batch: int, seq: int):
+    hd = cfg.resolved_head_dim
+    shape = (layers, batch, seq, cfg.n_kv_heads, hd)
+    axes = ("layers", "batch", "seq", "kv_heads", "head_dim")
+    return {"k": (shape, axes, cfg.dtype), "v": (shape, axes, cfg.dtype)}
+
+
+def cache_layout(cfg: ModelConfig, batch: int, max_len: int) -> PyTree:
+    """Tree of (shape, logical_axes, dtype) descriptors."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (ROADMAP.md, queue 1: "
+            f"'Other model families')")
+    return {"kv": _gqa_kv(cfg, cfg.n_layers, batch, max_len)}
+
+
+def paged_cache_layout(cfg: ModelConfig, num_pages: int, page_size: int,
+                       max_reqs: int, max_len: int) -> tuple[PyTree, PyTree]:
+    """Split :func:`cache_layout` into (pool_layout, state_layout).
+
+    Leaves whose sequence axis spans ``max_len`` become block-indexed page
+    pools shared by every request: ``(layers, batch, max_len, ...)`` turns
+    into ``(layers, num_pages, page_size, ...)``. Everything else would
+    stay a dense per-row slab; the dense family has none, so its state
+    side is ``{}``.
+    """
+    def page_desc(d):
+        shape, axes = d[0], d[1]
+        if axes[:3] != ("layers", "batch", "seq"):
+            raise ValueError(f"cannot page a leaf with axes {axes}")
+        new_shape = (shape[0], num_pages, page_size) + shape[3:]
+        new_axes = ("layers", "pages", "page_slot") + axes[3:]
+        return (new_shape, new_axes) + d[2:]
+
+    def split(node):
+        pool, state = {}, {}
+        for k, v in node.items():
+            if _is_desc(v):
+                shape, axes = v[0], v[1]
+                if "seq" in axes and shape[axes.index("seq")] == max_len:
+                    pool[k] = page_desc(v)
+                else:
+                    state[k] = v
+            else:
+                p, s = split(v)
+                if p:
+                    pool[k] = p
+                if s:
+                    state[k] = s
+        return pool, state
+
+    return split(cache_layout(cfg, max_reqs, max_len))
+
+
+def _map_layout(layout: PyTree, fn) -> PyTree:
+    if _is_desc(layout):
+        return fn(layout)
+    return {k: _map_layout(v, fn) for k, v in layout.items()}
+
+
+def _zeros(device: torch.device):
+    def mk(d):
+        fill = d[3] if len(d) == 4 else 0.0
+        return torch.full(d[0], fill, dtype=torch_dtype(d[2]), device=device)
+    return mk
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device: torch.device | str = "cpu") -> PyTree:
+    return _map_layout(cache_layout(cfg, batch, max_len),
+                       _zeros(torch.device(device)))
+
+
+def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
+                     max_reqs: int, max_len: int,
+                     device: torch.device | str = "cpu"
+                     ) -> tuple[PyTree, PyTree]:
+    """Concrete zeros for (page pool, per-row state)."""
+    pool_l, state_l = paged_cache_layout(cfg, num_pages, page_size,
+                                         max_reqs, max_len)
+    mk = _zeros(torch.device(device))
+    return _map_layout(pool_l, mk), _map_layout(state_l, mk)
+
+
+def chain_view(pool_kv: PyTree, page_ids: torch.Tensor) -> PyTree:
+    """Gather one page chain back into token order.
+
+    pool leaf ``(layers, num_pages, page_size, ...)`` -> view
+    ``(layers, 1, n*page_size, ...)`` — the single-request prefill cache
+    layout, so a continuation prefill can attend over a resident shared
+    prefix.
+    """
+    def leaf(a):
+        gathered = a[:, page_ids]                      # (L, n, ps, ...)
+        return gathered.reshape(a.shape[0], -1, *a.shape[3:])[:, None]
+    return tree_map(leaf, pool_kv)

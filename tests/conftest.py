@@ -22,3 +22,9 @@ def tiny_params(arch: str, seed: int = 0):
     cfg = base.get(arch, smoke=True)
     prm = P.materialize(jax.random.PRNGKey(seed), transformer.param_spec(cfg))
     return cfg, prm
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (skips without one); run on "
+        "the card with `python -m pytest -m cuda tests/test_torch_*.py`")
