@@ -10,8 +10,7 @@ bridge. Tolerances:
 * bf16 prefill logits agree to atol 2e-2: every matmul output rounds to
   bf16 (8 significant bits, relative step 2^-8 ~ 4e-3) in both packages
   but at different places, and the differences accumulate over two
-  layers; the smoke logits are O(0.1..1) and differed by at most 5.9e-3
-  when the tolerance was set;
+  layers; the smoke logits are O(0.1..1);
 * greedy token streams of the paged engines are equal in f32 (params and
   cache cast to f32 on both sides), with and without a registered prefix.
 """
