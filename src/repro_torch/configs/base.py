@@ -1,4 +1,4 @@
-"""Config system: model configs and the config registry.
+"""Config system: model configs, shape sets and the config registry.
 
 Each architecture the port runs gets one module in this package defining
 ``CONFIG`` (the exact published numbers) and ``smoke()`` (a reduced config
@@ -36,6 +36,9 @@ class ModelConfig:
     # attention chunking (flash) — bounds prefill's live score memory
     q_chunk: int = 512
     kv_chunk: int = 1024
+    # training: recompute each block in the backward pass instead of
+    # keeping its activations (torch.utils.checkpoint per block)
+    remat: bool = True
     rules: str = "default"        # sharding policy name (kept for parity)
     source: str = ""
 
@@ -52,6 +55,25 @@ class ModelConfig:
         from repro_torch.models import params as P  # local: avoids a cycle
         from repro_torch.models import transformer
         return P.param_count(transformer.param_spec(self))
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: str          # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524288, 1),
+}
+
+# smoke-test shape (CPU, tiny)
+SMOKE_SHAPE = ShapeConfig("smoke", "train", 64, 2)
 
 
 ARCH_IDS: Sequence[str] = (

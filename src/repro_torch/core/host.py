@@ -45,11 +45,12 @@ def to_tensor(arr: np.ndarray, device: str | torch.device = "cpu"
               ) -> torch.Tensor:
     """Host array -> tensor on ``device``; tagged or ``ml_dtypes`` bf16
     arrays become ``torch.bfloat16`` through a uint16 bit view."""
+    shape = np.shape(arr)              # ascontiguousarray makes 0-d 1-d
     arr = np.ascontiguousarray(arr)
     if logical_name(arr.dtype) == "bfloat16":
         bits = torch.from_numpy(arr.view(np.int16).copy())
-        return bits.view(torch.bfloat16).to(device)
-    return torch.from_numpy(arr.copy()).to(device)
+        return bits.view(torch.bfloat16).reshape(shape).to(device)
+    return torch.from_numpy(arr.copy()).reshape(shape).to(device)
 
 
 def resolve_device(device: str | torch.device) -> torch.device:

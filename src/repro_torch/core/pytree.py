@@ -40,14 +40,17 @@ def keystr(path: _Path) -> str:
                    for k in path)
 
 
-def flatten_with_path(tree: PyTree) -> list[tuple[_Path, Any]]:
-    """``(path, leaf)`` pairs in JAX flatten order."""
+def flatten_with_path(tree: PyTree,
+                      is_leaf: Callable[[Any], bool] | None = None
+                      ) -> list[tuple[_Path, Any]]:
+    """``(path, leaf)`` pairs in JAX flatten order; ``is_leaf`` stops the
+    walk at matching containers (e.g. a ``Compressed`` named tuple)."""
     out: list[tuple[_Path, Any]] = []
 
     def walk(node: Any, path: _Path) -> None:
         if node is None:
             return
-        if _is_node(node):
+        if _is_node(node) and not (is_leaf is not None and is_leaf(node)):
             for k, child in _children(node):
                 walk(child, path + (k,))
             return
@@ -70,8 +73,11 @@ def tree_map(fn: Callable[..., Any], tree: PyTree, *rest: PyTree) -> PyTree:
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
-                          for i, v in enumerate(tree))
+        items = [tree_map(fn, v, *(r[i] for r in rest))
+                 for i, v in enumerate(tree)]
+        # a named tuple takes its fields positionally
+        return (type(tree)(*items) if hasattr(tree, "_fields")
+                else type(tree)(items))
     return fn(tree, *rest)
 
 

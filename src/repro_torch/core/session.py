@@ -11,7 +11,8 @@ hand-wired into it. Every workflow is one *plan*:
             every-N)
   tasks     what runs: an explicit ``device_stage -> handoff ->
             host_stages -> sink`` chain, or a registered *preset*
-            (``serve_snapshot``)
+            (``checkpoint``, ``grad_health``, ``spectra``,
+            ``serve_snapshot``)
 
 A plan is validated at construction (errors name the offending
 stream/task) and is loadable from a plain dict, in the JAX package's
@@ -32,12 +33,15 @@ format::
 
 ``Session`` owns ONE shared :class:`~repro_torch.core.runtime.PipelineRuntime`
 (the paper's single p_o/p_i split), exposes :meth:`Session.emit` as the
-*only* producer call, and merges telemetry, task results and errors into
-one :meth:`Session.report`.
+*only* producer call, folds a
+:class:`~repro_torch.checkpoint.CheckpointManager` in as the built-in
+``checkpoint`` preset (save, restore, retention), and merges telemetry,
+task results, errors and checkpoint statistics into one
+:meth:`Session.report`.
 
 Not ported yet, each refused with :class:`PlanError` naming its ROADMAP
-item: the ``checkpoint``, ``grad_health``, ``spectra`` and ``fault``
-presets, steering over a stream transport, and elastic restore.
+item: the ``fault`` preset, the tcp:// stream transport (so steering
+messages have no back-channel to arrive on yet), and elastic restore.
 """
 from __future__ import annotations
 
@@ -291,13 +295,12 @@ def _task_from_dict(name: str, spec: Mapping[str, Any]) -> TaskSpec:
 
 # A preset maps (TaskSpec) -> chain pieces for the shared runtime:
 #   {"sink": ..., "host_stages": ..., "device_stage": ..., "handoff": ...}
+# The 'checkpoint' preset is special-cased by Session (it folds a whole
+# CheckpointManager — save/restore/retention — into the plan).
 _PRESETS: dict[str, Callable[[TaskSpec], dict]] = {}
 
 # presets of the JAX package the port does not carry yet -> ROADMAP item
 _NOT_PORTED = {
-    "checkpoint": "the training slice (checkpoint/*)",
-    "grad_health": "the training slice (core/analysis.py)",
-    "spectra": "the training slice (core/analysis.py)",
     "fault": "'Distribution and faults' (distributed/fault.py)",
 }
 
@@ -319,8 +322,8 @@ def register_preset(name: str):
 
 
 def preset_names() -> list[str]:
-    """Registered preset names."""
-    return sorted(_PRESETS)
+    """Registered preset names (plus the Session-built-in 'checkpoint')."""
+    return sorted(set(_PRESETS) | {"checkpoint"})
 
 
 class _PresetSink(transport.Sink):
@@ -390,6 +393,34 @@ def _terminal_pieces(spec: TaskSpec, transform: Callable[[int, Any], Any],
     }
     pieces.update(extra)
     return pieces
+
+
+@register_preset("grad_health")
+def _grad_health_preset(spec: TaskSpec) -> dict:
+    """Gradient-health roll-up artifact (global norm, norm sheet, NaN flags).
+    Options: ``to`` (transport URL streaming each artifact to a consumer)."""
+    from repro_torch.core import analysis
+
+    def transform(step: int, payload: Any):
+        return analysis.gradient_health(payload, step)
+
+    return _terminal_pieces(spec, transform)
+
+
+@register_preset("spectra")
+def _spectra_preset(spec: TaskSpec) -> dict:
+    """Per-tensor spectral/histogram/heatmap artifacts (the paper's
+    "image generation" analog). Options: ``work`` (cost knob, default 1),
+    ``to`` (transport URL streaming each artifact to a consumer)."""
+    from repro_torch.core import analysis
+    work = int(spec.options.get("work", 1))
+
+    def transform(step: int, payload: Any):
+        if isinstance(payload, Mapping):
+            return analysis.summarize_tree(payload, step, work=work)
+        return analysis.tensor_summary(spec.stream, payload, step, work=work)
+
+    return _terminal_pieces(spec, transform, known_options=("work",))
 
 
 @register_preset("serve_snapshot")
@@ -495,6 +526,7 @@ class InSituPlan:
                 f"staging_capacity must be >= 1, got {self.staging_capacity}")
         stream_names = set(names)
         seen: set[str] = set()
+        n_ckpt = 0
         for t in self.tasks:
             if not t.name:
                 raise PlanError("task names must be non-empty")
@@ -546,7 +578,33 @@ class InSituPlan:
                 raise PlanError(
                     f"task {t.name!r}: preset {t.preset!r} is not ported "
                     f"yet (ROADMAP.md: {_NOT_PORTED[t.preset]})")
-            if t.preset is not None and t.preset not in _PRESETS:
+            if t.preset == "checkpoint":
+                n_ckpt += 1
+                if n_ckpt > 1:
+                    raise PlanError(
+                        f"task {t.name!r}: a plan may declare at most one "
+                        "checkpoint task")
+                if not t.options.get("directory"):
+                    raise PlanError(
+                        f"task {t.name!r}: checkpoint preset requires "
+                        "options={'directory': ...}")
+                # the manager owns its pipeline's scheduling knobs; accept
+                # only what is actually wired through
+                if t.backpressure is not None:
+                    raise PlanError(
+                        f"task {t.name!r}: the checkpoint preset does not "
+                        "take a backpressure policy (the manager's "
+                        "pipeline uses 'block')")
+                if isinstance(t.trigger, Adaptive):
+                    raise PlanError(
+                        f"task {t.name!r}: the checkpoint preset gates "
+                        "saves session-side, so an Adaptive trigger would "
+                        "never widen — use Every/When/Interval")
+                if t.shards != 1 or not t.pipelined or not t.snapshot:
+                    raise PlanError(
+                        f"task {t.name!r}: checkpoint preset does not "
+                        "accept shards/pipelined/snapshot overrides")
+            elif t.preset is not None and t.preset not in _PRESETS:
                 raise PlanError(
                     f"task {t.name!r}: unknown preset {t.preset!r} "
                     f"(registered: {preset_names()})")
@@ -611,14 +669,15 @@ def _memoized(fn: Callable[[], Any]) -> Callable[[], Any]:
 class _Binding:
     """One task wired into the live runtime (session-internal)."""
 
-    __slots__ = ("spec", "source", "session_gated", "last_fire_t")
+    __slots__ = ("spec", "source", "session_gated", "last_fire_t", "mgr")
 
-    def __init__(self, spec: TaskSpec, source: str,
-                 session_gated: bool) -> None:
+    def __init__(self, spec: TaskSpec, source: str, session_gated: bool,
+                 mgr: Any = None) -> None:
         self.spec = spec
         self.source = source
         self.session_gated = session_gated
         self.last_fire_t: Optional[float] = None
+        self.mgr = mgr          # the CheckpointManager of a checkpoint task
 
     def due(self, step: int, now: float) -> bool:
         """Session-side gate. Every/Adaptive are runtime-gated (so the
@@ -674,8 +733,12 @@ class Session:
             raise ValueError("pass either a telemetry or a runtime (whose "
                              "telemetry is used), not two different objects")
         self.runtime = runtime
+        self.checkpoint = None            # CheckpointManager, if declared
         self._raise_on_error = raise_on_error
         self._finished = False
+        self._steering: list[dict] = []   # applied steering commands
+        self._steering_rejected = 0       # invalid commands refused
+        self._ckpt_meta: Optional[dict] = None
         self._task_stream: dict[str, str] = {}
         self._reporters: dict[str, Callable[[], Mapping[str, Any]]] = {}
         self._stores: dict[str, Any] = {}
@@ -689,6 +752,9 @@ class Session:
 
     def _bind(self, spec: TaskSpec) -> None:
         self._task_stream[spec.name] = spec.stream
+        if spec.preset == "checkpoint":
+            self._bind_checkpoint(spec)
+            return
         if spec.preset is not None:
             pieces = _PRESETS[spec.preset](spec)
         else:
@@ -735,6 +801,30 @@ class Session:
         self._by_stream[spec.stream].append(
             _Binding(spec, task.source, session_gated))
 
+    def _bind_checkpoint(self, spec: TaskSpec) -> None:
+        """Fold a CheckpointManager into the session as a declared task.
+
+        Save/restore/retention semantics are the manager's; it registers
+        its pipeline into the *shared* runtime, so checkpoint writes and
+        analytics draw from the same worker pool. ``options`` are
+        :class:`~repro_torch.checkpoint.CheckpointConfig` fields."""
+        from repro_torch.checkpoint import CheckpointConfig, CheckpointManager
+        opts = dict(spec.options)
+        every = (spec.trigger.n
+                 if isinstance(spec.trigger, (Every, Adaptive)) else 1)
+        try:
+            cfg = CheckpointConfig(directory=opts.pop("directory"),
+                                   mode=spec.placement, every=every, **opts)
+        except TypeError as e:
+            raise PlanError(f"task {spec.name!r}: bad checkpoint option: "
+                            f"{e}") from None
+        mgr = CheckpointManager(cfg, runtime=self.runtime)
+        self.checkpoint = mgr
+        if mgr._mirror is not None:
+            self._transports[spec.name] = mgr._mirror
+        self._by_stream[spec.stream].append(
+            _Binding(spec, "ckpt_state", True, mgr=mgr))
+
     # -- producer side --------------------------------------------------------
 
     def emit(self, stream: str, step: int, payload: Any) -> None:
@@ -753,20 +843,113 @@ class Session:
             raise PlanError(
                 f"emit on unknown stream {stream!r} (declared: "
                 f"{sorted(self._by_stream)})")
+        if self._transports:
+            # the consumer's steering back-channel
+            self.poll_steering()
         now = self._clock()
         providers: dict[str, Callable[[], Any]] = {}
         for b in bindings:
             if b.session_gated and not b.due(step, now):
                 continue
+            if b.mgr is not None:
+                # checkpoint: session-gated; the manager's registered
+                # pipeline (every=1) does the save through the shared pool
+                if isinstance(b.spec.trigger, (Every, Adaptive)):
+                    if step % b.spec.trigger.n:
+                        continue
+                b.mgr.save(step, provider(), meta=self._ckpt_meta)
+                continue
             providers[b.source] = provider
         if providers:
             self.runtime.submit(step, providers)
 
+    # -- steering (the consumer's back-channel) -------------------------------
+
+    def _binding(self, task: str) -> Optional[_Binding]:
+        for b_list in self._by_stream.values():
+            for b in b_list:
+                if b.spec.name == task:
+                    return b
+        return None
+
     def poll_steering(self) -> list[dict]:
-        """Steering arrives over the ``tcp://`` stream transport's
-        back-channel, which the port does not carry yet."""
-        raise PlanError("steering is not ported yet (ROADMAP.md: the tcp:// "
-                        "stream transport and steering)")
+        """Drain steering messages from every transport back-channel and
+        apply them to the live run (see :meth:`_apply_steering`). The port's
+        transports (file://, memory://) have no back-channel yet — the
+        tcp:// stream transport is not ported — so this finds nothing
+        until it is."""
+        applied = []
+        for via, tsink in self._transports.items():
+            for msg in tsink.poll_control():
+                if not isinstance(msg, dict):
+                    continue
+                rec = self._apply_steering(via, msg)
+                self._steering.append(rec)
+                applied.append(rec)
+        return applied
+
+    def _apply_steering(self, via: str, msg: Mapping[str, Any]) -> dict:
+        """Validate-then-apply one steering message naming a task::
+
+            {"task": "analytics", "every": 20}       # firing cadence
+            {"task": "ckpt", "lossy_eps": 0.05}      # lossy threshold
+
+        ``every`` retunes any bound task (checkpoint tasks via their
+        session-side trigger); ``lossy_eps`` retunes the checkpoint codec's
+        error bound for every *subsequent* save. Invalid values of known
+        knobs are rejected (counted into
+        ``report()["steering"]["steering_rejected"]``, never applied);
+        unknown knobs are ignored.
+        """
+        import math
+
+        task = str(msg.get("task", via))
+        rec: dict[str, Any] = {"via": via, "task": task,
+                               "applied": {}, "rejected": {}, "ignored": {}}
+        binding = self._binding(task)
+
+        def reject(key, val, why):
+            rec["rejected"][key] = f"{val!r} ({why})"
+            self._steering_rejected += 1
+
+        for key, val in msg.items():
+            if key == "task":
+                continue
+            if key == "every":
+                try:
+                    n = int(val)
+                except (ValueError, TypeError) as e:
+                    reject(key, val, e)
+                    continue
+                if n < 1:
+                    reject(key, val, f"every must be >= 1, got {n}")
+                    continue
+                try:
+                    if binding is not None and binding.mgr is not None:
+                        binding.spec.trigger = Every(n)
+                    else:
+                        self.runtime.set_every(task, n)
+                    rec["applied"]["every"] = n
+                except (ValueError, KeyError) as e:
+                    reject(key, val, e)
+            elif key == "lossy_eps":
+                try:
+                    eps = float(val)
+                except (ValueError, TypeError) as e:
+                    reject(key, val, e)
+                    continue
+                # NaN fails isfinite, not the comparison
+                if not math.isfinite(eps) or eps <= 0:
+                    reject(key, val, "lossy_eps must be finite and > 0")
+                    continue
+                if self.checkpoint is None:
+                    rec["ignored"][key] = eps     # valid, nothing to retune
+                    continue
+                self.checkpoint.cfg.lossy_eps = eps
+                rec["applied"]["lossy_eps"] = eps
+            else:
+                rec["ignored"][key] = val
+        return rec
 
     def transport_of(self, task: str) -> Optional[transport.Sink]:
         """The transport sink a task declared via ``options={"to": ...}``
@@ -837,13 +1020,37 @@ class Session:
     def stream_of(self, task: str) -> Optional[str]:
         """The stream a task is bound to (None for tasks the plan doesn't
         know, e.g. registered directly on a passed-in runtime)."""
+        if task == "checkpoint" and task not in self._task_stream:
+            for b_list in self._by_stream.values():
+                for b in b_list:
+                    if b.mgr is not None:
+                        return b.spec.stream
         return self._task_stream.get(task)
 
-    def restore(self, *args: Any, **kwargs: Any) -> Any:
-        """Restore (plain or elastic) comes with the checkpoint preset."""
-        raise PlanError("restore is not ported yet (ROADMAP.md: the "
-                        "training slice's checkpoint preset; elastic "
-                        "restore with 'Distribution and faults')")
+    # -- checkpoint passthrough ----------------------------------------------
+
+    def set_checkpoint_meta(self, meta: Optional[Mapping[str, Any]] = None
+                            ) -> None:
+        """Attach run metadata to every subsequent checkpoint save."""
+        self._ckpt_meta = dict(meta) if meta else None
+
+    def restore(self, template: PyTree, step: Optional[int] = None, *,
+                elastic: bool = False) -> tuple[int, PyTree]:
+        """Restore from the plan's checkpoint task: ``(step, state)`` with
+        the template's structure, dtypes and shapes, on the device the
+        task's options name (the card by default). Elastic restore (a
+        re-mesh onto surviving devices) is not ported yet."""
+        if elastic:
+            raise PlanError("elastic restore is not ported yet (ROADMAP.md: "
+                            "'Distribution and faults')")
+        if self.checkpoint is None:
+            raise PlanError("plan declares no checkpoint task to restore from")
+        return self.checkpoint.restore(template, step)
+
+    def latest_checkpoint_step(self) -> Optional[int]:
+        if self.checkpoint is None:
+            return None
+        return self.checkpoint.latest_step()
 
     # -- lifecycle ------------------------------------------------------------
 
@@ -873,6 +1080,8 @@ class Session:
                     tsink.close()
                 except Exception:  # noqa: BLE001 - teardown must not raise
                     pass
+            if self.checkpoint is not None:
+                self.checkpoint.finish()
         raise_ = (self._raise_on_error if raise_on_error is None
                   else raise_on_error)
         if raise_ and self.runtime.errors:
@@ -893,12 +1102,18 @@ class Session:
         """One merged report: telemetry overlap attribution, task results,
         errors and backpressure state."""
         rep = self.runtime.report()
+
+        def _runtime_name(t: TaskSpec) -> str:
+            # the checkpoint manager registers its pipeline under its own
+            # name, whatever the plan called the binding
+            return "checkpoint" if t.preset == "checkpoint" else t.name
+
         rep["tasks"] = {
             t.name: {"stream": t.stream,
                      "results": sum(1 for r in self.runtime.results
-                                    if r.task == t.name),
+                                    if r.task == _runtime_name(t)),
                      "errors": sum(1 for (n, _, _) in self.runtime.errors
-                                   if n == t.name)}
+                                   if n == _runtime_name(t))}
             for t in self.plan.tasks}
         for name, reporter in self._reporters.items():
             # preset-contributed stats (e.g. serve_snapshot's delta ratio
@@ -913,8 +1128,23 @@ class Session:
                      "frames": tsink.frames_written,
                      "bytes": tsink.bytes_written}
             rep["tasks"].setdefault(name, {})["transport"] = stats
+        if self._steering or self._steering_rejected:
+            rep["steering"] = {
+                "commands": [dict(s) for s in self._steering],
+                "steering_rejected": self._steering_rejected,
+            }
         rep["errors"] = [
             {"task": n, "stream": self.stream_of(n) or "?", "step": s,
              "error": f"{type(e).__name__}: {e}"}
             for (n, s, e) in self.runtime.errors]
+        if self.checkpoint is not None:
+            reports = list(self.checkpoint.reports)
+            rep["checkpoint"] = {
+                "saves": len(reports),
+                "raw_bytes": sum(r.raw_bytes for r in reports),
+                "stored_bytes": sum(r.stored_bytes for r in reports),
+                # saves on several workers append in completion order
+                "last_step": max((r.step for r in reports), default=None),
+                "kept_steps": self.checkpoint.list_steps(),
+            }
         return rep

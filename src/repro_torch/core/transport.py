@@ -72,6 +72,7 @@ _MAX_FRAME = 1 << 31            # sanity bound on a declared body length
 CODEC_TREE = "tree"             # pack_payload/unpack_payload pytree framing
 CODEC_JSON = "json"             # plain JSON bytes (control frames)
 CODEC_RAW = "raw"               # opaque bytes (e.g. snapshot-chain frames)
+CODEC_FILE = "file"             # pack_file/unpack_file (path, bytes) pairs
 
 
 # ---------------------------------------------------------------------------
@@ -263,6 +264,36 @@ def unpack_payload(data: bytes, *, parallel: bool = True) -> Any:
 # atomic file publish — the one tmp -> fsync -> rename implementation
 # ---------------------------------------------------------------------------
 
+def pack_file(relpath: str, data: bytes) -> bytes:
+    """(relative path, file bytes) -> CODEC_FILE payload (no base64 bloat)."""
+    pb = relpath.encode()
+    return struct.pack("<H", len(pb)) + pb + bytes(data)
+
+
+def unpack_file(payload: bytes) -> tuple[str, bytes]:
+    (plen,) = struct.unpack_from("<H", payload, 0)
+    return payload[2:2 + plen].decode(), bytes(payload[2 + plen:])
+
+
+def send_directory(sink: "Sink", step: int, directory: str, *,
+                   prefix: str = "", stream: Optional[str] = None) -> int:
+    """Replicate a committed directory through a sink, one ``CODEC_FILE``
+    frame per file, ``manifest.json`` last (so a consumer materializing
+    files in arrival order reproduces the publish-manifest-last crash
+    protocol). Returns the number of frames sent."""
+    names = []
+    for root, _, files in os.walk(directory):
+        for name in files:
+            names.append(os.path.relpath(os.path.join(root, name), directory))
+    names.sort(key=lambda n: (os.path.basename(n) == "manifest.json", n))
+    for rel in names:
+        with open(os.path.join(directory, rel), "rb") as f:
+            data = f.read()
+        sink.write(step, pack_file(os.path.join(prefix, rel), data),
+                   stream=stream, codec=CODEC_FILE)
+    return len(names)
+
+
 def atomic_write_bytes(path: str, data: bytes, *,
                        fsync_dir: bool = True) -> None:
     """Crash-safe single-file publish: write a same-directory tmp, fsync,
@@ -342,10 +373,11 @@ class Sink:
               kind: int = KIND_DATA) -> dict:
         """Pack + send one payload; returns a small record (the runtime
         stores it in ``results``). ``codec`` overrides the payload framing:
-        ``CODEC_RAW`` ships ``payload`` bytes verbatim, anything else packs
+        ``CODEC_RAW`` and ``CODEC_FILE`` ship ``payload`` bytes verbatim,
+        anything else packs
         the pytree through :func:`pack_payload`."""
         stream = stream if stream is not None else self.stream
-        if codec == CODEC_RAW:
+        if codec == CODEC_RAW or codec == CODEC_FILE:
             body, codec_name = bytes(payload), codec
         elif codec == CODEC_JSON:
             body, codec_name = json.dumps(payload).encode(), CODEC_JSON
@@ -367,6 +399,11 @@ class Sink:
     def __call__(self, step: int, payload: Any) -> Any:
         # a Sink drops in anywhere a legacy sink callable was expected
         return self.write(step, payload)
+
+    def poll_control(self) -> list[dict]:
+        """Steering messages received from a consumer (stream transports
+        only); the local backends have no back-channel."""
+        return []
 
     def __enter__(self) -> "Sink":
         return self.open()
@@ -464,6 +501,8 @@ def decode_frame_payload(frame: Frame) -> Any:
         return unpack_payload(frame.payload)
     if frame.codec == CODEC_JSON:
         return json.loads(frame.payload.decode())
+    if frame.codec == CODEC_FILE:
+        return unpack_file(frame.payload)
     return frame.payload               # CODEC_RAW and unknown: opaque bytes
 
 

@@ -1,4 +1,4 @@
-"""Shared layers: RMSNorm, SwiGLU MLP, embeddings, RoPE."""
+"""Shared layers: RMSNorm, SwiGLU MLP, embeddings, RoPE, cross-entropy."""
 from __future__ import annotations
 
 from typing import Optional
@@ -101,3 +101,16 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token cross-entropy in f32; labels < vocab_size always (pad
+    columns carry the dtype minimum and never win)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

@@ -82,13 +82,15 @@ def materialize(generator: torch.Generator, spec_tree: PyTree,
     return tree_map(lambda s: _init_leaf(generator, s).to(dev), spec_tree)
 
 
-def from_numpy_tree(tree: PyTree, device: str | torch.device = "cpu"
+def from_numpy_tree(tree: PyTree, device: str | torch.device = "cuda"
                     ) -> PyTree:
     """A JAX-package parameter tree (numpy leaves, e.g. after
-    ``jax.device_get``) as the port's tensors: same keys, shapes, dtypes
-    and bits. ``ml_dtypes`` bf16 leaves cross through a uint16 bit view, so
-    the port never imports ``ml_dtypes``."""
-    return tree_map(lambda a: host.to_tensor(np.asarray(a), device), tree)
+    ``jax.device_get``) as the port's tensors on ``device`` (the card
+    unless the caller asks for the CPU): same keys, shapes, dtypes and
+    bits. ``ml_dtypes`` bf16 leaves cross through a uint16 bit view, so the
+    port never imports ``ml_dtypes``."""
+    dev = host.resolve_device(device)
+    return tree_map(lambda a: host.to_tensor(np.asarray(a), dev), tree)
 
 
 def param_count(spec_tree: PyTree) -> int:

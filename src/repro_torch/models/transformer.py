@@ -2,17 +2,28 @@
 
 Layer parameters are stacked on a leading ``layers`` axis, as in the JAX
 package, so a parameter tree crosses between the two packages unchanged.
+The training forward walks the stack one block at a time (the JAX
+package's ``lax.scan``), recomputing each block in the backward pass when
+``cfg.remat`` (its ``jax.checkpoint``). Attention is the plain chunked
+``flash_attention``: the training path has no TPU kernel to port, so
+PyTorch autograd differentiates it.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import (apply_rope, embed_spec, mlp_spec,
-                                       rmsnorm, rmsnorm_spec)
+from repro_torch.core.pytree import tree_map
+from repro_torch.models import attention as attn_lib
+from repro_torch.models.layers import (apply_rope, cross_entropy, embed,
+                                       embed_spec, mlp, mlp_spec, rmsnorm,
+                                       rmsnorm_spec, unembed)
 from repro_torch.models.params import ParamSpec
+
+PyTree = Any
 
 
 # ---------------------------------------------------------------------------
@@ -60,6 +71,14 @@ def project_qkv(p, x: torch.Tensor, cfg: ModelConfig, positions):
     return q, k, v
 
 
+def gqa_attention(p, x: torch.Tensor, cfg: ModelConfig,
+                  positions) -> torch.Tensor:
+    q, k, v = project_qkv(p, x, cfg, positions)
+    o = attn_lib.flash_attention(q, k, v, causal=True, q_chunk=cfg.q_chunk,
+                                 kv_chunk=cfg.kv_chunk)
+    return torch.einsum("bshk,hkd->bsd", o, p["wo"])
+
+
 # ---------------------------------------------------------------------------
 # Param spec for the whole model
 # ---------------------------------------------------------------------------
@@ -84,3 +103,51 @@ def param_spec(cfg: ModelConfig) -> dict:
         "blocks": _dense_block_spec(cfg, cfg.n_layers, cfg.d_ff),
         "final_norm": rmsnorm_spec(cfg.d_model),
     }
+
+
+# ---------------------------------------------------------------------------
+# Forward and train loss
+# ---------------------------------------------------------------------------
+
+def dense_block(p, x: torch.Tensor, cfg: ModelConfig,
+                positions) -> torch.Tensor:
+    xn = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    x = x + gqa_attention(p["attn"], xn, cfg, positions)
+    xn = rmsnorm(p["ln2"], x, cfg.norm_eps)
+    return x + mlp(p["mlp"], xn)
+
+
+def forward(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor):
+    """tokens: (B, S) int. Returns (logits, aux_loss, loss_mask)."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (ROADMAP.md, queue 1: "
+            f"'Other model families')")
+    h = embed(params["embed"], tokens.long())
+    loss_mask = torch.ones(tokens.shape, dtype=torch.float32,
+                           device=tokens.device)
+    b, s, _ = h.shape
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=tokens.device).expand(b, s)
+    for i in range(cfg.n_layers):
+        p_i = tree_map(lambda t: t[i], params["blocks"])
+
+        def body(x, p_i=p_i):
+            return dense_block(p_i, x, cfg, positions)
+
+        if cfg.remat and torch.is_grad_enabled():
+            h = checkpoint(body, h, use_reentrant=False)
+        else:
+            h = body(h)
+    h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    logits = unembed(params["embed"], h, cfg.vocab_size)
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    return logits, aux, loss_mask
+
+
+def train_loss(params: PyTree, cfg: ModelConfig,
+               batch: dict) -> torch.Tensor:
+    logits, aux, mask = forward(params, cfg, batch["tokens"])
+    if "mask" in batch:
+        mask = mask * batch["mask"]
+    return cross_entropy(logits, batch["labels"], mask) + aux

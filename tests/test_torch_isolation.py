@@ -4,6 +4,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -29,11 +30,11 @@ def test_every_module_imports_without_jax_or_repro():
                          env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"},
                          check=True).stdout.split(maxsplit=1)
     n_modules, bad = int(out[0]), out[1].strip()
-    assert n_modules >= 25          # every module of the slice was imported
+    assert n_modules >= 45          # every module of both slices imported
     assert bad == "[]", f"port pulled in {bad}"
 
 
-def test_entry_points_default_to_the_card():
+def test_entry_points_default_to_the_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is valid here")
     from repro_torch.launch.serve import serve_loop
@@ -50,3 +51,34 @@ def test_entry_points_default_to_the_card():
         P.materialize(torch.Generator(), spec)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         PagedServingEngine(cfg, {}, num_pages=5, max_len=64)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        P.from_numpy_tree({"w": np.zeros(3, np.float32)})
+
+    # the training slice's entry points
+    from repro_torch.checkpoint import (CheckpointConfig, CheckpointManager,
+                                        serialization)
+    from repro_torch.core import lossy
+    from repro_torch.core.runtime import Placement
+    from repro_torch.launch.train import init_state, state_from_numpy, \
+        train_loop
+    from repro_torch.optim import AdamWConfig
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_loop("smollm-135m", steps=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_state(cfg, 0, AdamWConfig())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        state_from_numpy({"count": np.zeros((), np.int32)})
+    state = {"w": torch.zeros(4)}
+    mgr = CheckpointManager(CheckpointConfig(str(tmp_path), every=1,
+                                             mode=Placement.SYNC))
+    mgr.save(1, state)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mgr.restore(state)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serialization.read_state(str(tmp_path / "step_000000001"), state)
+    blob, _ = lossy.compress_tensor(torch.zeros(300), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        lossy.decompress_tensor(blob)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        lossy.compress_tensor(np.zeros(300, np.float32))

@@ -61,7 +61,6 @@ def test_waiting_parts_say_so():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         serve_loop("hymba-1.5b", device="cpu")
     plan = default_serve_plan()
-    plan["tasks"]["ckpt"] = {"stream": "kv_pages", "preset": "checkpoint",
-                             "options": {"directory": "/nonexistent"}}
+    plan["tasks"]["fault"] = {"stream": "kv_pages", "preset": "fault"}
     with pytest.raises(PlanError, match="not ported"):
         Session(plan)
