@@ -323,9 +323,10 @@ def read_state(directory: str, template: PyTree,
     v2 checkpoints are read with one sequential-readahead mmap per shard
     file and the per-leaf decode fanned out on ``pool`` (the shared codec
     executor); lossy leaves dequantize on ``device`` (the dequantise +
-    inverse DCT kernel on the card). Truncated/corrupt stored bytes raise
-    ``CheckpointCorruptError``; a template leaf missing from the manifest
-    raises ``KeyError`` naming the leaf.
+    inverse DCT kernel on the card, on each pool thread's own stream).
+    Truncated/corrupt stored bytes raise ``CheckpointCorruptError``; a
+    template leaf missing from the manifest raises ``KeyError`` naming
+    the leaf.
     """
     dev = host.resolve_device(device)
     manifest = read_manifest(directory)
@@ -351,25 +352,28 @@ def read_state(directory: str, template: PyTree,
         jobs.append((key, ent, leaf))
 
     fan_leaves = pool is not None and len(jobs) > 1
+    # the leaves are decoded on pool threads, each on its own side stream;
+    # what they make is handed to this thread's stream
+    caller = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
 
     def _restore_one(job: tuple):
         key, ent, leaf = job
         blob = _fetch_blob(directory, key, ent, shards)
-        # chunk-level fan-out only when leaves decode serially: nesting
-        # both levels on one executor would have leaf jobs block on chunk
-        # jobs that cannot be scheduled behind them
-        arr = lossy.decompress_blob(blob, None if fan_leaves else pool,
-                                    device=dev)
-        if isinstance(arr, torch.Tensor):
-            t = arr
-        elif ent.get("bf16") and not ent["lossy"]:
-            t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)
-                                 ).view(torch.bfloat16).to(dev)
-        else:
-            t = host.to_tensor(arr, dev)
-        want_dtype = getattr(leaf, "dtype", t.dtype)
-        want_shape = tuple(getattr(leaf, "shape", t.shape))
-        return key, t.to(want_dtype).reshape(want_shape)
+        with host.worker_stream(dev):
+            # chunk-level fan-out only when leaves decode serially: nesting
+            # both levels on one executor would have leaf jobs block on
+            # chunk jobs that cannot be scheduled behind them
+            arr = lossy.decompress_blob(blob, None if fan_leaves else pool,
+                                        device=dev)
+            if not isinstance(arr, torch.Tensor):
+                if ent.get("bf16") and not ent["lossy"]:
+                    arr = np.ascontiguousarray(arr).view(host.BF16)
+                arr = host.to_device(arr, dev)
+            t = arr.to(getattr(leaf, "dtype", arr.dtype)).reshape(
+                tuple(getattr(leaf, "shape", arr.shape)))
+        if caller is not None:
+            t.record_stream(caller)
+        return key, t
 
     if fan_leaves:
         restored = dict(pool.map(_restore_one, jobs))

@@ -12,9 +12,9 @@ bytes`` and ``decode(bytes) -> ndarray``; lossy codecs additionally expose
 ``error_bound() -> float`` (relative-L2). Provider modules register at
 import time; ``get``/``available`` lazily import the built-in providers.
 The port registers the lossless codecs (the stdlib framings and
-``delta``) and the lossy ``spectral``/``spectral-coarse`` (whose work runs
-on the card); ``int8-ef`` waits for the cross-pod gradient path
-(ROADMAP.md).
+``delta``), the lossy ``spectral``/``spectral-coarse`` (whose work runs
+on the card) and the host-only ``int8-ef`` wire codec of the cross-pod
+gradient path.
 """
 from __future__ import annotations
 
@@ -39,7 +39,7 @@ _REGISTRY: dict[str, Codec] = {}
 # modules that register codecs at import time (kept lazy: importing the
 # registry must not drag in kernels until a codec is actually needed)
 _PROVIDERS = ("repro_torch.core.codecs", "repro_torch.core.delta",
-              "repro_torch.core.lossy")
+              "repro_torch.core.lossy", "repro_torch.optim.grad_compress")
 _providers_loaded = False
 
 

@@ -16,6 +16,11 @@ A policy decides which leaves may be lossy: by default only optimizer
 Devices: :func:`compress_tensor` runs where its tensor lives (a host array
 goes to the ``device`` the caller names); :func:`decompress_tensor`
 dequantizes on the ``device`` the caller names. Both default to the card.
+On the card both run on the calling thread's own side stream
+(``host.worker_stream``): the checkpoint's workers call them while the
+training loop keeps stepping on the default stream. Host arrays cross
+through pinned memory, and the int8 coefficients come back chunk by chunk,
+each chunk framed as soon as its copy lands.
 """
 from __future__ import annotations
 
@@ -57,14 +62,6 @@ def error_bound(eps: float) -> float:
     return ref.error_bound(eps)
 
 
-def _as_tensor(x, device: str | torch.device) -> torch.Tensor:
-    """A tensor stays where it is; a host array (bf16 as the tagged uint16
-    host dtype) goes to ``device``."""
-    if isinstance(x, torch.Tensor):
-        return x
-    return host.to_tensor(np.asarray(x), host.resolve_device(device))
-
-
 # ---------------------------------------------------------------------------
 # single tensor: device lossy stage -> host lossless stage -> framed bytes
 # ---------------------------------------------------------------------------
@@ -82,8 +79,17 @@ def _raw_bytes(dtype: torch.dtype, shape: tuple) -> int:
 
 
 def _host(t) -> np.ndarray:
-    """A tensor's host array (bf16 tagged); a host array as it is."""
+    """A tensor's host array (bf16 tagged), a finished copy's, or a host
+    array as it is."""
+    if isinstance(t, host.HostCopy):
+        return t.result()
     return host.to_numpy(t.cpu()) if isinstance(t, torch.Tensor) else t
+
+
+def _start_copy(t: torch.Tensor):
+    """A CUDA tensor's copy to pinned host memory, started; a CPU tensor
+    as it is."""
+    return host.HostCopy(t) if t.device.type == "cuda" else t
 
 
 def frame_compressed(c: ref.Compressed, lossless: str = "zlib",
@@ -137,28 +143,37 @@ def compress_tensor(x, eps: float = 1e-2, lossless: str = "zlib",
 
     A tensor is compressed where it lives; a host array is first moved to
     ``device``. ``stream`` (default: auto — multi-chunk payloads without
-    ``measure``) frames the int8 coefficients chunk by chunk. Output bytes
-    are identical either way.
+    ``measure``) frames the int8 coefficients chunk by chunk, every
+    chunk's copy to the host started up front. Output bytes are identical
+    either way.
     """
-    x = _as_tensor(x, device)
-    if stream is None:
-        stream = not measure and x.numel() > codecs.DEFAULT_CHUNK
-    if stream and not measure:
-        chunks, scale, n = ops.spectral_compress_chunked(
-            x, eps, chunk_blocks=codecs.DEFAULT_CHUNK // ref.BLOCK)
-        q_blob, kept = _frame_chunked_q(chunks, lossless, pool)
-        s_blob, _ = codecs.encode(_host(scale), lossless, pool=pool)
-        shape = tuple(int(d) for d in x.shape)
-        header = _lossy_header(x.dtype, n, shape, len(q_blob), len(s_blob))
-        blob = header + q_blob + s_blob
-        return blob, LossyStats(_raw_bytes(x.dtype, shape), len(blob),
-                                float(kept))
-    c = ops.spectral_compress(x, eps)                # device lossy stage
-    blob, st = frame_compressed(c, lossless, pool)   # host lossless stage
-    if measure:
-        st = LossyStats(st.raw_bytes, st.stored_bytes, st.kept_fraction,
-                        ref.rel_l2_error(x, ops.spectral_decompress(c)))
-    return blob, st
+    dev = x.device if isinstance(x, torch.Tensor) \
+        else host.resolve_device(device)
+    inputs = (x,) if isinstance(x, torch.Tensor) else ()
+    with host.worker_stream(dev, *inputs):
+        if not isinstance(x, torch.Tensor):
+            x = host.to_device(np.asarray(x), dev)
+        if stream is None:
+            stream = not measure and x.numel() > codecs.DEFAULT_CHUNK
+        if stream and not measure:
+            chunks, scale, n = ops.spectral_compress_chunked(
+                x, eps, chunk_blocks=codecs.DEFAULT_CHUNK // ref.BLOCK)
+            scale = _start_copy(scale)
+            q_blob, kept = _frame_chunked_q(
+                [_start_copy(ch) for ch in chunks], lossless, pool)
+            s_blob, _ = codecs.encode(_host(scale), lossless, pool=pool)
+            shape = tuple(int(d) for d in x.shape)
+            header = _lossy_header(x.dtype, n, shape, len(q_blob),
+                                   len(s_blob))
+            blob = header + q_blob + s_blob
+            return blob, LossyStats(_raw_bytes(x.dtype, shape), len(blob),
+                                    float(kept))
+        c = ops.spectral_compress(x, eps)                # device lossy stage
+        blob, st = frame_compressed(c, lossless, pool)   # host lossless stage
+        if measure:
+            st = LossyStats(st.raw_bytes, st.stored_bytes, st.kept_fraction,
+                            ref.rel_l2_error(x, ops.spectral_decompress(c)))
+        return blob, st
 
 
 def _parse_frame(blob: bytes, pool=None) -> ref.Compressed:
@@ -187,13 +202,17 @@ def _parse_frame(blob: bytes, pool=None) -> ref.Compressed:
 def decompress_tensor(blob: bytes, pool=None, *,
                       device: str | torch.device = "cuda") -> torch.Tensor:
     """Decode an ``RPLY`` frame and dequantize on ``device`` (the
-    dequantise + inverse DCT kernel on the card)."""
+    dequantise + inverse DCT kernel on the card). The result is ready for
+    the caller's current stream."""
     c = _parse_frame(blob, pool)
     dev = host.resolve_device(device)
-    c = c._replace(q=torch.from_numpy(np.ascontiguousarray(c.q)).to(dev),
-                   scale=torch.from_numpy(np.ascontiguousarray(c.scale)
-                                          ).to(dev))
-    return ops.spectral_decompress(c)
+    caller = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+    with host.worker_stream(dev):
+        x = ops.spectral_decompress(c._replace(
+            q=host.to_device(c.q, dev), scale=host.to_device(c.scale, dev)))
+    if caller is not None:
+        x.record_stream(caller)     # made on the side stream, used there
+    return x
 
 
 # ---------------------------------------------------------------------------

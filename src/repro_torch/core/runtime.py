@@ -194,24 +194,8 @@ class _FanoutGroup(_CompletionLatch):
             return self._queue.popleft() if self._queue else None
 
 
-class _HostCopy:
-    """One tensor leaf's device->host copy, in flight on a side stream."""
-
-    __slots__ = ("host", "done")
-
-    def __init__(self, host_tensor: torch.Tensor,
-                 done: Optional[torch.cuda.Event]) -> None:
-        self.host = host_tensor
-        self.done = done
-
-    def result(self) -> np.ndarray:
-        if self.done is not None:
-            self.done.synchronize()
-        return host.to_numpy(self.host)
-
-
 def _to_host(x: Any) -> Any:
-    if isinstance(x, _HostCopy):
+    if isinstance(x, host.HostCopy):
         return x.result()
     if isinstance(x, torch.Tensor):
         return host.to_numpy(x.cpu())
@@ -246,12 +230,9 @@ def _start_d2h(payload: Any, snapshot: bool = False) -> Any:
         side = torch.cuda.Stream(device=x.device)
         side.wait_stream(torch.cuda.current_stream(x.device))
         with torch.cuda.stream(side):
-            dst = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
-            dst.copy_(src, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(side)
+            copy = host.HostCopy(src)
         src.record_stream(side)
-        return _HostCopy(dst, done)
+        return copy
 
     return pytree.tree_map(start, payload)
 

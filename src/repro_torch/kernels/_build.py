@@ -11,15 +11,21 @@ beside the library as ``<name>-<hash>.log``.
 Nothing here runs at import: the CPU tests import every module of the
 port, and this machine-independent code only calls ``nvcc`` when a kernel
 is first launched on a CUDA tensor (or when a caller builds explicitly).
+
+Kernels launch from several threads at once (the checkpoint's encode and
+restore workers), so building, loading and counting launches are each
+safe to call from any thread: one process-wide lock serialises builds and
+loads, every compile writes its own temporary file, and
+:func:`count_launch` bumps a wrapper's ``launches`` under a lock.
 """
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -51,17 +57,31 @@ def target(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
+#: serialises builds, loads and other once-per-process set-up of the kernels
+lock = threading.RLock()
+_libs: dict[str, ctypes.CDLL] = {}
+_count_lock = threading.Lock()
+
+
 def build(names: list[str]) -> dict[str, float]:
     """Compile every source not built yet, all in parallel; returns the
     seconds each compile took (0.0 for a library already built). Raises
-    ``RuntimeError`` with the compiler's output when one fails."""
+    ``RuntimeError`` with the compiler's output when one fails. Callers
+    on other threads wait for a build in progress and then find it done."""
+    with lock:
+        return _compile(names)
+
+
+def _compile(names: list[str]) -> dict[str, float]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     todo = {n: target(n) for n in names if not target(n).exists()}
     out = {n: 0.0 for n in names}
     procs = {}
     t0 = time.perf_counter()
     for name, lib in todo.items():
-        tmp = lib.with_suffix(f".tmp{os.getpid()}")
+        # unique per process and thread: another process may build into
+        # the same directory
+        tmp = lib.with_suffix(f".tmp{os.getpid()}-{threading.get_ident()}")
         cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT), tmp, lib)
@@ -80,8 +100,26 @@ def build(names: list[str]) -> dict[str, float]:
     return out
 
 
-@functools.cache
-def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load one kernel library, once per process."""
-    build([name])
-    return ctypes.CDLL(str(target(name)))
+def load(name: str, signatures: dict[str, tuple[list, type]]
+         ) -> ctypes.CDLL:
+    """Build (if needed) and load one kernel library, once per process,
+    with ``signatures`` (entry name -> (argtypes, restype)) set on its
+    entries before any caller sees it."""
+    with lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(target(name)))
+            for entry, (args, res) in signatures.items():
+                fn = getattr(lib, entry)
+                fn.argtypes = args
+                fn.restype = res
+            _libs[name] = lib
+        return lib
+
+
+def count_launch(wrapper) -> None:
+    """Add one to a kernel wrapper's ``launches`` (called where the
+    wrapper launches its kernel, and nowhere else)."""
+    with _count_lock:
+        wrapper.launches += 1

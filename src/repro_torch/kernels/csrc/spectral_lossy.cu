@@ -5,6 +5,8 @@
 // Replaces, in src/repro/kernels/spectral_lossy.py (the Pallas TPU kernels):
 //   dct_hist_coarse_tiled  <- _dct_hist_coarse_tiled_kernel  (dct_hist_coarse_tiled)
 //   hist_refine_tiled      <- _hist_refine_tiled_kernel      (hist_refine_tiled)
+//   dct_hist_coarse        <- _dct_hist_coarse_kernel        (dct_hist_coarse)
+//   hist_refine            <- _hist_refine_kernel            (hist_refine)
 //   threshold_quant        <- _threshold_quant_kernel        (threshold_quant)
 //   dequant_idct           <- _dequant_idct_kernel           (dequant_idct)
 //
@@ -16,6 +18,9 @@
 //   hist_refine_tiled      per tile, for the 16 fine bins inside each row's
 //                          coarse bin: the count and sum of |y|^2 (other
 //                          elements add nothing)
+//   dct_hist_coarse,       the same two, with the tile rows summed into ONE
+//   hist_refine            histogram of the whole tensor (the single-tensor
+//                          codec's selection statistics)
 //   threshold_quant        kept = |y| >= t_row ? y : 0; scale = amax *
 //                          f32(1/127) (1 for an all-zero row);
 //                          q = clip(rint(kept / scale), -127, 127)
@@ -47,6 +52,15 @@
 //   * Refine: one warp per 8-row tile (2048 elements, 64 per lane),
 //     private per-lane bins in shared memory, then the same fixed-order
 //     sum. Quantiser: one warp per row, a warp max for amax.
+//   * Single-tensor histograms: the TPU kernel carries one histogram from
+//     grid step to grid step; CTAs here run in no order, so the tiled
+//     kernel writes its tile rows into scratch and a second kernel, from
+//     the same C entry and stream, sums them into one row: one CTA of 1024
+//     threads, each summing a strided set of rows for one bin (counts as
+//     64-bit integers, energies in double), then one thread per bin adding
+//     those partial sums in a fixed order. Every run sums in the same
+//     order, and no float atomics are used. The scratch rows are at most
+//     32 x 8 bytes per 8 blocks of input (3 % of the DCT's bytes).
 //   * Ragged edges are masked in the kernels: rows past n_blocks read as
 //     zero and are never written, which is what the JAX wrappers' zero pad
 //     and slice amount to.
@@ -346,6 +360,42 @@ threshold_quant_kernel(const float* __restrict__ y,
   if (lane == 0) scale[row] = s;
 }
 
+// One histogram row from n_rows per-tile rows of NB bins, summed in an
+// order fixed by n_rows alone: thread t takes bin t % NB of rows t / NB,
+// t / NB + G, ... (G = 1024 / NB; a warp reads whole rows, coalesced),
+// then one thread per bin adds the G partial sums in order. Counts are
+// exact integers (a tile counts at most 2048); energies are summed in
+// double and rounded once.
+constexpr int kReduceThreads = 1024;
+
+template <int NB>
+__global__ void __launch_bounds__(kReduceThreads)
+reduce_rows_kernel(const float* __restrict__ cnt_rows,
+                   const float* __restrict__ eng_rows, long n_rows,
+                   float* __restrict__ cnt, float* __restrict__ eng) {
+  constexpr int kG = kReduceThreads / NB;
+  __shared__ long long sc[kReduceThreads];
+  __shared__ double se[kReduceThreads];
+  const int t = threadIdx.x, b = t % NB, g = t / NB;
+  long long c = 0;
+  double e = 0.0;
+  for (long r = g; r < n_rows; r += kG) {
+    c += (long long)cnt_rows[r * NB + b];
+    e += (double)eng_rows[r * NB + b];
+  }
+  sc[t] = c;
+  se[t] = e;
+  __syncthreads();
+  if (g == 0) {
+    for (int k = 1; k < kG; ++k) {
+      c += sc[k * NB + b];
+      e += se[k * NB + b];
+    }
+    cnt[b] = (float)c;
+    eng[b] = (float)e;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -376,6 +426,32 @@ int spectral_hist_refine_tiled(const float* y, const int* coarse, float* cnt,
   const int grid = (n_tiles + kRefineWarps - 1) / kRefineWarps;
   hist_refine_kernel<<<grid, kRefineThreads, 0, (cudaStream_t)stream>>>(
       y, coarse, cnt, eng, n_tiles, bin_scale);
+  return (int)cudaGetLastError();
+}
+
+// The single-tensor pair: the tiled kernel into the caller's scratch rows
+// (n_blocks / 8 of them), then their fixed-order sum into cnt and eng (all
+// zero for n_blocks = 0).
+int spectral_dct_hist_coarse(const float* x, const float* dt, float* y,
+                             float* cnt_rows, float* eng_rows, float* cnt,
+                             float* eng, int nb, float bin_scale,
+                             void* stream) {
+  const int err = spectral_dct_hist_coarse_tiled(x, dt, y, cnt_rows, eng_rows,
+                                                 nb, bin_scale, stream);
+  if (err != 0) return err;
+  reduce_rows_kernel<kCoarse><<<1, kReduceThreads, 0, (cudaStream_t)stream>>>(
+      cnt_rows, eng_rows, nb > 0 ? nb / kTile : 0, cnt, eng);
+  return (int)cudaGetLastError();
+}
+
+int spectral_hist_refine(const float* y, const int* coarse, float* cnt_rows,
+                         float* eng_rows, float* cnt, float* eng, int nb,
+                         float bin_scale, void* stream) {
+  const int err = spectral_hist_refine_tiled(y, coarse, cnt_rows, eng_rows, nb,
+                                             bin_scale, stream);
+  if (err != 0) return err;
+  reduce_rows_kernel<kFine><<<1, kReduceThreads, 0, (cudaStream_t)stream>>>(
+      cnt_rows, eng_rows, nb > 0 ? nb / kTile : 0, cnt, eng);
   return (int)cudaGetLastError();
 }
 

@@ -2,15 +2,22 @@
 
 ``spectral_compress_tree(state, eps, policy)`` is the device stage of the
 hybrid checkpoint pipeline: every leaf the policy selects is compressed in
-ONE fused dispatch over a packed buffer, through the four ported kernels
-(:mod:`repro_torch.kernels.spectral_lossy`) on a CUDA state and through
-their plain versions on a CPU state. ``spectral_decompress`` is restore's
-device stage (the dequantise + inverse DCT kernel).
+ONE fused dispatch over a packed buffer, through the tiled kernels of
+:mod:`repro_torch.kernels.spectral_lossy` on a CUDA state and through
+their plain versions on a CPU state. ``spectral_compress`` (and its
+chunked variant, and ``compress_in_graph``) compresses one tensor: the
+lossy stage of the SYNC and ASYNC checkpoint placements and of the
+``spectral`` codecs. ``spectral_decompress`` is restore's device stage
+(the dequantise + inverse DCT kernel).
 
-The single-tensor path (``spectral_compress``, its chunked variant and
-``compress_in_graph``) would need the single-tensor kernels, which are
-not ported yet: it runs the oracle on CPU tensors and raises
-``NotImplementedError`` on CUDA ones (ROADMAP.md, queue 2).
+The single-tensor selection takes the JAX package's two routes: on the
+card the two-level one through the single-tensor kernels
+(``dct_hist_coarse``, the coarse bin that straddles the budget,
+``hist_refine`` inside it), as the JAX package does on the TPU; on the
+CPU the flat 512-bin oracle, as the JAX package does off the TPU. Both
+land on the same bin edge (the two-level selector is the flat one
+computed in two passes), so a CPU and a card run give the same
+thresholds, q and scales.
 
 The JAX package autotunes its tiles per pow2 shape bucket on the TPU; the
 port's kernels use their own fixed tiles, so nothing here tunes.
@@ -35,37 +42,53 @@ def _pad_blocks(xb: torch.Tensor, tile: int) -> torch.Tensor:
     return xb
 
 
-def _oracle_quantized(xb: torch.Tensor, eps: float):
-    """The flat-histogram oracle on padded blocks (the CPU path of the
-    single-tensor codec, as the JAX package's off-TPU path)."""
+def select_flat(xb: torch.Tensor, eps: float):
+    """The flat 512-bin selection on padded blocks -> (y, threshold): the
+    single-tensor route on the CPU (the JAX package's off the TPU)."""
     y = ref.dct_blocks(xb)
     _, energies = ref.energy_histogram(y)
-    t = ref.threshold_from_histogram(energies, eps)
-    return ref.quantize_blocks(y, t)
+    return y, ref.threshold_from_histogram(energies, eps)
+
+
+def select_two_level(xb: torch.Tensor, eps: float):
+    """The two-level selection through the single-tensor kernels on
+    padded blocks -> (y, threshold): the route on the card (the JAX
+    package's on the TPU). On CPU tensors the kernels' plain versions run
+    it (the tests hold it against the flat route there)."""
+    y, _, ce = K.dct_hist_coarse(xb)
+    c, cc, base, budget = ref.select_coarse(ce, eps)
+    _, fe = K.hist_refine(y, cc)
+    return y, ref.select_fine(fe, c, cc, base, budget)
+
+
+def _compress_blocks(x: torch.Tensor, eps: float):
+    """(q, scale, n_elements) of one tensor, each route on its device."""
+    xb, n = ref.blockize(x)
+    xb = _pad_blocks(xb, K.HIST_TILE)
+    select = select_flat if xb.device.type == "cpu" else select_two_level
+    y, t = select(xb, float(eps))
+    q, scale = K.threshold_quant(y, t)
+    return q, scale, n
 
 
 def spectral_compress(x: torch.Tensor, eps: float = 1e-2) -> Compressed:
-    """Lossy-compress one tensor. Relative-L2 error <~ eps + quant.
-
-    CPU tensors only for now (see the module docstring)."""
-    if x.device.type != "cpu":
-        raise K.not_ported("spectral_compress")
-    xb, n = ref.blockize(x)
-    q, scale = _oracle_quantized(_pad_blocks(xb, K.HIST_TILE), float(eps))
+    """Lossy-compress one tensor where it lives. Relative-L2 error <~ eps
+    + quant."""
+    q, scale, n = _compress_blocks(x, eps)
     return Compressed(q, scale, n, tuple(x.shape), x.dtype)
 
 
 def spectral_compress_chunked(x: torch.Tensor, eps: float = 1e-2, *,
                               chunk_blocks: int = 4096):
     """``spectral_compress`` with the int8 coefficients split into
-    ``chunk_blocks``-row pieces (4096 blocks x 256 B = the codec's 1 MiB
-    frame chunk), so the host framing can pack chunk by chunk. Returns
-    ``(chunks, scale, n_elements)``; ``cat(chunks)`` equals
-    ``spectral_compress(x, eps).q``."""
-    c = spectral_compress(x, eps)
-    chunks = tuple(c.q[off:off + chunk_blocks]
-                   for off in range(0, c.q.shape[0], chunk_blocks))
-    return chunks, c.scale, c.n_elements
+    ``chunk_blocks``-row slices of the same buffer (4096 blocks x 256 B =
+    the codec's 1 MiB frame chunk), so the host framing can copy and pack
+    chunk by chunk. Returns ``(chunks, scale, n_elements)``; ``cat(chunks)``
+    equals ``spectral_compress(x, eps).q``."""
+    q, scale, n = _compress_blocks(x, eps)
+    chunks = tuple(q[off:off + chunk_blocks]
+                   for off in range(0, q.shape[0], chunk_blocks))
+    return chunks, scale, n
 
 
 def spectral_decompress(c: Compressed) -> torch.Tensor:
@@ -119,8 +142,8 @@ def spectral_compress_tree(state: PyTree, eps: float = 1e-2,
     Returns the same tree structure with ``Compressed`` leaves where the
     policy fired. ``fused`` (default) packs all selected leaves into one
     flat blocked buffer and compresses the whole tree in a single fused
-    dispatch; ``fused=False`` takes the per-leaf single-tensor path (CPU
-    only for now). Each leaf is zero-padded only to a multiple of the
+    dispatch; ``fused=False`` takes the per-leaf single-tensor path. Each
+    leaf is zero-padded only to a multiple of the
     histogram tile — the JAX package's further pow2 bucketing exists for
     its trace cache, which the port has no use for; zero pad blocks carry
     no energy, so the thresholds, q and scales are the same bits either
@@ -167,9 +190,7 @@ def spectral_compress_tree(state: PyTree, eps: float = 1e-2,
 # ---------------------------------------------------------------------------
 
 def compress_in_graph(x: torch.Tensor, eps: float = 1e-2):
-    """Returns (q: int8 (nb, B), scale: f32 (nb,)). CPU tensors only for
-    now: on a CUDA tensor it would need the single-tensor kernels."""
-    if x.device.type != "cpu":
-        raise K.not_ported("compress_in_graph")
-    xb, _ = ref.blockize(x)
-    return _oracle_quantized(_pad_blocks(xb, K.HIST_TILE), float(eps))
+    """Returns (q: int8 (nb, B), scale: f32 (nb,)), the single-tensor codec
+    on plain tensors, where ``x`` lives."""
+    q, scale, _ = _compress_blocks(x, eps)
+    return q, scale

@@ -21,10 +21,11 @@ show that its main path went through the kernel.
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 
 import torch
+
+from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_SMEM_BYTES = 232448          # H100: 227 KB of dynamic shared memory
@@ -43,19 +44,18 @@ def paged_decode_attention_plain(q, k_pages, v_pages, page_table, length):
     return attn_lib.decode_attention(q, k, v, length)
 
 
-@functools.cache
-def _entry():
-    from repro_torch.kernels import _build
+_SIGNATURES = {
+    "paged_decode_attention": (
+        [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+        + [ctypes.c_float, ctypes.c_void_p], ctypes.c_int),
+    "paged_decode_attention_smem_bytes": ([ctypes.c_int] * 4,
+                                          ctypes.c_size_t),
+}
 
-    lib = _build.load("paged_attention")
-    fn = lib.paged_decode_attention
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
-                   + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    smem = lib.paged_decode_attention_smem_bytes
-    smem.argtypes = [ctypes.c_int] * 4
-    smem.restype = ctypes.c_size_t
-    return fn, smem
+
+def _entry():
+    lib = _build.load("paged_attention", _SIGNATURES)
+    return lib.paged_decode_attention, lib.paged_decode_attention_smem_bytes
 
 
 def check_args(q, k_pages, v_pages, page_table, length) -> None:
@@ -142,7 +142,7 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, length):
     if err != 0:
         raise RuntimeError(f"paged_decode_attention: kernel launch failed "
                            f"with CUDA error {err}")
-    paged_decode_attention.launches += 1
+    _build.count_launch(paged_decode_attention)
     return out
 
 

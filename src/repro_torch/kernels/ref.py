@@ -245,6 +245,24 @@ def threshold_two_level(y: torch.Tensor, eps: float) -> torch.Tensor:
     return select_fine(fe, c, cc, base, budget)
 
 
+def threshold_by_sort(y: torch.Tensor, eps: float) -> torch.Tensor:
+    """The paper's GPU approach (F7): sort |y| and walk the energy CDF.
+
+    Returns the *optimal* threshold: the magnitude of the smallest
+    coefficient that must still be kept so that discarded energy <=
+    eps^2 * total.
+    """
+    a = torch.sort(torch.abs(y.reshape(-1))).values       # ascending
+    cum = torch.cumsum(a * a, 0)
+    budget = (eps * eps) * cum[-1]
+    # keep everything above the largest prefix whose energy fits the budget
+    n_drop = torch.sum((cum <= budget).to(torch.int32))
+    t = torch.where(n_drop >= a.shape[0],
+                    torch.tensor(math.inf, device=a.device),
+                    a[torch.clamp(n_drop, max=a.shape[0] - 1)])
+    return torch.where(n_drop == 0, torch.zeros((), device=a.device), t)
+
+
 # ---------------------------------------------------------------------------
 # Quantization
 # ---------------------------------------------------------------------------
@@ -280,6 +298,8 @@ def compress(x: torch.Tensor, eps: float = 1e-2, *,
         t = threshold_from_histogram(energies, eps)
     elif selector == "two_level":
         t = threshold_two_level(y, eps)
+    elif selector == "sort":
+        t = threshold_by_sort(y, eps)
     else:
         raise ValueError(f"unknown selector {selector!r}")
     q, scale = quantize_blocks(y, t)
@@ -296,6 +316,10 @@ def rel_l2_error(x: torch.Tensor, xhat: torch.Tensor) -> float:
     num = torch.linalg.vector_norm((x.float() - xhat.float()).reshape(-1))
     den = torch.linalg.vector_norm(x.float().reshape(-1))
     return float(num / torch.clamp(den, min=1e-30))
+
+
+def kept_fraction(c: Compressed) -> float:
+    return float(torch.mean((c.q != 0).to(torch.float32)))
 
 
 def error_bound(eps: float) -> float:

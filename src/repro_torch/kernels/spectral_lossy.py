@@ -1,18 +1,22 @@
 """The spectral lossy codec's kernels: hand-written Hopper kernels and their
 plain versions.
 
-Four of the JAX package's Pallas kernels (``src/repro/kernels/
-spectral_lossy.py``) sit on the hybrid checkpoint path and are ported here,
-with the JAX signatures (less ``interpret``, and less the quantiser's and
-the inverse's ``tile``, which on the card is the kernel's own):
+Six of the JAX package's Pallas kernels (``src/repro/kernels/
+spectral_lossy.py``) are ported here, with the JAX signatures (less
+``interpret``, and less the quantiser's and the inverse's ``tile``, which
+on the card is the kernel's own):
 
   dct_hist_coarse_tiled  y = x . D^T and a 32-bin coarse (count, energy)
-                         row per 8-row tile                     (save)
+                         row per 8-row tile          (hybrid save, fused)
   hist_refine_tiled      a 16-bin fine row per tile, inside each block's
-                         coarse bin                             (save)
+                         coarse bin                  (hybrid save, fused)
+  dct_hist_coarse        y = x . D^T and ONE 32-bin coarse histogram of
+                         the whole tensor            (single-tensor save)
+  hist_refine            ONE 16-bin fine histogram inside each block's
+                         coarse bin                  (single-tensor save)
   threshold_quant        zero |y| < t, int8-quantize with a per-block scale
-                                                                (save)
-  dequant_idct           x = (q * scale) . D                    (restore)
+                                                     (every save)
+  dequant_idct           x = (q * scale) . D         (restore)
 
 * CUDA tensors launch ``csrc/spectral_lossy.cu`` (CUDA C++ for ``sm_90a``,
   built by ``_build`` on first use and bound with ``ctypes``). Its header
@@ -20,27 +24,28 @@ the inverse's ``tile``, which on the card is the kernel's own):
   it. The histogram tile is fixed at 8 rows on the card.
 * CPU tensors take the ``*_plain`` version: the same arithmetic from
   :mod:`repro_torch.kernels.ref`, with per-tile sums taken in float64 and
-  rounded once (so the plain version is the exact sum the kernel's
-  fixed-order f32 sums approach).
+  rounded once, and the single-tensor histograms the tile rows summed in
+  float64 and rounded once (so the plain version is the exact sum the
+  kernel's fixed-order sums approach).
 
 The choice is the tensors' device and nothing else: a CUDA call launches
 the kernel or raises, it never falls back to the plain version. Every
-launch adds one to the wrapper's ``launches`` counter.
+launch adds one to the wrapper's ``launches`` counter (thread-safe: the
+checkpoint's workers launch concurrently).
 
-The Pallas kernels' other four (``dct_hist``, ``dct_hist_tiled``,
-``dct_hist_coarse``, ``hist_refine``) are not ported yet (ROADMAP.md,
+The Pallas kernels' flat 512-bin pair (``dct_hist``, ``dct_hist_tiled``,
+the two-level selection's benchmark baseline) is not ported yet (ROADMAP.md,
 queue 2); :func:`not_ported` is what a CUDA caller that would need one
 gets.
 """
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import numpy as np
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import _build, ref
 from repro_torch.kernels.ref import BLOCK, NBINS_COARSE, NBINS_FINE
 
 HIST_TILE = 8      # blocks per histogram row (fixed on the card)
@@ -50,9 +55,9 @@ _BIN_SCALE = float(np.float32(ref._BIN_SCALE))
 def not_ported(what: str) -> NotImplementedError:
     """The error for a CUDA path that needs a kernel not ported yet."""
     return NotImplementedError(
-        f"{what} on a CUDA tensor needs the single-tensor spectral kernels "
-        f"(dct_hist_coarse / hist_refine), not ported yet (ROADMAP.md, "
-        f"queue 2: 'Spectral kernels still to port')")
+        f"{what} on a CUDA tensor needs the flat 512-bin spectral kernels "
+        f"(dct_hist / dct_hist_tiled), not ported yet (ROADMAP.md, queue 2 "
+        f"item 7)")
 
 
 def _check_blocks(xb: torch.Tensor, tile: int, name: str) -> None:
@@ -84,8 +89,8 @@ def _tile_sums(a2: torch.Tensor, bins: torch.Tensor, nbins: int,
     bin -1 count nowhere. Energies are summed in float64 and rounded once
     to f32; one pass per bin keeps it free of scatter atomics."""
     n_tiles = a2.shape[0] // tile
-    a2 = a2.reshape(n_tiles, -1)
-    bins = bins.reshape(n_tiles, -1)
+    a2 = a2.reshape(n_tiles, tile * BLOCK)
+    bins = bins.reshape(n_tiles, tile * BLOCK)
     cnt = torch.empty((n_tiles, nbins), dtype=torch.float32, device=a2.device)
     eng = torch.empty_like(cnt)
     for b in range(nbins):
@@ -118,6 +123,23 @@ def hist_refine_tiled_plain(y: torch.Tensor, coarse: torch.Tensor,
     return _tile_sums(a * a, fine, NBINS_FINE, tile)
 
 
+def _sum_rows(cnt: torch.Tensor, eng: torch.Tensor
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-tile rows summed into one histogram, in float64, rounded once."""
+    return (cnt.sum(0, dtype=torch.float64).to(torch.float32),
+            eng.sum(0, dtype=torch.float64).to(torch.float32))
+
+
+def dct_hist_coarse_plain(xb: torch.Tensor, tile: int = HIST_TILE):
+    y, cnt, eng = dct_hist_coarse_tiled_plain(xb, tile)
+    return (y, *_sum_rows(cnt, eng))
+
+
+def hist_refine_plain(y: torch.Tensor, coarse: torch.Tensor,
+                      tile: int = HIST_TILE):
+    return _sum_rows(*hist_refine_tiled_plain(y, coarse, tile))
+
+
 def threshold_quant_plain(y: torch.Tensor, t: torch.Tensor):
     return ref.quantize_blocks(y, t)
 
@@ -130,29 +152,36 @@ def dequant_idct_plain(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 # the kernels
 # ---------------------------------------------------------------------------
 
-@functools.cache
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {name: (args, ctypes.c_int) for name, args in {
+    "spectral_dct_hist_coarse_tiled": [_P, _P, _P, _P, _P, _I, _F, _P],
+    "spectral_hist_refine_tiled": [_P, _P, _P, _P, _I, _F, _P],
+    "spectral_dct_hist_coarse": [_P] * 7 + [_I, _F, _P],
+    "spectral_hist_refine": [_P] * 6 + [_I, _F, _P],
+    "spectral_threshold_quant": [_P, _P, _P, _P, _I, _P],
+    "spectral_dequant_idct": [_P, _P, _P, _P, _I, _P],
+}.items()}
+
+
 def _lib() -> ctypes.CDLL:
-    from repro_torch.kernels import _build
-
-    lib = _build.load("spectral_lossy")
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    sigs = {
-        "spectral_dct_hist_coarse_tiled": [p, p, p, p, p, i, f, p],
-        "spectral_hist_refine_tiled": [p, p, p, p, i, f, p],
-        "spectral_threshold_quant": [p, p, p, p, i, p],
-        "spectral_dequant_idct": [p, p, p, p, i, p],
-    }
-    for name, args in sigs.items():
-        fn = getattr(lib, name)
-        fn.argtypes = args
-        fn.restype = ctypes.c_int
-    return lib
+    return _build.load("spectral_lossy", _SIGNATURES)
 
 
-@functools.lru_cache(maxsize=8)
+_BASES: dict[tuple[torch.device, bool], torch.Tensor] = {}
+
+
 def _basis(device: torch.device, transpose: bool) -> torch.Tensor:
-    d = torch.from_numpy(ref.dct_matrix(BLOCK))
-    return (d.T if transpose else d).contiguous().to(device)
+    """D (or D^T) on ``device``, made once per process. Its copy is waited
+    for before any stream may read it: kernels on every worker's stream
+    share it."""
+    with _build.lock:
+        b = _BASES.get((device, transpose))
+        if b is None:
+            d = torch.from_numpy(ref.dct_matrix(BLOCK))
+            b = (d.T if transpose else d).contiguous().to(device)
+            torch.cuda.current_stream(device).synchronize()
+            _BASES[(device, transpose)] = b
+        return b
 
 
 def _device_of(name: str, *ts: torch.Tensor) -> str:
@@ -186,6 +215,12 @@ def _launch(name: str, fn, *args) -> None:
                            f"{err}")
 
 
+def _kernel_tile(name: str, tile: int) -> None:
+    if tile != HIST_TILE:
+        raise ValueError(f"{name}: the kernel's tile is {HIST_TILE} rows, "
+                         f"got tile={tile}")
+
+
 def dct_hist_coarse_tiled(xb: torch.Tensor, *, tile: int | None = None):
     """xb: (n_blocks, 256) f32, n_blocks a multiple of the tile ->
     (y (n_blocks, 256), counts (n_tiles, 32), energies (n_tiles, 32)).
@@ -198,9 +233,7 @@ def dct_hist_coarse_tiled(xb: torch.Tensor, *, tile: int | None = None):
     _check_blocks(xb, tile, name)
     if _device_of(name, xb) == "cpu":
         return dct_hist_coarse_tiled_plain(xb, tile)
-    if tile != HIST_TILE:
-        raise ValueError(f"{name}: the kernel's tile is {HIST_TILE} rows, "
-                         f"got tile={tile}")
+    _kernel_tile(name, tile)
     _need(name, xb, "xb", torch.float32)
     nb = xb.shape[0]
     y = torch.empty_like(xb)
@@ -211,7 +244,7 @@ def dct_hist_coarse_tiled(xb: torch.Tensor, *, tile: int | None = None):
         _launch(name, _lib().spectral_dct_hist_coarse_tiled, xb.data_ptr(),
                 _basis(xb.device, True).data_ptr(), y.data_ptr(),
                 cnt.data_ptr(), eng.data_ptr(), nb, _BIN_SCALE)
-    dct_hist_coarse_tiled.launches += 1
+    _build.count_launch(dct_hist_coarse_tiled)
     return y, cnt, eng
 
 
@@ -227,9 +260,7 @@ def hist_refine_tiled(y: torch.Tensor, coarse, *, tile: int | None = None):
     coarse = _per_block(coarse, y.shape[0], torch.int32, y.device)
     if _device_of(name, y, coarse) == "cpu":
         return hist_refine_tiled_plain(y, coarse, tile)
-    if tile != HIST_TILE:
-        raise ValueError(f"{name}: the kernel's tile is {HIST_TILE} rows, "
-                         f"got tile={tile}")
+    _kernel_tile(name, tile)
     coarse = coarse.contiguous()
     _need(name, y, "y", torch.float32)
     _need(name, coarse, "coarse", torch.int32, 4)
@@ -241,8 +272,65 @@ def hist_refine_tiled(y: torch.Tensor, coarse, *, tile: int | None = None):
         _launch(name, _lib().spectral_hist_refine_tiled, y.data_ptr(),
                 coarse.data_ptr(), cnt.data_ptr(), eng.data_ptr(), nb,
                 _BIN_SCALE)
-    hist_refine_tiled.launches += 1
+    _build.count_launch(hist_refine_tiled)
     return cnt, eng
+
+
+def dct_hist_coarse(xb: torch.Tensor, *, tile: int | None = None):
+    """xb: (n_blocks, 256) f32, n_blocks a multiple of the tile ->
+    (y (n_blocks, 256), counts (32,), energies (32,)).
+
+    First pass of the single-tensor two-level selector: the DCT and ONE
+    coarse (count, energy) histogram over the whole tensor."""
+    tile = tile or HIST_TILE
+    name = "dct_hist_coarse"
+    _check_blocks(xb, tile, name)
+    if _device_of(name, xb) == "cpu":
+        return dct_hist_coarse_plain(xb, tile)
+    _kernel_tile(name, tile)
+    _need(name, xb, "xb", torch.float32)
+    nb = xb.shape[0]
+    y = torch.empty_like(xb)
+    rows = torch.empty((2, nb // tile, NBINS_COARSE), dtype=torch.float32,
+                       device=xb.device)
+    out = torch.empty((2, NBINS_COARSE), dtype=torch.float32,
+                      device=xb.device)
+    with torch.cuda.device(xb.device):
+        _launch(name, _lib().spectral_dct_hist_coarse, xb.data_ptr(),
+                _basis(xb.device, True).data_ptr(), y.data_ptr(),
+                rows[0].data_ptr(), rows[1].data_ptr(), out[0].data_ptr(),
+                out[1].data_ptr(), nb, _BIN_SCALE)
+    _build.count_launch(dct_hist_coarse)
+    return y, out[0], out[1]
+
+
+def hist_refine(y: torch.Tensor, coarse, *, tile: int | None = None):
+    """y: (n_blocks, 256), coarse: a scalar or per-block (n_blocks,) int32
+    coarse bin -> (counts (16,), energies (16,)).
+
+    Second pass of the single-tensor selector: ONE fine histogram of the
+    16 fine bins inside each block's coarse bin; elements outside it add
+    exactly 0."""
+    tile = tile or HIST_TILE
+    name = "hist_refine"
+    _check_blocks(y, tile, name)
+    coarse = _per_block(coarse, y.shape[0], torch.int32, y.device)
+    if _device_of(name, y, coarse) == "cpu":
+        return hist_refine_plain(y, coarse, tile)
+    _kernel_tile(name, tile)
+    coarse = coarse.contiguous()
+    _need(name, y, "y", torch.float32)
+    _need(name, coarse, "coarse", torch.int32, 4)
+    nb = y.shape[0]
+    rows = torch.empty((2, nb // tile, NBINS_FINE), dtype=torch.float32,
+                       device=y.device)
+    out = torch.empty((2, NBINS_FINE), dtype=torch.float32, device=y.device)
+    with torch.cuda.device(y.device):
+        _launch(name, _lib().spectral_hist_refine, y.data_ptr(),
+                coarse.data_ptr(), rows[0].data_ptr(), rows[1].data_ptr(),
+                out[0].data_ptr(), out[1].data_ptr(), nb, _BIN_SCALE)
+    _build.count_launch(hist_refine)
+    return out[0], out[1]
 
 
 def threshold_quant(y: torch.Tensor, t):
@@ -269,7 +357,7 @@ def threshold_quant(y: torch.Tensor, t):
     with torch.cuda.device(y.device):
         _launch(name, _lib().spectral_threshold_quant, y.data_ptr(),
                 t.data_ptr(), q.data_ptr(), scale.data_ptr(), nb)
-    threshold_quant.launches += 1
+    _build.count_launch(threshold_quant)
     return q, scale
 
 
@@ -293,12 +381,12 @@ def dequant_idct(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
         _launch(name, _lib().spectral_dequant_idct, q.data_ptr(),
                 scale.data_ptr(), _basis(q.device, False).data_ptr(),
                 x.data_ptr(), nb)
-    dequant_idct.launches += 1
+    _build.count_launch(dequant_idct)
     return x
 
 
-KERNELS = (dct_hist_coarse_tiled, hist_refine_tiled, threshold_quant,
-           dequant_idct)
+KERNELS = (dct_hist_coarse_tiled, hist_refine_tiled, dct_hist_coarse,
+           hist_refine, threshold_quant, dequant_idct)
 
 
 def reset_launches() -> None:

@@ -11,6 +11,13 @@ Shapes: ``smoke=True`` is the CPU smoke shape (2 x 64 tokens);
 4096 with the global batch of 256 cut to 4, so that one card and the
 smoke's time limit hold it.
 
+In-situ placements: ``insitu_mode`` places the plan's tasks SYNC (the
+loop waits for the whole chain), ASYNC (the loop pays only the hand-off
+dispatch; the checkpoint's lossy stage then runs per leaf on the workers,
+each on its own CUDA stream) or HYBRID (the lossy stage runs on the loop's
+stream before the hand-off, one fused dispatch). All three run on the
+card.
+
 Not ported here (ROADMAP.md): the mesh, the sharded step and the cross-pod
 compressed gradient ring (``grad_compress``), and the ``fault`` preset.
 """
@@ -247,8 +254,14 @@ def main() -> None:
                     help="cuda (the default) or cpu")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--insitu", default="async",
-                    choices=["sync", "async", "hybrid"])
-    ap.add_argument("--ckpt-dir", default=None)
+                    choices=["sync", "async", "hybrid"],
+                    help="placement of the in-situ tasks: sync (the loop "
+                         "waits for them), async (workers, per-leaf lossy "
+                         "stage on their own streams) or hybrid (the lossy "
+                         "stage on the device before the hand-off)")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="checkpoint directory (the moments are saved "
+                         "lossy); a checkpoint there is resumed from")
     ap.add_argument("--full", action="store_true",
                     help="full published widths at batch 4 x 4096 tokens "
                          "(a CUDA card)")

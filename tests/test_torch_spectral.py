@@ -338,8 +338,17 @@ def test_wrappers_check_shapes_and_count_no_cpu_launches():
         TK.dct_hist_coarse_tiled(torch.zeros((8, 100)))
     with pytest.raises(ValueError, match="per-block"):
         TK.threshold_quant(torch.zeros((8, TR.BLOCK)), torch.zeros(3))
+    with pytest.raises(ValueError, match="multiple"):
+        TK.dct_hist_coarse(torch.zeros((12, TR.BLOCK)))
+    with pytest.raises(ValueError, match="per-block"):
+        TK.hist_refine(torch.zeros((8, TR.BLOCK)), torch.zeros(3))
     TK.dct_hist_coarse_tiled(torch.zeros((8, TR.BLOCK)))
+    TK.dct_hist_coarse(torch.zeros((8, TR.BLOCK)))
+    TK.hist_refine(torch.zeros((8, TR.BLOCK)), 3)
     TK.dequant_idct(torch.zeros((3, TR.BLOCK), dtype=torch.int8),
                     torch.ones(3))
     # the plain versions ran: no kernel was launched
-    assert [k.launches for k in TK.KERNELS] == [0, 0, 0, 0]
+    assert [k.__name__ for k in TK.KERNELS] == [
+        "dct_hist_coarse_tiled", "hist_refine_tiled", "dct_hist_coarse",
+        "hist_refine", "threshold_quant", "dequant_idct"]
+    assert [k.launches for k in TK.KERNELS] == [0] * 6

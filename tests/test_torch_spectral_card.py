@@ -18,11 +18,21 @@ Tolerances (f32 throughout, TF32 off for the plain product):
 * q and scale for the same y and t: bitwise (one warp per block does the
   plain version's arithmetic: |y| >= t, amax * f32(1/127), IEEE division,
   round half to even).
+* single-tensor histograms, on the kernel's own y: counts equal; energies
+  rtol 1e-5 (the tile rows as above, then summed in double).
+* the single-tensor codec on the card (two-level selection through the
+  kernels) against the CPU's (the flat oracle): thresholds, q and scale
+  bitwise. The kernel's y is cuBLAS's and the CPU product's bit for bit
+  (each output one FMA chain in k order), and both selectors land on the
+  same bin edge.
 """
+import threading
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import lossy
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import spectral_lossy as K
 
@@ -154,7 +164,9 @@ def test_fused_tree_roundtrip_within_bound(cuda):
     K.reset_launches()
     out = ops.spectral_compress_tree(
         state, 1e-2, lambda k: "'mu'" in k or "'nu'" in k)
-    assert [k.launches for k in K.KERNELS[:3]] == [1, 1, 1]
+    assert [K.dct_hist_coarse_tiled.launches, K.hist_refine_tiled.launches,
+            K.threshold_quant.launches] == [1, 1, 1]
+    assert K.dct_hist_coarse.launches == K.hist_refine.launches == 0
     assert out["params"]["w"] is state["params"]["w"]
     for grp in ("mu", "nu"):
         for name, c in out[grp].items():
@@ -181,5 +193,143 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         K.threshold_quant(xb.double(), 0.1)
     with pytest.raises(ValueError, match="contiguous"):
         K.threshold_quant(torch.zeros((ref.BLOCK, 12), device=cuda).T, 0.1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.spectral_compress(torch.zeros(10, device=cuda))
+    with pytest.raises(ValueError, match="tile"):
+        K.dct_hist_coarse(torch.zeros((16, ref.BLOCK), device=cuda), tile=16)
+    with pytest.raises(ValueError, match="multiple"):
+        K.hist_refine(xb, 3)
+    with pytest.raises(TypeError, match="dtype"):
+        K.dct_hist_coarse(torch.zeros((8, ref.BLOCK), device=cuda).double())
+
+
+def _own_coarse(y):
+    a = torch.abs(y)
+    coarse = torch.div(ref.bin_index(a), ref.NBINS_FINE,
+                       rounding_mode="floor")
+    return a, coarse
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb", [8, 24, 64, 72, 1000, 1008])
+@pytest.mark.parametrize("kind", KINDS)
+def test_dct_hist_coarse_single_matches_plain(cuda, nb, kind):
+    rng = np.random.default_rng(nb + 10)
+    xb = torch.from_numpy(_payload(rng, nb, kind)).to(cuda)
+    K.reset_launches()
+    y, cnt, eng = K.dct_hist_coarse(xb)
+    torch.cuda.synchronize()
+    assert K.dct_hist_coarse.launches == 1
+    assert cnt.shape == eng.shape == (ref.NBINS_COARSE,)
+    y_p = ref.dct_blocks(xb)
+    _close(y, y_p, y_p)
+    a, coarse = _own_coarse(y)
+    cnt_p, eng_p = K._sum_rows(*K._tile_sums(a * a, coarse, ref.NBINS_COARSE,
+                                             K.HIST_TILE))
+    assert torch.equal(cnt, cnt_p)
+    assert int(cnt.sum()) == nb * ref.BLOCK
+    torch.testing.assert_close(eng, eng_p, rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb", [8, 24, 1000, 1008])
+@pytest.mark.parametrize("kind", KINDS)
+def test_hist_refine_single_matches_plain(cuda, nb, kind):
+    rng = np.random.default_rng(nb + 11)
+    y = ref.dct_blocks(torch.from_numpy(_payload(rng, nb, kind)).to(cuda))
+    _, coarse = _own_coarse(y)
+    busiest = int(coarse.reshape(-1).mode().values)
+    per_block = torch.from_numpy(rng.integers(0, 32, nb).astype(np.int32)
+                                 ).to(cuda)
+    per_block[::2] = busiest
+    for c in (busiest, per_block):
+        cnt, eng = K.hist_refine(y, c)
+        cnt_p, eng_p = K.hist_refine_plain(
+            y, K._per_block(c, nb, torch.int32, cuda))
+        assert cnt.shape == (ref.NBINS_FINE,)
+        assert torch.equal(cnt, cnt_p)
+        torch.testing.assert_close(eng, eng_p, rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [256, 1001 * 256 - 7, 40000, 2_500_000])
+@pytest.mark.parametrize("kind", ["normal", "sparse", "cauchy", "rows_zero"])
+@pytest.mark.parametrize("eps", [1e-3, 1e-2, 1e-1, 2.0])
+def test_single_tensor_codec_on_card_equals_cpu(cuda, n, kind, eps):
+    rng = np.random.default_rng(n % 977)
+    x = _payload(rng, -(-n // ref.BLOCK), kind).reshape(-1)[:n]
+    xc = torch.from_numpy(x)
+    xb = ops._pad_blocks(ref.blockize(xc)[0], K.HIST_TILE)
+    _, t_cpu = ops.select_flat(xb, eps)
+    _, t_card = ops.select_two_level(xb.to(cuda), eps)
+    assert torch.equal(t_card.cpu(), t_cpu)
+    K.reset_launches()
+    c_card = ops.spectral_compress(xc.to(cuda), eps)
+    assert [K.dct_hist_coarse.launches, K.hist_refine.launches,
+            K.threshold_quant.launches] == [1, 1, 1]
+    assert K.dct_hist_coarse_tiled.launches == 0
+    c_cpu = ops.spectral_compress(xc, eps)
+    assert torch.equal(c_card.q.cpu(), c_cpu.q)
+    assert torch.equal(c_card.scale.cpu(), c_cpu.scale)
+    chunks, scale, _ = ops.spectral_compress_chunked(xc.to(cuda), eps,
+                                                     chunk_blocks=4096)
+    assert torch.equal(torch.cat(chunks).cpu(), c_cpu.q)
+    q, s = ops.compress_in_graph(xc.to(cuda), eps)
+    assert torch.equal(q.cpu(), c_cpu.q) and torch.equal(s.cpu(), c_cpu.scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_compress_tensor_frames_on_card_equal_cpu(cuda, dtype):
+    """Host arrays and card tensors, streamed (three chunks) and not: the
+    RPLY frames are the CPU's byte for byte, and restore within bound."""
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal(2_500_000).astype(np.float32)
+                         * 1e-3).to(dtype)
+    want, _ = lossy.compress_tensor(x, 1e-2, device="cpu")
+    for src in (x.to(cuda), x.float().numpy() if dtype == torch.float32
+                else None):
+        if src is None:
+            continue
+        for stream in (True, False):
+            blob, _ = lossy.compress_tensor(src, 1e-2, stream=stream,
+                                            device="cuda")
+            assert blob == want
+    back = lossy.decompress_tensor(want, device="cuda")
+    assert back.device.type == "cuda" and back.dtype == dtype
+    assert ref.rel_l2_error(x.to(cuda), back) <= ref.error_bound(1e-2)
+    _, st = lossy.compress_tensor(x.to(cuda), 1e-2, measure=True)
+    assert st.rel_l2_error <= ref.error_bound(1e-2)
+
+
+@pytest.mark.cuda
+def test_concurrent_workers_match_serial_and_count_exactly(cuda):
+    """Eight threads compress and restore at once, each on its own side
+    stream: the frames are the serial ones, every launch is counted."""
+    rng = np.random.default_rng(9)
+    xs = [rng.standard_normal(n).astype(np.float32)
+          for n in (1_200_000, 3000, 70000, 256 * 64) * 2]
+    serial = [lossy.compress_tensor(x, 1e-2, device="cuda")[0] for x in xs]
+    K.reset_launches()
+    out: list = [None] * len(xs)
+    errors: list = []
+
+    def work(i):
+        try:
+            blob, _ = lossy.compress_tensor(xs[i], 1e-2, device="cuda")
+            out[i] = (blob, lossy.decompress_tensor(blob, device="cuda"))
+        except BaseException as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=work, args=(i,))
+               for i in range(len(xs))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    assert not errors, errors
+    assert [o[0] for o in out] == serial
+    assert [K.dct_hist_coarse.launches, K.hist_refine.launches,
+            K.threshold_quant.launches, K.dequant_idct.launches] == \
+        [len(xs)] * 4
+    for x, (_, back) in zip(xs, out):
+        assert ref.rel_l2_error(torch.from_numpy(x).to(cuda), back) \
+            <= ref.error_bound(1e-2)
