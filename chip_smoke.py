@@ -21,7 +21,9 @@ Phases (any failure exits non-zero; none is swallowed):
    ``torch.profiler``, beside the plain version,
    ``scaled_dot_product_attention`` on the gathered cache (a yardstick
    only; the port never calls it) and the least time the card could take
-   (HBM 3.35 TB/s, f32 FMA 67 TFLOP/s; the larger bound).
+   (HBM 3.35 TB/s, f32 FMA 67 TFLOP/s; the larger bound). Every bound in
+   this script is ``repro_torch.roofline.kernels.kernel_cost`` over those
+   rates (:func:`bound_ms`).
 4. spectral kernels — the four kernels of the hybrid checkpoint path
    (``csrc/spectral_lossy.cu``) held against their plain versions on the
    card, f32 with TF32 off, at the main path's shape (the packed moment
@@ -51,7 +53,32 @@ Phases (any failure exits non-zero; none is swallowed):
    at the ``embed`` leaf (as in 4; ``torch.matmul`` of the same f32
    product is the DCT's yardstick) and summed over the 22 leaves of one
    save.
-6. serve   — the port's ``serve_loop("smollm-135m", smoke=False)``: full
+6. roofline — the flat 512-bin pair (``dct_hist_tiled``, ``dct_hist``)
+   held against its plain version and against the two-level kernels on
+   the card, at the edge shapes of 4, at ``benchmarks/kernel_roofline.py``'s
+   256 and 4096 standard-normal blocks (seed 0), at the ``embed``
+   moment leaf in four payload kinds (1e-20 and 1 %-sparse included) and
+   at the packed moment buffer of 4 (the main shape of its table row).
+   Gates: y bitwise equal to ``dct_hist_coarse_tiled``'s; on the kernel's
+   own y, counts equal to the plain version's (an element on a bin edge
+   where the kernel's log2f and ``ref.bin_index`` could round apart may
+   move, and is counted and printed) and energies rtol 1e-5; the single
+   histogram equal to the tile rows summed (energies rtol 1e-6); every 16
+   flat bins equal to the coarse kernel's bin, and the 16 inside a tile's
+   coarse bin to the refine kernel's counts; the flat threshold bitwise
+   equal to the two-level kernels' (``dct_hist_coarse`` + ``hist_refine``)
+   at eps 1e-3, 1e-2, 1e-1 and 1.5. Then the roofline of all nine kernels:
+   launch counts set to 0, ``kernel_report(..., measure=True)`` of each
+   kernel at its table shape (paged attention at the serving shape, the
+   tiled spectral kernels at the packed buffer, the single-tensor ones at
+   ``embed``, the flat pair at the packed buffer, at 4096 blocks and, the
+   single one, at ``embed``), one JSON line each, counts read. Last, the
+   flat pair's reports (per-call ms and bound) beside its device time (as
+   in 4), its plain version and ``torch.matmul``, and the flat/two-level
+   ratios: kernel 9 against 6 + 7 at ``embed``,
+   kernel 8 against 2 + 3 at the packed buffer (not gated: the 3x gate of
+   ``kernel_roofline`` is about one-hot binning on a TPU's MXU).
+7. serve   — the port's ``serve_loop("smollm-135m", smoke=False)``: full
    published widths (30 layers, d_model 576, 9 query / 3 KV heads, d_ff
    1536, vocab 49152), bf16 random weights from seed 0, 16 requests of 32
    new tokens over a 17-page pool (requests queue on pages), with the
@@ -65,7 +92,7 @@ Phases (any failure exits non-zero; none is swallowed):
    30 layers; logits are O(1)), and ten decode steps are profiled: host
    wall per step, device busy time and idle share, the busiest device ops.
 
-7. train   — the port's ``train_loop("smollm-135m", smoke=False)``:
+8. train   — the port's ``train_loop("smollm-135m", smoke=False)``:
    full published widths, batch 4 x 4096 tokens (``train_4k``'s length,
    its global batch of 256 cut to 4 for one card), bf16 state from seed
    0, HYBRID placement. First 20 steps with no checkpoint task bound (what
@@ -77,7 +104,7 @@ Phases (any failure exits non-zero; none is swallowed):
    ``error_bound(eps)`` relative L2 per leaf, then a second run that
    resumes from it. Also: one train step's device profile and the device
    stage alone on the trained state.
-8. train (sync/async ckpt) — the same loop, 10 steps with a checkpoint
+9. train (sync/async ckpt) — the same loop, 10 steps with a checkpoint
    every 5 steps (saves at 0 and 5) in SYNC and then in ASYNC placement:
    the lossy stage runs per leaf on the checkpoint's workers through the
    single-tensor kernels. Launch counts are set to 0 just before each run
@@ -106,13 +133,13 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
-F32_FLOPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
 BF16_ATOL = 3.2e-2
 LOGIT_ATOL = 0.125
 SERVE = dict(n_requests=16, max_new=32, num_pages=17, page_size=16, slots=4)
 EPS = 1e-2                          # the checkpoint's lossy_eps
+FLAT_EPS = (1e-3, 1e-2, 1e-1, 1.5)  # the flat/two-level threshold gate
+ROOFLINE_ITERS = 10                 # timed calls per kernel_report
 TRAIN = dict(steps=20, ckpt_every=5, resume_steps=5)
 PLACEMENTS = dict(steps=10, ckpt_every=5)     # the SYNC/ASYNC runs
 
@@ -145,7 +172,7 @@ def device_profile(fn, n: int) -> dict:
             fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    ops = {}
+    ops, launches = {}, {}
     host_ops = 0
     for e in prof.key_averages():
         if e.key.startswith("aten::"):
@@ -156,12 +183,42 @@ def device_profile(fn, n: int) -> dict:
                 us = getattr(e, "self_cuda_time_total", 0)
             if us:
                 ops[e.key] = us / 1e3 / n
+                launches[e.key] = e.count
     busy = sum(ops.values())
     return {"wall_ms": wall * 1e3 / n, "host_aten_ops": host_ops / n,
             "device_busy_ms": busy if ops else None,
             "device_idle_share": (1 - busy / (wall * 1e3 / n)) if ops
             else None,
-            "top": sorted(ops.items(), key=lambda kv: -kv[1])[:8]}
+            "top": sorted(ops.items(), key=lambda kv: -kv[1])[:8],
+            "per_launch_ms": {k: ms * n / launches[k]
+                              for k, ms in ops.items()},
+            "launches": launches}
+
+
+def kernel_device_ms(fn, syms, n: int = 3) -> tuple[float | None, dict]:
+    """Device ms of one call of ``fn``, which launches each kernel named in
+    ``syms`` once: the sum of their mean times per recorded launch, and
+    per kernel (ms per launch, launches recorded of the n that ran). The
+    profiler has recorded fewer launches than ran (1 or 2 of 3 for a 5 ms
+    kernel on the H100), which a window's sum over n calls would report
+    as time not spent."""
+    prof = device_profile(fn, n)
+    ops = {op: (ms, prof["launches"][op])
+           for op, ms in prof["per_launch_ms"].items()
+           if any(sym in op for sym in syms)}
+    return sum(ms for ms, _ in ops.values()) or None, ops
+
+
+def bound_ms(name: str, *args) -> tuple[float, str]:
+    """Least time of kernel ``name`` on these arguments on one H100 and
+    what bounds it: ``kernel_report``'s roofline time (its ``kernel_cost``
+    over the HBM rate and the f32 FMA peak, whichever is larger)."""
+    from repro_torch.roofline.analysis import PEAK_FLOPS_F32
+    from repro_torch.roofline.kernels import kernel_report
+
+    rep = kernel_report(None, args, name=name, peak_flops=PEAK_FLOPS_F32)
+    return rep.roofline_s * 1e3, ("operations" if rep.bound == "compute"
+                                  else "bytes")
 
 
 def time_ms(fn, *, warmup: int = 5, samples: int = 25, reps: int = 10):
@@ -200,28 +257,6 @@ def _paged_case(gen, *, b, hq, n_kv, d, ps, pps, lengths, dtype, dev):
             torch.tensor(lengths, dtype=torch.int32, device=dev))
 
 
-def _bound_ms(q, k, v, table, length):
-    """Least time for one call on these inputs: each needed input byte
-    read once (the pages holding valid positions), the output written
-    once; flops of the scores and the PV product in f32."""
-    b, _, hq, d_k = q.shape
-    _, ps, n_kv, _ = k.shape
-    d_v = v.shape[3]
-    el = q.element_size()
-    lens = [int(x) for x in length.tolist()]
-    pages = sum(table.shape[1] if n == 0 else min(table.shape[1],
-                                                   -(-n // ps))
-                for n in lens)
-    nbytes = (pages * ps * n_kv * (d_k + d_v) * el + q.numel() * el
-              + b * hq * d_v * el + table.numel() * 4 + length.numel() * 4)
-    tokens = sum(table.shape[1] * ps if n == 0 else n for n in lens)
-    flops = 2 * hq * tokens * (d_k + d_v)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations")
-
-
 def _sdpa_call(q, k, v, table, length):
     """One ``scaled_dot_product_attention`` over the gathered cache (GQA
     by ``enable_gqa``), as a timing yardstick."""
@@ -245,10 +280,8 @@ def kernel_phase(serve_table_width: int) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(1234)
     ps = SERVE["page_size"]
-    shapes = {
-        "serve": dict(b=8, hq=9, n_kv=3, d=64, ps=ps, pps=serve_table_width),
-        "long": dict(b=8, hq=9, n_kv=3, d=64, ps=ps, pps=4096 // ps),
-    }
+    shapes = {"serve": _serve_shape(serve_table_width),
+              "long": _serve_shape(4096 // ps)}
     out: dict = {"max_err_f32": 0.0, "max_err_bf16": 0.0}
     for name, shp in shapes.items():
         full = shp["ps"] * shp["pps"]
@@ -278,10 +311,10 @@ def kernel_phase(serve_table_width: int) -> dict:
         k_ms = time_ms(lambda: PK.paged_decode_attention(*args))
         p_ms = time_ms(lambda: PK.paged_decode_attention_plain(*args))
         lib_ms = time_ms(_sdpa_call(*args))
-        b_ms, b_by = _bound_ms(*args)
-        prof = device_profile(lambda: PK.paged_decode_attention(*args), 20)
-        dev_ms = sum(ms for op, ms in prof["top"]
-                     if "paged_decode_kernel" in op) or None
+        b_ms, b_by = bound_ms("paged_decode_attention", *args)
+        dev_ms, _ = kernel_device_ms(
+            lambda: PK.paged_decode_attention(*args), ("paged_decode_kernel",),
+            20)
         out[name] = {"shape": dict(shp, len=full, dtype="bfloat16"),
                      "max_abs_err": err, "ms": k_ms, "device_ms": dev_ms,
                      "plain_ms": p_ms, "library_ms": lib_ms,
@@ -427,23 +460,6 @@ def spectral_check(xb, rows, eps, label):
             "dropped_all": bool((q == 0).all().item())}
 
 
-def _dct_bound(nb, *, out_bytes, in_bytes):
-    """Least time for a 256-point DCT over nb blocks: 512 flops per
-    element (f32 FMA, no TF32) against the bytes in and out."""
-    elems = nb * 256
-    t_ops = 512 * elems / F32_FLOPS_PER_S * 1e3
-    t_bytes = (in_bytes + out_bytes + 256 * 256 * 4) / HBM_BYTES_PER_S * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                 else "bytes")
-
-
-def _pass_bound(nbytes, flops):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
-    return max(t_ops, t_bytes), ("bytes" if t_bytes >= t_ops
-                                 else "operations")
-
-
 def spectral_phase() -> dict:
     import torch
     from repro_torch.configs import base as configs
@@ -516,16 +532,11 @@ def spectral_phase() -> dict:
             lambda: K.dequant_idct_plain(q, s),
             lambda: torch.matmul(yq, d_), "dequant_idct_kernel"),
     }
-    el = nb * 256
     bounds = {
-        "dct_hist_coarse_tiled": _dct_bound(
-            nb, in_bytes=4 * el, out_bytes=4 * el + nb // 8 * 32 * 8),
-        "hist_refine_tiled": _pass_bound(4 * el + 4 * nb + nb // 8 * 16 * 8,
-                                         3 * el),
-        "threshold_quant": _pass_bound(4 * el + 4 * nb + el + 4 * nb,
-                                       3 * el),
-        "dequant_idct": _dct_bound(nb, in_bytes=el + 4 * nb,
-                                   out_bytes=4 * el),
+        "dct_hist_coarse_tiled": bound_ms("dct_hist_coarse_tiled", xb),
+        "hist_refine_tiled": bound_ms("hist_refine_tiled", y, block_cc),
+        "threshold_quant": bound_ms("threshold_quant", y, t),
+        "dequant_idct": bound_ms("dequant_idct", q, s),
     }
     timing = {}
     for name, (kern, plain, lib, sym) in calls.items():
@@ -533,8 +544,7 @@ def spectral_phase() -> dict:
         p_ms = time_ms(plain, warmup=1, samples=3, reps=1)
         l_ms = (time_ms(lib, warmup=2, samples=5, reps=3)
                 if lib is not None else None)
-        prof = device_profile(kern, 3)
-        dev_ms = sum(ms for op, ms in prof["top"] if sym in op) or None
+        dev_ms, _ = kernel_device_ms(kern, (sym,))
         b_ms, b_by = bounds[name]
         timing[name] = {"ms": k_ms, "device_ms": dev_ms, "plain_ms": p_ms,
                         "library_ms": l_ms, "bound_ms": b_ms,
@@ -655,12 +665,8 @@ def single_tensor_phase() -> dict:
         res = single_tensor_check(x, EPS, key)
         xb, y, cc = res.pop("xb"), res.pop("y"), res.pop("cc")
         nb = xb.shape[0]
-        el = nb * 256
-        bounds = {
-            "dct_hist_coarse": _dct_bound(nb, in_bytes=4 * el,
-                                          out_bytes=4 * el + 2 * 32 * 4),
-            "hist_refine": _pass_bound(4 * el + 4 * nb + 2 * 16 * 4, 3 * el),
-        }
+        bounds = {"dct_hist_coarse": bound_ms("dct_hist_coarse", xb),
+                  "hist_refine": bound_ms("hist_refine", y, cc)}
         block_cc = K._per_block(cc, nb, torch.int32, dev).contiguous()
         calls = {
             "dct_hist_coarse": (lambda: K.dct_hist_coarse(xb),
@@ -716,11 +722,9 @@ def single_tensor_phase() -> dict:
         p_ms = time_ms(plain, warmup=1, samples=3, reps=1)
         l_ms = (time_ms(lib, warmup=2, samples=5, reps=3)
                 if lib is not None else None)
-        prof = device_profile(kern, 3)
-        dev_ops = {op: ms for op, ms in prof["top"]
-                   if any(sym in op for sym in syms)}
+        dev_ms, dev_ops = kernel_device_ms(kern, syms)
         b_ms, b_by = bounds[name]
-        timing[name] = {"ms": k_ms, "device_ms": sum(dev_ops.values()) or None,
+        timing[name] = {"ms": k_ms, "device_ms": dev_ms,
                         "device_ops": dev_ops, "plain_ms": p_ms,
                         "library_ms": l_ms, "bound_ms": b_ms,
                         "bound_by": b_by, "per_save": per_save[name]}
@@ -737,6 +741,248 @@ def single_tensor_phase() -> dict:
            "thresholds_differing": sum(r["thresholds_differing"]
                                        for r in leaves.values())}
     del embed, xb, y
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# roofline phase
+# ---------------------------------------------------------------------------
+
+def _flat_counts_gate(label, cnt, cnt_p, a, bins):
+    """The flat kernel's counts against the plain version's: equal, except
+    that an element on a bin edge, where the kernel's log2f and
+    ``ref.bin_index`` could round apart, may sit one bin over. Such moves
+    are counted, printed, and allowed up to the edge elements found (in
+    f64, within 1e-4 of a bin's width from an edge)."""
+    import torch
+    from repro_torch.kernels import ref
+
+    if torch.equal(cnt, cnt_p):
+        return 0
+    moved = int((cnt - cnt_p).abs().sum().item()) // 2
+    pos = (torch.log2(a.double().clamp(min=1e-38)) - ref.LOG2_LO
+           ) * ref._BIN_SCALE
+    edge = (a > 0) & ((pos - pos.round()).abs() < 1e-4)
+    log(f"{label}: {moved} elements in another flat bin than ref.bin_index "
+        f"puts them; {int(edge.sum())} elements sit on a bin edge: "
+        f"{a[edge][:8].tolist()} (bins {bins[edge][:8].tolist()})")
+    if moved > int(edge.sum()):
+        raise AssertionError(f"{label}: flat counts differ from the plain "
+                             f"version's beyond the bin-edge elements")
+    return moved
+
+
+def flat_check(xb, label):
+    """The flat pair against its plain version and the two-level kernels
+    on one input (see the module docstring, phase 6)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import spectral_lossy as K
+
+    y8, cnt8, eng8 = K.dct_hist_tiled(xb)
+    y9, cnt9, eng9 = K.dct_hist(xb)
+    y2, cnt2, _ = K.dct_hist_coarse_tiled(xb)
+    torch.cuda.synchronize()
+    if not (torch.equal(y8, y2) and torch.equal(y9, y2)):
+        raise AssertionError(f"{label}: the flat pair's y is not the coarse "
+                             f"kernel's")
+    y_p = ref.dct_blocks(xb)
+    err_y = _check_close(f"{label} flat y", y8, y_p, y_p)
+    del y_p
+    a = torch.abs(y8)
+    bins = ref.bin_index(a)
+    cnt_p, eng_p = K._tile_sums(a * a, bins, ref.NBINS, K.HIST_TILE)
+    moved = _flat_counts_gate(label, cnt8, cnt_p, a, bins)
+    same = cnt8 == cnt_p
+    torch.testing.assert_close(eng8[same], eng_p[same], rtol=1e-5, atol=0.0)
+    del a, bins
+    cnt_s, eng_s = K._sum_rows(cnt8, eng8)
+    if not torch.equal(cnt9, cnt_s):
+        raise AssertionError(f"{label}: dct_hist counts are not its tile "
+                             f"rows summed")
+    torch.testing.assert_close(eng9, eng_s, rtol=1e-6, atol=0.0)
+    n_tiles = cnt8.shape[0]
+    if not torch.equal(cnt8.view(n_tiles, ref.NBINS_COARSE,
+                                 ref.NBINS_FINE).sum(-1), cnt2):
+        raise AssertionError(f"{label}: 16 flat bins differ from their "
+                             f"coarse bin")
+    c_tile = cnt2.argmax(1).to(torch.int32)
+    fcnt, _ = K.hist_refine_tiled(y8, c_tile.repeat_interleave(K.HIST_TILE))
+    idx = (c_tile[:, None].long() * ref.NBINS_FINE
+           + torch.arange(ref.NBINS_FINE, device=xb.device))
+    if not torch.equal(cnt8.gather(1, idx), fcnt):
+        raise AssertionError(f"{label}: flat bins inside a coarse bin differ "
+                             f"from the refine kernel's counts")
+    y6, _, ce = K.dct_hist_coarse(xb)
+    thresholds = {}
+    for eps in FLAT_EPS:
+        c, cc, base, budget = ref.select_coarse(ce, eps)
+        _, fe = K.hist_refine(y6, cc)
+        t_two = ref.select_fine(fe, c, cc, base, budget)
+        t_flat = ref.threshold_from_histogram(eng9, eps)
+        if not torch.equal(t_two, t_flat):
+            raise AssertionError(f"{label} eps {eps}: flat threshold "
+                                 f"{t_flat.item()!r} != two-level "
+                                 f"{t_two.item()!r}")
+        thresholds[eps] = t_flat.item()
+    return {"blocks": xb.shape[0], "err_y": err_y,
+            "energy_rel": _rel_err(eng8[same], eng_p[same]),
+            "single_energy_rel": _rel_err(eng9, eng_s),
+            "moved": moved, "thresholds": thresholds}
+
+
+def _serve_shape(table_width: int) -> dict:
+    return dict(b=8, hq=9, n_kv=3, d=64, ps=SERVE["page_size"],
+                pps=table_width)
+
+
+def _in_turns(a, b) -> tuple[float, float]:
+    """Per-call ms of two callables timed in turns (a, b, b, a)."""
+    ta = [time_ms(a, warmup=2, samples=5, reps=3)]
+    tb = [time_ms(b, warmup=2, samples=5, reps=3) for _ in range(2)]
+    ta.append(time_ms(a, warmup=2, samples=5, reps=3))
+    return statistics.mean(ta), statistics.mean(tb)
+
+
+def roofline_phase(serve_table_width: int) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.configs import base as configs
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import paged_attention as PK
+    from repro_torch.kernels import spectral_lossy as K
+    from repro_torch.roofline.analysis import PEAK_FLOPS_F32
+    from repro_torch.roofline.kernels import kernel_report
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(14)
+    cfg = configs.get("smollm-135m")
+    keys, sizes, rows = moment_rows(cfg)
+    n_embed = sizes[keys.index("['mu']['embed']['embedding']")]
+
+    # 1. the flat pair against its plain version and the two-level kernels
+    checks = {}
+    edge_rows = [8, 16, 1000, 24]
+    edge_sizes = [8 * 256 - 5, 16 * 256, 1000 * 256 - 100, 17 * 256]
+    for kind in ("moments", "zeros", "tiny"):
+        checks[f"edge {kind}"] = flat_check(
+            _spectral_payload(gen, edge_sizes, edge_rows, dev, kind),
+            f"flat edge {kind}")
+    bench = {}
+    for nb in (256, 4096):              # benchmarks/kernel_roofline.py
+        bench[nb] = torch.from_numpy(np.random.default_rng(0).standard_normal(
+            (nb, ref.BLOCK)).astype(np.float32)).to(dev)
+        checks[f"kernel_roofline {nb}"] = flat_check(bench[nb],
+                                                     f"flat {nb} blocks")
+    for kind in ("mu", "nu", "tiny", "sparse"):
+        x = _leaf_payload(gen, n_embed, dev, kind)
+        xe = ops._pad_blocks(ref.blockize(x)[0], K.HIST_TILE)
+        checks[f"embed {kind}"] = flat_check(xe, f"flat embed {kind}")
+    for label, res in checks.items():
+        log(f"flat {label}: {res}")
+    xe = ops._pad_blocks(ref.blockize(_leaf_payload(gen, n_embed, dev, "mu")
+                                      )[0], K.HIST_TILE)
+
+    # 2. every kernel on the roofline, counted from a fresh start
+    xb = _spectral_payload(gen, sizes, rows, dev)
+    checks["packed"] = flat_check(xb, "flat packed")
+    log(f"flat packed: {checks['packed']}")
+    nb = xb.shape[0]
+    y = K.dct_hist_coarse_tiled(xb)[0]
+    block_cc = torch.full((nb,), 20, dtype=torch.int32, device=dev)
+    t = torch.full((nb,), 1e-4, dtype=torch.float32, device=dev)
+    q, s = K.threshold_quant(y, t)
+    ye, _, ce = K.dct_hist_coarse(xe)
+    cc_e = ref.select_coarse(ce, EPS)[1]
+    gen_cpu = torch.Generator().manual_seed(1234)
+    shp = _serve_shape(serve_table_width)
+    full = shp["ps"] * shp["pps"]
+    paged = _paged_case(gen_cpu, lengths=[full] * shp["b"],
+                        dtype=torch.bfloat16, dev=dev, **shp)
+    cases = [
+        ("paged_decode_attention", "serve", PK.paged_decode_attention, paged),
+        ("dct_hist_coarse_tiled", "packed", K.dct_hist_coarse_tiled, (xb,)),
+        ("hist_refine_tiled", "packed", K.hist_refine_tiled, (y, block_cc)),
+        ("threshold_quant", "packed", K.threshold_quant, (y, t)),
+        ("dequant_idct", "packed", K.dequant_idct, (q, s)),
+        ("dct_hist_coarse", "embed", K.dct_hist_coarse, (xe,)),
+        ("hist_refine", "embed", K.hist_refine, (ye, cc_e)),
+        ("dct_hist_tiled", "packed", K.dct_hist_tiled, (xb,)),
+        ("dct_hist", "packed", K.dct_hist, (xb,)),
+        ("dct_hist_tiled", "4096", K.dct_hist_tiled, (bench[4096],)),
+        ("dct_hist", "4096", K.dct_hist, (bench[4096],)),
+        ("dct_hist", "embed", K.dct_hist, (xe,)),
+    ]
+    torch.cuda.synchronize()
+    K.reset_launches()
+    PK.paged_decode_attention.launches = 0
+    reports = []
+    for name, shape, fn, args in cases:
+        rep = kernel_report(fn, args, name=name, measure=True,
+                            iters=ROOFLINE_ITERS, peak_flops=PEAK_FLOPS_F32)
+        reports.append({"shape": shape, **rep.to_dict()})
+        log(json.dumps({"roofline": reports[-1]}))
+    launches = {k.__name__: k.launches for k in K.KERNELS}
+    launches["paged_decode_attention"] = PK.paged_decode_attention.launches
+    for name, _, _, _ in cases:
+        want = (1 + ROOFLINE_ITERS) * sum(c[0] == name for c in cases)
+        assert launches[name] == want, (name, launches)
+    log(f"roofline launches: {launches}")
+
+    # 3. the flat pair's reports beside its device time, its plain
+    #    version and the library product, and against the two-level pair
+    dt_ = ref.dct_tensor(dev).T.contiguous()
+    placed = {(r["name"], r["shape"]): r for r in reports}
+    timing = {}
+    for name, fn, syms in (
+            ("dct_hist_tiled", K.dct_hist_tiled, ("dct_hist_flat_kernel",)),
+            ("dct_hist", K.dct_hist, ("dct_hist_flat_kernel",
+                                      "flat_partial_kernel",
+                                      "flat_total_kernel"))):
+        plain = getattr(K, f"{name}_plain")
+        shapes = {"packed": xb, "4096": bench[4096]}
+        if name == "dct_hist":
+            shapes["embed"] = xe
+        for label, x in shapes.items():
+            rep = placed[name, label]
+            k_ms = rep["measured_s"] * 1e3
+            b_ms = rep["roofline_s"] * 1e3
+            b_by = "operations" if rep["bound"] == "compute" else "bytes"
+            p_ms = time_ms(lambda: plain(x), warmup=1, samples=3, reps=1)
+            l_ms = time_ms(lambda: torch.matmul(x, dt_), warmup=2, samples=5,
+                           reps=3)
+            dev_ms, dev_ops = kernel_device_ms(lambda: fn(x), syms)
+            timing.setdefault(name, {})[label] = {
+                "blocks": x.shape[0], "ms": k_ms, "device_ms": dev_ms,
+                "device_ops": dev_ops, "plain_ms": p_ms, "library_ms": l_ms,
+                "bound_ms": b_ms, "bound_by": b_by}
+            log(f"roofline {name} at {label} ({x.shape[0]} blocks): kernel "
+                f"{k_ms:.4f} ms per call (device {dev_ops}), plain "
+                f"{p_ms:.4f} ms, torch.matmul {l_ms:.4f} ms, bound "
+                f"{b_ms:.4f} ms ({b_by})")
+    flat_e, two_e = _in_turns(
+        lambda: K.dct_hist(xe),
+        lambda: (K.dct_hist_coarse(xe), K.hist_refine(ye, cc_e)))
+    flat_p, two_p = _in_turns(
+        lambda: K.dct_hist_tiled(xb),
+        lambda: (K.dct_hist_coarse_tiled(xb),
+                 K.hist_refine_tiled(y, block_cc)))
+    ratios = {"embed": {"flat_ms": flat_e, "two_level_ms": two_e,
+                        "flat_over_two_level": flat_e / two_e,
+                        "kernels": "dct_hist vs dct_hist_coarse + "
+                                   "hist_refine"},
+              "packed": {"flat_ms": flat_p, "two_level_ms": two_p,
+                         "flat_over_two_level": flat_p / two_p,
+                         "kernels": "dct_hist_tiled vs dct_hist_coarse_tiled"
+                                    " + hist_refine_tiled"}}
+    log(f"flat / two-level on the card (per call, timed in turns): embed "
+        f"{flat_e:.4f} / {two_e:.4f} ms = {flat_e / two_e:.3f}x; packed "
+        f"{flat_p:.4f} / {two_p:.4f} ms = {flat_p / two_p:.3f}x")
+    out = {"checks": checks, "reports": reports, "launches": launches,
+           "timing": timing, "ratios": ratios,
+           "max_abs_err": max(r["err_y"] for r in checks.values())}
+    del xb, y, q, s, t, xe, ye, bench
     torch.cuda.empty_cache()
     return out
 
@@ -872,6 +1118,11 @@ def serve_phase(chain_dir: Path) -> dict:
         f"{decode['device_idle_share']}")
     for op, ms in decode["top"]:
         log(f"serve:   {ms * 1e3:9.1f} us/step  {op[:90]}")
+    decode["paged_launches_recorded"] = sum(
+        c for op, c in decode["launches"].items()
+        if "paged_decode_kernel" in op)
+    log(f"serve: the profiler recorded {decode['paged_launches_recorded']} "
+        f"paged-attention launches of the {10 * cfg.n_layers} that ran")
     loop = {k: rep[k] for k in ("step_compute_s", "handoff_dispatch_s",
                                 "handoff_materialize_s", "sync_stall_s",
                                 "staging_backpressure_s",
@@ -1292,6 +1543,9 @@ def main() -> int:
     log(f"single-tensor spectral kernel phase: "
         f"{time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
+    roof = roofline_phase(serve_table_width=4)
+    log(f"roofline phase: {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
     serve = serve_phase(ROOT / "build" / "smoke_chain")
     log(f"serve phase: {time.perf_counter() - t0:.1f}s, "
         f"{serve['tok_per_s']:.1f} tok/s")
@@ -1371,15 +1625,29 @@ def main() -> int:
             "shape": {"blocks": single["embed_blocks"], "block": 256,
                       "dtype": "float32", "leaf": "['mu']['embed']"},
         })
-    # the least times of the two TPU kernels still to port, at
-    # benchmarks/kernel_roofline.py's 4096 blocks (computed, not measured)
-    nb, el = 4096, 4096 * 256
-    for name, rows_out in (("dct_hist_tiled", nb // 8 * 512 * 2 * 4),
-                           ("dct_hist", 512 * 2 * 4)):
-        b_ms, b_by = _dct_bound(nb, in_bytes=4 * el,
-                                out_bytes=4 * el + rows_out)
-        log(f"bound, not ported: {name} at {nb} blocks: {b_ms * 1e3:.2f} us "
-            f"({b_by})")
+    for name, line in (("dct_hist_tiled", 299), ("dct_hist", 133)):
+        main_shape = "packed" if name == "dct_hist_tiled" else "embed"
+        tm = roof["timing"][name]
+        at = ", ".join(r["shape"] for r in roof["reports"]
+                       if r["name"] == name)
+        records.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/spectral_lossy.cu",
+            "replaces": f"{tpu}:{line}", "tpu_kernel": f"{tpu}:{line}",
+            "launches": roof["launches"][name],
+            "launches_per": (f"roofline phase: kernel_report at {at}, "
+                             f"1 + {ROOFLINE_ITERS} calls each"),
+            "max_abs_err": roof["max_abs_err"],
+            **{k: tm[main_shape][k] for k in (
+                "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by")},
+            "kernel_ms": tm[main_shape]["ms"],
+            "library_call": "torch.matmul, f32, TF32 off (matmul only)",
+            "shape": {"blocks": tm[main_shape]["blocks"], "block": 256,
+                      "dtype": "float32", "at": main_shape},
+            "at": tm,
+            "flat_over_two_level": roof["ratios"],
+        })
     log(json.dumps({"serve": serve}))
     log(json.dumps({"spectral": {k: v for k, v in spec.items()
                                  if k != "timing"}}))
@@ -1387,6 +1655,8 @@ def main() -> int:
     log(json.dumps({"single_tensor": {k: v for k, v in single.items()
                                       if k != "timing"}}))
     log(json.dumps({"train_placements": placements}))
+    log(json.dumps({"roofline": {k: v for k, v in roof.items()
+                                 if k != "reports"}}))
     log(card)
     log(json.dumps({"kernels": records}))
     log(json.dumps({"ok": True, "device": {

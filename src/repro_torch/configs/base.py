@@ -56,6 +56,10 @@ class ModelConfig:
         from repro_torch.models import transformer
         return P.param_count(transformer.param_spec(self))
 
+    def n_active_params(self) -> int:
+        """Params touched per token: all of them in the dense family."""
+        return self.n_params()
+
 
 @dataclasses.dataclass(frozen=True)
 class ShapeConfig:

@@ -1,12 +1,14 @@
 // The spectral lossy codec's device kernels for Hopper (sm_90a): the DCT
-// with its coarse histogram, the refine histogram, the threshold quantiser,
-// and the dequantise + inverse DCT of restore.
+// with its coarse or its flat histogram, the refine histogram, the
+// threshold quantiser, and the dequantise + inverse DCT of restore.
 //
 // Replaces, in src/repro/kernels/spectral_lossy.py (the Pallas TPU kernels):
 //   dct_hist_coarse_tiled  <- _dct_hist_coarse_tiled_kernel  (dct_hist_coarse_tiled)
 //   hist_refine_tiled      <- _hist_refine_tiled_kernel      (hist_refine_tiled)
 //   dct_hist_coarse        <- _dct_hist_coarse_kernel        (dct_hist_coarse)
 //   hist_refine            <- _hist_refine_kernel            (hist_refine)
+//   dct_hist_tiled         <- _dct_hist_tiled_kernel         (dct_hist_tiled)
+//   dct_hist               <- _dct_hist_kernel               (dct_hist)
 //   threshold_quant        <- _threshold_quant_kernel        (threshold_quant)
 //   dequant_idct           <- _dequant_idct_kernel           (dequant_idct)
 //
@@ -21,18 +23,26 @@
 //   dct_hist_coarse,       the same two, with the tile rows summed into ONE
 //   hist_refine            histogram of the whole tensor (the single-tensor
 //                          codec's selection statistics)
+//   dct_hist_tiled         y = x . D^T; per tile, for the 512 flat bins
+//                          bin(|y|): the count and sum of |y|^2
+//   dct_hist               the same, summed into ONE 512-bin histogram (the
+//                          flat selector, the baseline the two-level pair
+//                          is measured against)
 //   threshold_quant        kept = |y| >= t_row ? y : 0; scale = amax *
 //                          f32(1/127) (1 for an all-zero row);
 //                          q = clip(rint(kept / scale), -127, 127)
 //   dequant_idct           x = (q * scale_row) . D
 //
 // Bounds on this card (H100 SXM: 3.35 TB/s HBM, 67 TFLOP/s f32 FMA outside
-// the tensor cores; TF32 is not allowed for this codec):
-//   the two DCT kernels are bound by operations: 512 flops per element
-//   (a 256-long dot product) against 8 bytes moved (f32 in and out), about
-//   64 flops per byte where the card balances at 20. The refine histogram
-//   and the quantiser read 4 bytes per element and do a log2 or a divide
-//   on it: bound by bytes.
+// the tensor cores; TF32 is not allowed for this codec; the counts are
+// repro_torch/roofline/kernels.py::kernel_cost):
+//   the DCT kernels (with any histogram) and the inverse are bound by
+//   operations: 512 flops per element (a 256-long dot product) against 8
+//   bytes moved (f32 in and out), about 64 flops per byte where the card
+//   balances at 20. The flat pair's tile rows add 4 KB per 8 rows (half
+//   the bytes of y), which leaves it bound by operations. The refine
+//   histogram and the quantiser read 4 bytes per element and do a log2 or
+//   a divide on it: bound by bytes.
 //
 // Design (a first, simple one; right before fast):
 //   * DCT kernels: one CTA of 256 threads per 64 rows. The CTA's rows sit
@@ -43,24 +53,32 @@
 //     runs the classic outer-product loop: two float4 reads of the row
 //     tile and two of the panel feed 64 FFMAs. Every output is one
 //     sequential f32 FMA chain over k = 0..255: no TF32, no split sums.
-//   * The rows a thread owns are one 8-row histogram tile. After the
-//     product each thread bins its 64 outputs into a private column of a
-//     shared-memory table (the row tile's space, reused), and one thread
+//     Every forward-DCT kernel runs this one body (dct_rows), so their y
+//     is the same bits for the same input.
+//   * Coarse histogram: the rows a thread owns are one 8-row tile. After
+//     the product each thread bins its 64 outputs into a private column of
+//     a shared-memory table (the row tile's space, reused), and one thread
 //     per (tile, bin) sums the 32 columns of its tile in a fixed order and
 //     writes the tile's row. No atomics anywhere: a run is deterministic,
 //     as the TPU's in-order grid was.
+//   * Flat histogram: private columns would take 512 bins x 2 x 4 B x 256
+//     threads = 1 MiB per CTA, so the CTA's y goes back to shared memory
+//     and each warp bins one tile into its own 512-bin histogram, lanes
+//     that share a bin merged by the lowest of them in lane order (see
+//     dct_hist_flat_kernel). Chosen over a per-tile sort by bin: it needs
+//     no second copy of the tile and costs a pass over the group only for
+//     the lanes that lead one.
 //   * Refine: one warp per 8-row tile (2048 elements, 64 per lane),
 //     private per-lane bins in shared memory, then the same fixed-order
 //     sum. Quantiser: one warp per row, a warp max for amax.
 //   * Single-tensor histograms: the TPU kernel carries one histogram from
 //     grid step to grid step; CTAs here run in no order, so the tiled
-//     kernel writes its tile rows into scratch and a second kernel, from
-//     the same C entry and stream, sums them into one row: one CTA of 1024
-//     threads, each summing a strided set of rows for one bin (counts as
-//     64-bit integers, energies in double), then one thread per bin adding
-//     those partial sums in a fixed order. Every run sums in the same
-//     order, and no float atomics are used. The scratch rows are at most
-//     32 x 8 bytes per 8 blocks of input (3 % of the DCT's bytes).
+//     kernel writes its tile rows into scratch and more kernels, from the
+//     same C entry and stream, sum them into one row in a fixed order:
+//     counts as 64-bit integers, energies in double, rounded once. The
+//     coarse and refine rows (32 and 16 bins) take one CTA of 1024
+//     threads; the flat rows (512 bins) a grid of CTAs over fixed ranges
+//     of rows and then one CTA over the ranges. No float atomics.
 //   * Ragged edges are masked in the kernels: rows past n_blocks read as
 //     zero and are never written, which is what the JAX wrappers' zero pad
 //     and slice amount to.
@@ -162,14 +180,16 @@ __device__ __forceinline__ void tile_slot(int f, int& r, int& k4) {
   k4 = ((g & 7) * 8 + (l & 7)) * 4;
 }
 
-__global__ void __launch_bounds__(kThreads, 2)
-dct_hist_coarse_kernel(const float* __restrict__ x,
-                       const float* __restrict__ dt,   // D^T, row-major
-                       float* __restrict__ y, float* __restrict__ cnt,
-                       float* __restrict__ eng, int nb, float bin_scale) {
-  extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);
-  float* panel = xs + kTileBytes / sizeof(float);
+// y = x . D^T for the CTA's kRows rows (rows past nb read as zero): the
+// thread's 8 x 8 outputs stay in acc, and those of live rows are written
+// to y. Every kernel that computes the forward DCT runs this one body, so
+// all of them give the same bits for the same input. Returns whether the
+// thread's 8-row tile is live (nb is a multiple of kTile).
+__device__ __forceinline__ bool dct_rows(const float* __restrict__ x,
+                                         const float* __restrict__ dt,
+                                         float* __restrict__ y, int nb,
+                                         float* xs, float* panel,
+                                         const Owner& o, float acc[8][8]) {
   const long row0 = (long)blockIdx.x * kRows;
   for (int f = threadIdx.x; f < kRows * kBlock / 4; f += kThreads) {
     int r, k4;
@@ -182,11 +202,9 @@ dct_hist_coarse_kernel(const float* __restrict__ x,
     xs[(k4 + 2) * kXs + r] = v.z;
     xs[(k4 + 3) * kXs + r] = v.w;
   }
-  const Owner o;
-  float acc[8][8];
   gemm_rows(xs, panel, dt, o, acc);
 
-  const bool live = row0 + o.tr * 8 < nb;   // nb is a multiple of kTile
+  const bool live = row0 + o.tr * 8 < nb;
   if (live) {
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
@@ -197,6 +215,21 @@ dct_hist_coarse_kernel(const float* __restrict__ x,
           make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
     }
   }
+  return live;
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+dct_hist_coarse_kernel(const float* __restrict__ x,
+                       const float* __restrict__ dt,   // D^T, row-major
+                       float* __restrict__ y, float* __restrict__ cnt,
+                       float* __restrict__ eng, int nb, float bin_scale) {
+  extern __shared__ float4 smem4[];
+  float* xs = reinterpret_cast<float*>(smem4);
+  float* panel = xs + kTileBytes / sizeof(float);
+  const long row0 = (long)blockIdx.x * kRows;
+  const Owner o;
+  float acc[8][8];
+  const bool live = dct_rows(x, dt, y, nb, xs, panel, o, acc);
   // private (count, energy) columns, in the row tile's space
   __syncthreads();
   float* hc = xs;
@@ -231,6 +264,77 @@ dct_hist_coarse_kernel(const float* __restrict__ x,
     }
     cnt[tile * kCoarse + b] = c;
     eng[tile * kCoarse + b] = e;
+  }
+}
+
+// The flat 512-bin histogram. After the product the CTA's y goes back to
+// shared memory row-major (64 KB, the row tile's space) and warp w bins
+// tile w (8 warps, 8 tiles per CTA) into its own 512-bin (u32 count, f32
+// energy) histogram (4 KB per warp, the panel's space). The warp walks the
+// tile's 2048 elements 32 at a time in a fixed order; __match_any_sync
+// groups the lanes whose elements share a bin, and the group's lowest lane
+// sums its peers' |y|^2 in lane order and alone adds that sum and the
+// group's size to the bin: every bin sees the same sums in the same order
+// in every run. A bin's energy is at most 31 lane-ordered then 63 f32
+// additions, the coarse kernel's error bound. The leaders' loops run side
+// by side, so a step costs the largest group, not the warp.
+static_assert((size_t)kRows * kBlock * sizeof(float) <= kTileBytes,
+              "the CTA's y must fit in the row tile's space");
+static_assert((size_t)(kThreads / 32) * 2 * kNbins * sizeof(float)
+                  <= kPanelBytes,
+              "per-warp flat histograms must fit in the panel's space");
+
+__global__ void __launch_bounds__(kThreads, 2)
+dct_hist_flat_kernel(const float* __restrict__ x,
+                     const float* __restrict__ dt,     // D^T, row-major
+                     float* __restrict__ y, float* __restrict__ cnt,
+                     float* __restrict__ eng, int nb, float bin_scale) {
+  extern __shared__ float4 smem4[];
+  float* xs = reinterpret_cast<float*>(smem4);
+  float* panel = xs + kTileBytes / sizeof(float);
+  const long row0 = (long)blockIdx.x * kRows;
+  const Owner o;
+  float acc[8][8];
+  dct_rows(x, dt, y, nb, xs, panel, o, acc);
+  __syncthreads();  // every thread is done with the row tile and the panel
+  float* ys = xs;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float* yr = ys + (o.tr * 8 + i) * kBlock;
+    *reinterpret_cast<float4*>(yr + o.c0) =
+        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    *reinterpret_cast<float4*>(yr + o.c0 + 128) =
+        make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  unsigned* hc = reinterpret_cast<unsigned*>(panel) + warp * 2 * kNbins;
+  float* he = panel + warp * 2 * kNbins + kNbins;
+  for (int b = lane; b < kNbins; b += 32) {
+    hc[b] = 0u;
+    he[b] = 0.f;
+  }
+  __syncthreads();
+  if (row0 + warp * kTile >= nb) return;   // the warp's tile is past the end
+  const float* yt = ys + warp * kTile * kBlock;
+  for (int it = 0; it < kTile * kBlock / 32; ++it) {
+    const float* yi = yt + it * 32;
+    const int b = bin_index(fabsf(yi[lane]), bin_scale);
+    const unsigned peers = __match_any_sync(0xffffffffu, b);
+    if (lane == __ffs(peers) - 1) {
+      float s = 0.f;
+      for (unsigned m = peers; m; m &= m - 1) {
+        const float a = fabsf(yi[__ffs(m) - 1]);
+        s = __fadd_rn(s, __fmul_rn(a, a));
+      }
+      hc[b] += __popc(peers);
+      he[b] = __fadd_rn(he[b], s);
+    }
+    __syncwarp();
+  }
+  const long tile = blockIdx.x * (long)(kRows / kTile) + warp;
+  for (int b = lane; b < kNbins; b += 32) {
+    cnt[tile * kNbins + b] = (float)hc[b];
+    eng[tile * kNbins + b] = he[b];
   }
 }
 
@@ -396,6 +500,52 @@ reduce_rows_kernel(const float* __restrict__ cnt_rows,
   }
 }
 
+// The flat single histogram from its tile rows, in two fixed-order stages
+// (one CTA summing 131k rows of 512 bins would leave 2 threads per bin):
+// CTA g of the first sums rows [g * per, (g + 1) * per), thread b down bin
+// b (a warp reads 32 bins of a row, coalesced), counts as 64-bit integers
+// and energies in double; the second adds the partial rows in range order
+// and rounds once. per, and with it the order, depends on n_rows alone.
+constexpr int kMaxParts = 256;
+
+__host__ __device__ inline long flat_rows_per_part(long n_rows) {
+  const long per = (n_rows + kMaxParts - 1) / kMaxParts;
+  return per < 16 ? 16 : per;
+}
+
+__global__ void __launch_bounds__(kNbins)
+flat_partial_kernel(const float* __restrict__ cnt_rows,
+                    const float* __restrict__ eng_rows, long n_rows,
+                    long per, long long* __restrict__ part_c,
+                    double* __restrict__ part_e) {
+  const int b = threadIdx.x;
+  const long r0 = blockIdx.x * per;
+  const long r1 = r0 + per < n_rows ? r0 + per : n_rows;
+  long long c = 0;
+  double e = 0.0;
+  for (long r = r0; r < r1; ++r) {
+    c += (long long)cnt_rows[r * kNbins + b];
+    e += (double)eng_rows[r * kNbins + b];
+  }
+  part_c[blockIdx.x * kNbins + b] = c;
+  part_e[blockIdx.x * kNbins + b] = e;
+}
+
+__global__ void __launch_bounds__(kNbins)
+flat_total_kernel(const long long* __restrict__ part_c,
+                  const double* __restrict__ part_e, int n_parts,
+                  float* __restrict__ cnt, float* __restrict__ eng) {
+  const int b = threadIdx.x;
+  long long c = 0;
+  double e = 0.0;
+  for (int g = 0; g < n_parts; ++g) {
+    c += part_c[g * kNbins + b];
+    e += part_e[g * kNbins + b];
+  }
+  cnt[b] = (float)c;
+  eng[b] = (float)e;
+}
+
 }  // namespace
 
 extern "C" {
@@ -452,6 +602,51 @@ int spectral_hist_refine(const float* y, const int* coarse, float* cnt_rows,
   if (err != 0) return err;
   reduce_rows_kernel<kFine><<<1, kReduceThreads, 0, (cudaStream_t)stream>>>(
       cnt_rows, eng_rows, nb > 0 ? nb / kTile : 0, cnt, eng);
+  return (int)cudaGetLastError();
+}
+
+int spectral_dct_hist_tiled(const float* x, const float* dt, float* y,
+                            float* cnt, float* eng, int nb, float bin_scale,
+                            void* stream) {
+  if (nb <= 0) return 0;
+  cudaFuncSetAttribute(dct_hist_flat_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)kDctSmem);
+  const int grid = (nb + kRows - 1) / kRows;
+  dct_hist_flat_kernel<<<grid, kThreads, kDctSmem, (cudaStream_t)stream>>>(
+      x, dt, y, cnt, eng, nb, bin_scale);
+  return (int)cudaGetLastError();
+}
+
+// Bytes of the partial rows spectral_dct_hist needs as scratch.
+size_t spectral_dct_hist_parts_bytes() {
+  return (size_t)kMaxParts * kNbins * (sizeof(long long) + sizeof(double));
+}
+
+// The flat single histogram: the tiled kernel into the caller's scratch
+// rows (n_blocks / 8 of them), their partial sums into ``parts``
+// (spectral_dct_hist_parts_bytes()), then the total into cnt and eng (all
+// zero for n_blocks = 0).
+int spectral_dct_hist(const float* x, const float* dt, float* y,
+                      float* cnt_rows, float* eng_rows, void* parts,
+                      float* cnt, float* eng, int nb, float bin_scale,
+                      void* stream) {
+  int err = spectral_dct_hist_tiled(x, dt, y, cnt_rows, eng_rows, nb,
+                                    bin_scale, stream);
+  if (err != 0) return err;
+  const long n_rows = nb > 0 ? nb / kTile : 0;
+  const long per = flat_rows_per_part(n_rows);
+  const int n_parts = (int)((n_rows + per - 1) / per);
+  long long* part_c = static_cast<long long*>(parts);
+  double* part_e = reinterpret_cast<double*>(part_c + kMaxParts * kNbins);
+  if (n_parts > 0) {
+    flat_partial_kernel<<<n_parts, kNbins, 0, (cudaStream_t)stream>>>(
+        cnt_rows, eng_rows, n_rows, per, part_c, part_e);
+    err = (int)cudaGetLastError();
+    if (err != 0) return err;
+  }
+  flat_total_kernel<<<1, kNbins, 0, (cudaStream_t)stream>>>(
+      part_c, part_e, n_parts, cnt, eng);
   return (int)cudaGetLastError();
 }
 

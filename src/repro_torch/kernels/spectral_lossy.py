@@ -1,7 +1,7 @@
 """The spectral lossy codec's kernels: hand-written Hopper kernels and their
 plain versions.
 
-Six of the JAX package's Pallas kernels (``src/repro/kernels/
+The JAX package's eight Pallas kernels of the codec (``src/repro/kernels/
 spectral_lossy.py``) are ported here, with the JAX signatures (less
 ``interpret``, and less the quantiser's and the inverse's ``tile``, which
 on the card is the kernel's own):
@@ -14,6 +14,10 @@ on the card is the kernel's own):
                          the whole tensor            (single-tensor save)
   hist_refine            ONE 16-bin fine histogram inside each block's
                          coarse bin                  (single-tensor save)
+  dct_hist_tiled         y = x . D^T and a flat 512-bin (count, energy)
+                         row per 8-row tile          (kernel roofline)
+  dct_hist               y = x . D^T and ONE flat 512-bin histogram
+                                                     (kernel roofline)
   threshold_quant        zero |y| < t, int8-quantize with a per-block scale
                                                      (every save)
   dequant_idct           x = (q * scale) . D         (restore)
@@ -32,11 +36,6 @@ The choice is the tensors' device and nothing else: a CUDA call launches
 the kernel or raises, it never falls back to the plain version. Every
 launch adds one to the wrapper's ``launches`` counter (thread-safe: the
 checkpoint's workers launch concurrently).
-
-The Pallas kernels' flat 512-bin pair (``dct_hist``, ``dct_hist_tiled``,
-the two-level selection's benchmark baseline) is not ported yet (ROADMAP.md,
-queue 2); :func:`not_ported` is what a CUDA caller that would need one
-gets.
 """
 from __future__ import annotations
 
@@ -46,18 +45,10 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.ref import BLOCK, NBINS_COARSE, NBINS_FINE
+from repro_torch.kernels.ref import BLOCK, NBINS, NBINS_COARSE, NBINS_FINE
 
 HIST_TILE = 8      # blocks per histogram row (fixed on the card)
 _BIN_SCALE = float(np.float32(ref._BIN_SCALE))
-
-
-def not_ported(what: str) -> NotImplementedError:
-    """The error for a CUDA path that needs a kernel not ported yet."""
-    return NotImplementedError(
-        f"{what} on a CUDA tensor needs the flat 512-bin spectral kernels "
-        f"(dct_hist / dct_hist_tiled), not ported yet (ROADMAP.md, queue 2 "
-        f"item 7)")
 
 
 def _check_blocks(xb: torch.Tensor, tile: int, name: str) -> None:
@@ -87,8 +78,20 @@ def _tile_sums(a2: torch.Tensor, bins: torch.Tensor, nbins: int,
                tile: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-tile (count, energy) rows over bins in [0, nbins); elements with
     bin -1 count nowhere. Energies are summed in float64 and rounded once
-    to f32; one pass per bin keeps it free of scatter atomics."""
+    to f32. On the CPU that is one sequential ``bincount``; on the card,
+    where ``bincount`` and ``index_add_`` add with atomics, one pass per
+    bin."""
     n_tiles = a2.shape[0] // tile
+    if a2.device.type == "cpu":
+        key = bins.reshape(n_tiles, tile * BLOCK).long()
+        key = key + torch.arange(n_tiles)[:, None] * nbins
+        keep = bins.reshape(key.shape) >= 0
+        size = n_tiles * nbins
+        cnt = torch.bincount(key[keep], minlength=size)
+        eng = torch.bincount(key[keep], weights=a2.reshape(key.shape)[keep]
+                             .double(), minlength=size)
+        return (cnt.to(torch.float32).reshape(n_tiles, nbins),
+                eng.to(torch.float32).reshape(n_tiles, nbins))
     a2 = a2.reshape(n_tiles, tile * BLOCK)
     bins = bins.reshape(n_tiles, tile * BLOCK)
     cnt = torch.empty((n_tiles, nbins), dtype=torch.float32, device=a2.device)
@@ -123,6 +126,13 @@ def hist_refine_tiled_plain(y: torch.Tensor, coarse: torch.Tensor,
     return _tile_sums(a * a, fine, NBINS_FINE, tile)
 
 
+def dct_hist_tiled_plain(xb: torch.Tensor, tile: int = HIST_TILE):
+    y = ref.dct_blocks(xb)
+    a = torch.abs(y)
+    cnt, eng = _tile_sums(a * a, ref.bin_index(a), NBINS, tile)
+    return y, cnt, eng
+
+
 def _sum_rows(cnt: torch.Tensor, eng: torch.Tensor
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-tile rows summed into one histogram, in float64, rounded once."""
@@ -138,6 +148,11 @@ def dct_hist_coarse_plain(xb: torch.Tensor, tile: int = HIST_TILE):
 def hist_refine_plain(y: torch.Tensor, coarse: torch.Tensor,
                       tile: int = HIST_TILE):
     return _sum_rows(*hist_refine_tiled_plain(y, coarse, tile))
+
+
+def dct_hist_plain(xb: torch.Tensor, tile: int = HIST_TILE):
+    y, cnt, eng = dct_hist_tiled_plain(xb, tile)
+    return (y, *_sum_rows(cnt, eng))
 
 
 def threshold_quant_plain(y: torch.Tensor, t: torch.Tensor):
@@ -158,9 +173,12 @@ _SIGNATURES = {name: (args, ctypes.c_int) for name, args in {
     "spectral_hist_refine_tiled": [_P, _P, _P, _P, _I, _F, _P],
     "spectral_dct_hist_coarse": [_P] * 7 + [_I, _F, _P],
     "spectral_hist_refine": [_P] * 6 + [_I, _F, _P],
+    "spectral_dct_hist_tiled": [_P, _P, _P, _P, _P, _I, _F, _P],
+    "spectral_dct_hist": [_P] * 8 + [_I, _F, _P],
     "spectral_threshold_quant": [_P, _P, _P, _P, _I, _P],
     "spectral_dequant_idct": [_P, _P, _P, _P, _I, _P],
 }.items()}
+_SIGNATURES["spectral_dct_hist_parts_bytes"] = ([], ctypes.c_size_t)
 
 
 def _lib() -> ctypes.CDLL:
@@ -333,6 +351,62 @@ def hist_refine(y: torch.Tensor, coarse, *, tile: int | None = None):
     return out[0], out[1]
 
 
+def dct_hist_tiled(xb: torch.Tensor, *, tile: int | None = None):
+    """xb: (n_blocks, 256) f32, n_blocks a multiple of the tile ->
+    (y (n_blocks, 256), counts (n_tiles, 512), energies (n_tiles, 512)).
+
+    The flat 512-bin pass, one row per tile."""
+    tile = tile or HIST_TILE
+    name = "dct_hist_tiled"
+    _check_blocks(xb, tile, name)
+    if _device_of(name, xb) == "cpu":
+        return dct_hist_tiled_plain(xb, tile)
+    _kernel_tile(name, tile)
+    _need(name, xb, "xb", torch.float32)
+    nb = xb.shape[0]
+    y = torch.empty_like(xb)
+    cnt = torch.empty((nb // tile, NBINS), dtype=torch.float32,
+                      device=xb.device)
+    eng = torch.empty_like(cnt)
+    with torch.cuda.device(xb.device):
+        _launch(name, _lib().spectral_dct_hist_tiled, xb.data_ptr(),
+                _basis(xb.device, True).data_ptr(), y.data_ptr(),
+                cnt.data_ptr(), eng.data_ptr(), nb, _BIN_SCALE)
+    _build.count_launch(dct_hist_tiled)
+    return y, cnt, eng
+
+
+def dct_hist(xb: torch.Tensor, *, tile: int | None = None):
+    """xb: (n_blocks, 256) f32, n_blocks a multiple of the tile ->
+    (y (n_blocks, 256), counts (512,), energies (512,)).
+
+    The flat 512-bin pass with ONE histogram of the whole tensor: the
+    baseline the two-level pair (``dct_hist_coarse`` + ``hist_refine``)
+    replaced."""
+    tile = tile or HIST_TILE
+    name = "dct_hist"
+    _check_blocks(xb, tile, name)
+    if _device_of(name, xb) == "cpu":
+        return dct_hist_plain(xb, tile)
+    _kernel_tile(name, tile)
+    _need(name, xb, "xb", torch.float32)
+    nb = xb.shape[0]
+    with torch.cuda.device(xb.device):
+        lib = _lib()
+        y = torch.empty_like(xb)
+        rows = torch.empty((2, nb // tile, NBINS), dtype=torch.float32,
+                           device=xb.device)
+        parts = torch.empty(lib.spectral_dct_hist_parts_bytes() // 8,
+                            dtype=torch.float64, device=xb.device)
+        out = torch.empty((2, NBINS), dtype=torch.float32, device=xb.device)
+        _launch(name, lib.spectral_dct_hist, xb.data_ptr(),
+                _basis(xb.device, True).data_ptr(), y.data_ptr(),
+                rows[0].data_ptr(), rows[1].data_ptr(), parts.data_ptr(),
+                out[0].data_ptr(), out[1].data_ptr(), nb, _BIN_SCALE)
+    _build.count_launch(dct_hist)
+    return y, out[0], out[1]
+
+
 def threshold_quant(y: torch.Tensor, t):
     """``t`` is a scalar threshold or a per-block (n_blocks,) vector (one
     invocation then quantizes a packed multi-leaf buffer, each leaf with
@@ -386,7 +460,8 @@ def dequant_idct(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 KERNELS = (dct_hist_coarse_tiled, hist_refine_tiled, dct_hist_coarse,
-           hist_refine, threshold_quant, dequant_idct)
+           hist_refine, threshold_quant, dequant_idct, dct_hist_tiled,
+           dct_hist)
 
 
 def reset_launches() -> None:

@@ -25,6 +25,15 @@ Tolerances (f32 throughout, TF32 off for the plain product):
   bitwise. The kernel's y is cuBLAS's and the CPU product's bit for bit
   (each output one FMA chain in k order), and both selectors land on the
   same bin edge.
+* the flat 512-bin pair: y bitwise equal to the coarse kernel's (one DCT
+  body); on the kernel's own y, counts equal to the plain version's, to
+  the coarse kernel's per 16 bins and to the refine kernel's inside a
+  coarse bin; energies rtol 1e-5 (per bin at most 32 lane-ordered then 64
+  f32 terms, the same ~95 x 2^-24 bound as above); the single histogram
+  equal to its tile rows summed (counts exactly, energies rtol 1e-6: both
+  are double sums of the same f32 rows, rounded once); its threshold
+  equal bitwise to the two-level kernels'; energies equal bitwise from
+  run to run (no atomics).
 """
 import threading
 
@@ -333,3 +342,95 @@ def test_concurrent_workers_match_serial_and_count_exactly(cuda):
     for x, (_, back) in zip(xs, out):
         assert ref.rel_l2_error(torch.from_numpy(x).to(cuda), back) \
             <= ref.error_bound(1e-2)
+
+
+def _flat_plain(y):
+    a = torch.abs(y)
+    return K._tile_sums(a * a, ref.bin_index(a), ref.NBINS, K.HIST_TILE)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb", [8, 24, 64, 72, 1000, 1008])
+@pytest.mark.parametrize("kind", KINDS)
+def test_dct_hist_tiled_matches_plain_and_the_two_level_kernels(cuda, nb,
+                                                                kind):
+    rng = np.random.default_rng(nb + 20)
+    xb = torch.from_numpy(_payload(rng, nb, kind)).to(cuda)
+    K.reset_launches()
+    y, cnt, eng = K.dct_hist_tiled(xb)
+    torch.cuda.synchronize()
+    assert K.dct_hist_tiled.launches == 1
+    n_tiles = nb // K.HIST_TILE
+    assert cnt.shape == eng.shape == (n_tiles, ref.NBINS)
+    y2, cnt2, _ = K.dct_hist_coarse_tiled(xb)
+    assert torch.equal(y, y2)
+    _close(y, ref.dct_blocks(xb), y)
+    cnt_p, eng_p = _flat_plain(y)
+    assert torch.equal(cnt, cnt_p)
+    torch.testing.assert_close(eng, eng_p, rtol=1e-5, atol=0.0)
+    assert torch.equal(cnt.view(n_tiles, ref.NBINS_COARSE,
+                                ref.NBINS_FINE).sum(-1), cnt2)
+    # each tile's busiest coarse bin: its 16 flat bins are the refine
+    # kernel's counts
+    c_tile = cnt2.argmax(1).to(torch.int32)
+    fcnt, _ = K.hist_refine_tiled(y, c_tile.repeat_interleave(K.HIST_TILE))
+    idx = (c_tile[:, None].long() * ref.NBINS_FINE
+           + torch.arange(ref.NBINS_FINE, device=cuda))
+    assert torch.equal(cnt.gather(1, idx), fcnt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb", [8, 24, 1000, 1008, 16384])
+@pytest.mark.parametrize("kind", KINDS)
+def test_dct_hist_equals_its_rows_summed_and_the_two_level_threshold(
+        cuda, nb, kind):
+    rng = np.random.default_rng(nb + 21)
+    xb = torch.from_numpy(_payload(rng, nb, kind)).to(cuda)
+    K.reset_launches()
+    y, cnt, eng = K.dct_hist(xb)
+    torch.cuda.synchronize()
+    assert K.dct_hist.launches == 1
+    assert cnt.shape == eng.shape == (ref.NBINS,)
+    y8, cnt8, eng8 = K.dct_hist_tiled(xb)
+    assert torch.equal(y, y8)
+    cnt_s, eng_s = K._sum_rows(cnt8, eng8)
+    assert torch.equal(cnt, cnt_s)
+    torch.testing.assert_close(eng, eng_s, rtol=1e-6, atol=0.0)
+    cnt_p, eng_p = K._sum_rows(*_flat_plain(y))
+    assert torch.equal(cnt, cnt_p)
+    assert int(cnt.sum()) == nb * ref.BLOCK
+    torch.testing.assert_close(eng, eng_p, rtol=1e-5, atol=0.0)
+    y6, _, ce = K.dct_hist_coarse(xb)
+    for eps in (1e-3, 1e-2, 1e-1, 1.5):
+        c, cc, base, budget = ref.select_coarse(ce, eps)
+        _, fe = K.hist_refine(y6, cc)
+        t_two = ref.select_fine(fe, c, cc, base, budget)
+        assert torch.equal(ref.threshold_from_histogram(eng, eps), t_two), eps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["normal", "cauchy", "sparse", "tiny"])
+def test_flat_histograms_are_the_same_bits_every_run(cuda, kind):
+    rng = np.random.default_rng(31)
+    xb = torch.from_numpy(_payload(rng, 4096, kind)).to(cuda)
+    first = K.dct_hist_tiled(xb) + K.dct_hist(xb)
+    for _ in range(3):
+        again = K.dct_hist_tiled(xb) + K.dct_hist(xb)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+def test_flat_kernels_at_zero_blocks_and_their_refusals(cuda):
+    y, cnt, eng = K.dct_hist(torch.zeros((0, ref.BLOCK), device=cuda))
+    assert y.shape == (0, ref.BLOCK)
+    assert not cnt.any() and not eng.any()
+    _, cnt, _ = K.dct_hist_tiled(torch.zeros((0, ref.BLOCK), device=cuda))
+    assert cnt.shape == (0, ref.NBINS)
+    with pytest.raises(ValueError, match="multiple"):
+        K.dct_hist(torch.zeros((12, ref.BLOCK), device=cuda))
+    with pytest.raises(ValueError, match="tile"):
+        K.dct_hist_tiled(torch.zeros((16, ref.BLOCK), device=cuda), tile=16)
+    with pytest.raises(TypeError, match="dtype"):
+        K.dct_hist(torch.zeros((8, ref.BLOCK), device=cuda).double())
+    with pytest.raises(ValueError, match="contiguous"):
+        K.dct_hist_tiled(torch.zeros((ref.BLOCK, 8), device=cuda).T)
