@@ -21,9 +21,10 @@ Phases (any failure exits non-zero; none is swallowed):
    ``torch.profiler``, beside the plain version,
    ``scaled_dot_product_attention`` on the gathered cache (a yardstick
    only; the port never calls it) and the least time the card could take
-   (HBM 3.35 TB/s, f32 FMA 67 TFLOP/s; the larger bound). Every bound in
-   this script is ``repro_torch.roofline.kernels.kernel_cost`` over those
-   rates (:func:`bound_ms`).
+   (HBM 3.35 TB/s, and 67 TFLOP/s f32 FMA or 989 TFLOP/s bf16 by the
+   operands' type; the larger bound). Every bound in this script is
+   ``repro_torch.roofline.kernels.kernel_cost`` over the HBM rate and the
+   kernel's own peak rate (:func:`bound_ms`).
 4. spectral kernels — the four kernels of the hybrid checkpoint path
    (``csrc/spectral_lossy.cu``) held against their plain versions on the
    card, f32 with TF32 off, at the main path's shape (the packed moment
@@ -212,11 +213,11 @@ def kernel_device_ms(fn, syms, n: int = 3) -> tuple[float | None, dict]:
 def bound_ms(name: str, *args) -> tuple[float, str]:
     """Least time of kernel ``name`` on these arguments on one H100 and
     what bounds it: ``kernel_report``'s roofline time (its ``kernel_cost``
-    over the HBM rate and the f32 FMA peak, whichever is larger)."""
-    from repro_torch.roofline.analysis import PEAK_FLOPS_F32
+    over the HBM rate and the peak rate of the kernel's arithmetic,
+    whichever is larger)."""
     from repro_torch.roofline.kernels import kernel_report
 
-    rep = kernel_report(None, args, name=name, peak_flops=PEAK_FLOPS_F32)
+    rep = kernel_report(None, args, name=name)
     return rep.roofline_s * 1e3, ("operations" if rep.bound == "compute"
                                   else "bytes")
 
@@ -852,7 +853,6 @@ def roofline_phase(serve_table_width: int) -> dict:
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import paged_attention as PK
     from repro_torch.kernels import spectral_lossy as K
-    from repro_torch.roofline.analysis import PEAK_FLOPS_F32
     from repro_torch.roofline.kernels import kernel_report
 
     dev = torch.device("cuda")
@@ -920,7 +920,7 @@ def roofline_phase(serve_table_width: int) -> dict:
     reports = []
     for name, shape, fn, args in cases:
         rep = kernel_report(fn, args, name=name, measure=True,
-                            iters=ROOFLINE_ITERS, peak_flops=PEAK_FLOPS_F32)
+                            iters=ROOFLINE_ITERS)
         reports.append({"shape": shape, **rep.to_dict()})
         log(json.dumps({"roofline": reports[-1]}))
     launches = {k.__name__: k.launches for k in K.KERNELS}
@@ -936,9 +936,8 @@ def roofline_phase(serve_table_width: int) -> dict:
     placed = {(r["name"], r["shape"]): r for r in reports}
     timing = {}
     for name, fn, syms in (
-            ("dct_hist_tiled", K.dct_hist_tiled, ("dct_hist_flat_kernel",)),
-            ("dct_hist", K.dct_hist, ("dct_hist_flat_kernel",
-                                      "flat_partial_kernel",
+            ("dct_hist_tiled", K.dct_hist_tiled, ("dct_flat_tiled_kernel",)),
+            ("dct_hist", K.dct_hist, ("dct_flat_range_kernel",
                                       "flat_total_kernel"))):
         plain = getattr(K, f"{name}_plain")
         shapes = {"packed": xb, "4096": bench[4096]}

@@ -39,8 +39,8 @@
 //   the DCT kernels (with any histogram) and the inverse are bound by
 //   operations: 512 flops per element (a 256-long dot product) against 8
 //   bytes moved (f32 in and out), about 64 flops per byte where the card
-//   balances at 20. The flat pair's tile rows add 4 KB per 8 rows (half
-//   the bytes of y), which leaves it bound by operations. The refine
+//   balances at 20. dct_hist_tiled's rows add 4 KB per 8 rows (half the
+//   bytes of y), which leaves it bound by operations. The refine
 //   histogram and the quantiser read 4 bytes per element and do a log2 or
 //   a divide on it: bound by bytes.
 //
@@ -53,32 +53,38 @@
 //     runs the classic outer-product loop: two float4 reads of the row
 //     tile and two of the panel feed 64 FFMAs. Every output is one
 //     sequential f32 FMA chain over k = 0..255: no TF32, no split sums.
-//     Every forward-DCT kernel runs this one body (dct_rows), so their y
-//     is the same bits for the same input.
+//     The coarse kernels run this body (dct_rows) and the flat pair its
+//     pipelined twin (dct_rows_pipe), with the same chain per output, so
+//     every forward-DCT kernel gives the same y bits for the same input.
 //   * Coarse histogram: the rows a thread owns are one 8-row tile. After
 //     the product each thread bins its 64 outputs into a private column of
 //     a shared-memory table (the row tile's space, reused), and one thread
 //     per (tile, bin) sums the 32 columns of its tile in a fixed order and
 //     writes the tile's row. No atomics anywhere: a run is deterministic,
 //     as the TPU's in-order grid was.
-//   * Flat histogram: private columns would take 512 bins x 2 x 4 B x 256
-//     threads = 1 MiB per CTA, so the CTA's y goes back to shared memory
-//     and each warp bins one tile into its own 512-bin histogram, lanes
-//     that share a bin merged by the lowest of them in lane order (see
-//     dct_hist_flat_kernel). Chosen over a per-tile sort by bin: it needs
-//     no second copy of the tile and costs a pass over the group only for
-//     the lanes that lead one.
+//   * Flat pair: its own product body (dct_rows_pipe: the same
+//     arithmetic, D's panels double-buffered by cp.async so that the copy
+//     of the next 16 basis rows overlaps the FFMAs of this one). Private
+//     columns of 512 bins would take 1 MiB per CTA, so each thread bins
+//     its 64 outputs straight from registers into its tile's bins in
+//     shared memory with u32 atomic adds, which are exact and so give the
+//     same bits in any order: a bin's |y|^2 are integer multiples of one
+//     unit (see flat_base for the bound), summed as integers and rounded
+//     once, so energies of bins 1..510 equal the plain version's f64 sums
+//     bit for bit. Bins 0 and 511 take the coarse kernel's fixed-order
+//     columns. dct_hist runs persistent CTAs over fixed ranges of row
+//     groups, each with one 512-bin row in shared memory, and writes no
+//     tile rows.
 //   * Refine: one warp per 8-row tile (2048 elements, 64 per lane),
 //     private per-lane bins in shared memory, then the same fixed-order
 //     sum. Quantiser: one warp per row, a warp max for amax.
 //   * Single-tensor histograms: the TPU kernel carries one histogram from
-//     grid step to grid step; CTAs here run in no order, so the tiled
-//     kernel writes its tile rows into scratch and more kernels, from the
-//     same C entry and stream, sum them into one row in a fixed order:
-//     counts as 64-bit integers, energies in double, rounded once. The
-//     coarse and refine rows (32 and 16 bins) take one CTA of 1024
-//     threads; the flat rows (512 bins) a grid of CTAs over fixed ranges
-//     of rows and then one CTA over the ranges. No float atomics.
+//     grid step to grid step; CTAs here run in no order. The coarse and
+//     refine kernels write their tile rows into scratch and one CTA of
+//     1024 threads sums them in a fixed order: counts as 64-bit integers,
+//     energies in double, rounded once. The flat one (512 bins) sums in
+//     its persistent CTAs, then adds their range rows in a fixed order. No
+//     float atomics anywhere.
 //   * Ragged edges are masked in the kernels: rows past n_blocks read as
 //     zero and are never written, which is what the JAX wrappers' zero pad
 //     and slice amount to.
@@ -182,8 +188,9 @@ __device__ __forceinline__ void tile_slot(int f, int& r, int& k4) {
 
 // y = x . D^T for the CTA's kRows rows (rows past nb read as zero): the
 // thread's 8 x 8 outputs stay in acc, and those of live rows are written
-// to y. Every kernel that computes the forward DCT runs this one body, so
-// all of them give the same bits for the same input. Returns whether the
+// to y. Every kernel that computes the forward DCT runs this body or
+// dct_rows_pipe (the same FMA chain per output), so all of them give the
+// same bits for the same input. Returns whether the
 // thread's 8-row tile is live (nb is a multiple of kTile).
 __device__ __forceinline__ bool dct_rows(const float* __restrict__ x,
                                          const float* __restrict__ dt,
@@ -267,74 +274,324 @@ dct_hist_coarse_kernel(const float* __restrict__ x,
   }
 }
 
-// The flat 512-bin histogram. After the product the CTA's y goes back to
-// shared memory row-major (64 KB, the row tile's space) and warp w bins
-// tile w (8 warps, 8 tiles per CTA) into its own 512-bin (u32 count, f32
-// energy) histogram (4 KB per warp, the panel's space). The warp walks the
-// tile's 2048 elements 32 at a time in a fixed order; __match_any_sync
-// groups the lanes whose elements share a bin, and the group's lowest lane
-// sums its peers' |y|^2 in lane order and alone adds that sum and the
-// group's size to the bin: every bin sees the same sums in the same order
-// in every run. A bin's energy is at most 31 lane-ordered then 63 f32
-// additions, the coarse kernel's error bound. The leaders' loops run side
-// by side, so a step costs the largest group, not the warp.
-static_assert((size_t)kRows * kBlock * sizeof(float) <= kTileBytes,
-              "the CTA's y must fit in the row tile's space");
-static_assert((size_t)(kThreads / 32) * 2 * kNbins * sizeof(float)
-                  <= kPanelBytes,
-              "per-warp flat histograms must fit in the panel's space");
+// ---------------------------------------------------------------------------
+// The flat 512-bin pair (dct_hist_tiled, dct_hist): its own product body,
+// its exact binning from registers, and the two kernels built on them.
+// ---------------------------------------------------------------------------
 
+// The product body of the flat pair. gemm_rows' arithmetic (each output
+// one sequential f32 FMA chain over k = 0..255, so y is the same bits),
+// with D's rows streamed through two 16-row stages by cp.async: the copy
+// of panel p + 1 is in flight while panel p is consumed, one barrier per
+// panel. Kernels 2, 5 and 6 still run gemm_rows; the smoke holds the two
+// bodies to the same y bit for bit.
+constexpr int kPipePanel = 16;                     // basis rows per stage
+constexpr int kPanels = kBlock / kPipePanel;
+constexpr int kStageFloats = kPipePanel * kBlock;  // 16 KB
+constexpr size_t kFlatSmem = kTileBytes + 2 * kStageFloats * sizeof(float);
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+// Basis rows k0 .. k0 + kPipePanel - 1 of m into a stage, as one group.
+__device__ __forceinline__ void issue_panel(float* stage,
+                                            const float* __restrict__ m,
+                                            int k0) {
+  const float4* src = reinterpret_cast<const float4*>(m + (size_t)k0 * kBlock);
+  float4* dst = reinterpret_cast<float4*>(stage);
+#pragma unroll
+  for (int i = 0; i < kStageFloats / 4 / kThreads; ++i)
+    cp_async16(dst + threadIdx.x + i * kThreads, src + threadIdx.x + i * kThreads);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// acc = A . m as gemm_rows computes it; the caller has issued panel 0
+// into stage 0 and written the transposed A tile into xs.
+__device__ __forceinline__ void gemm_rows_pipe(const float* xs, float* stages,
+                                               const float* __restrict__ m,
+                                               const Owner& o,
+                                               float acc[8][8]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  for (int p = 0; p < kPanels; ++p) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    // panel p (and the A tile) is visible to all; every thread is done
+    // with panel p - 1, whose stage the next copy overwrites
+    __syncthreads();
+    if (p + 1 < kPanels)
+      issue_panel(stages + ((p + 1) & 1) * kStageFloats, m,
+                  (p + 1) * kPipePanel);
+    const float* panel = stages + (p & 1) * kStageFloats;
+    // the whole panel unrolled (by 4 only, ptxas scheduled the range
+    // kernel's loop visibly slower on the H100)
+#pragma unroll
+    for (int kk = 0; kk < kPipePanel; ++kk) {
+      const float* ar = xs + (p * kPipePanel + kk) * kXs + o.tr * 8;
+      const float* br = panel + kk * kBlock + o.c0;
+      const float4 a0 = *reinterpret_cast<const float4*>(ar);
+      const float4 a1 = *reinterpret_cast<const float4*>(ar + 4);
+      const float4 b0 = *reinterpret_cast<const float4*>(br);
+      const float4 b1 = *reinterpret_cast<const float4*>(br + 128);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+  }
+}
+
+// dct_rows for the kRows rows from row0, through gemm_rows_pipe: the first
+// panel's copy overlaps the load of the row tile.
+__device__ __forceinline__ bool dct_rows_pipe(const float* __restrict__ x,
+                                              const float* __restrict__ dt,
+                                              float* __restrict__ y, int nb,
+                                              long row0, float* xs,
+                                              float* stages, const Owner& o,
+                                              float acc[8][8]) {
+  issue_panel(stages, dt, 0);
+#pragma unroll 4
+  for (int f = threadIdx.x; f < kRows * kBlock / 4; f += kThreads) {
+    int r, k4;
+    tile_slot(f, r, k4);
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row0 + r < nb)
+      v = *reinterpret_cast<const float4*>(x + (row0 + r) * kBlock + k4);
+    xs[(k4 + 0) * kXs + r] = v.x;
+    xs[(k4 + 1) * kXs + r] = v.y;
+    xs[(k4 + 2) * kXs + r] = v.z;
+    xs[(k4 + 3) * kXs + r] = v.w;
+  }
+  gemm_rows_pipe(xs, stages, dt, o, acc);
+  const bool live = row0 + o.tr * 8 < nb;
+  if (live) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      float* yr = y + (row0 + o.tr * 8 + i) * kBlock;
+      *reinterpret_cast<float4*>(yr + o.c0) =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      *reinterpret_cast<float4*>(yr + o.c0 + 128) =
+          make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+    }
+  }
+  return live;
+}
+
+// Exact, order-free energies of the flat bins 1..510.
+//
+// bin_index puts a in bin b when trunc((log2 a + 40) * 6.4) = b, so a bin
+// spans 80/512 = 5/32 octaves of |y| and 5/16 of |y|^2: a^2 of bin b lies
+// in [2^(5b/16 - 80), 2^(5(b+1)/16 - 80)). Write the f32 a^2 = m * 2^(e-23)
+// with m its 24-bit significand. Then e is floor(5b/16) - 80 or one more;
+// allowing one binade less for log2f's rounding at the low edge, e - E_b
+// lies in [0, 2] with the bin's base E_b = floor(5b/16) - 81. So every
+// square of bin b is an integer count of units 2^(E_b - 23), m << (e -
+// E_b), below 2^26 units (tests/test_torch_flat_exact.py checks both
+// edges of every bin, and one ulp either side, against this).
+//
+// Integer sums are exact in any order, so lanes add into a tile's bin
+// with shared-memory atomics and the bits are the same in every run. The
+// sum goes into two u32 words (u32 is the one shared atomic add the card
+// has: u64, f32 and f64 compile to CAS loops): lo = the units' low 20
+// bits, hi = (count << 20) + the units' high bits (< 2^6). A tile holds
+// kTile * kBlock = 2048 elements, so lo < 2^11 * 2^20 = 2^31, the high
+// sum < 2^17 stays below bit 20, and count << 20 <= 2^31: no word can
+// carry out. Bins 0 (zeros and subnormal squares) and 511 (up to inf)
+// have no such span and take the coarse kernel's fixed order instead.
+//
+// dct_hist's ranges add the tiles' exact sums into u64 units: exact while
+// a histogram counts fewer than kMaxFlatCount = 2^37 elements (2^37 *
+// 2^26 < 2^64), which spectral_dct_hist checks.
+constexpr int kLoBits = 20;
+constexpr unsigned kLoMask = (1u << kLoBits) - 1u;
+constexpr long long kMaxFlatCount = 1ll << 37;
+constexpr int kTiles = kRows / kTile;              // tiles per CTA
+constexpr int kWords = kTiles * kNbins;            // u32 words per kind
+static_assert(kTile * kBlock <= (1 << (32 - kLoBits - 1)),
+              "a tile's count must fit above the low bits of its hi word");
+static_assert((2 * kWords + 4 * kHs + 4 * kTiles) * sizeof(float) <=
+                  kTileBytes,
+              "the flat words must fit in the row tile's space");
+
+__device__ __forceinline__ int flat_base(int b) { return ((5 * b) >> 4) - 81; }
+
+__device__ __forceinline__ unsigned flat_units(float a2, int b) {
+  const unsigned u = __float_as_uint(a2);
+  return ((u & 0x7fffffu) | 0x800000u) << ((int)(u >> 23) - 127 - flat_base(b));
+}
+
+// An exact sum of bin b's units as f32: rounded once, then scaled by the
+// unit (a power of two, exact: the result is at least 2^-81, below 2^120).
+__device__ __forceinline__ float flat_energy(unsigned long long s, int b) {
+  return __fmul_rn(__ull2float_rn(s),
+                   __uint_as_float((unsigned)(flat_base(b) - 23 + 127) << 23));
+}
+
+// The row tile's space after the product: per tile t, the words lo[t][b]
+// and hi[t][b]; per thread, its (count, energy) of bins 0 and 511 (sp);
+// per tile, those summed over its 32 owners (sres[t] = c0, e0, c511, e511).
+struct FlatWords {
+  unsigned* lo;
+  unsigned* hi;
+  float* sp;
+  float* sres;
+  __device__ explicit FlatWords(float* xs)
+      : lo(reinterpret_cast<unsigned*>(xs)), hi(lo + kWords),
+        sp(xs + 2 * kWords), sres(sp + 4 * kHs) {}
+};
+
+// Bin the thread's 64 outputs (tile o.tr) into the CTA's words. Starts and
+// ends with a barrier.
+__device__ __forceinline__ void bin_flat(float acc[8][8], bool live,
+                                         float bin_scale, const FlatWords& w,
+                                         const Owner& o) {
+  const int tid = threadIdx.x;
+  __syncthreads();  // every thread is done with the row tile and the stages
+  uint4* z = reinterpret_cast<uint4*>(w.lo);
+  for (int i = tid; i < 2 * kWords / 4; i += kThreads)
+    z[i] = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+  float c0 = 0.f, e0 = 0.f, c1 = 0.f, e1 = 0.f;
+  if (live) {
+    unsigned* lo = w.lo + o.tr * kNbins;
+    unsigned* hi = w.hi + o.tr * kNbins;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float a = fabsf(acc[i][j]);
+        const int b = bin_index(a, bin_scale);
+        const float a2 = __fmul_rn(a, a);
+        if (b == 0) {
+          c0 += 1.f;
+          e0 = __fadd_rn(e0, a2);
+        } else if (b == kNbins - 1) {
+          c1 += 1.f;
+          e1 = __fadd_rn(e1, a2);
+        } else {
+          const unsigned u = flat_units(a2, b);
+          atomicAdd(lo + b, u & kLoMask);
+          atomicAdd(hi + b, (1u << kLoBits) | (u >> kLoBits));
+        }
+      }
+  }
+  w.sp[0 * kHs + tid] = c0;
+  w.sp[1 * kHs + tid] = e0;
+  w.sp[2 * kHs + tid] = c1;
+  w.sp[3 * kHs + tid] = e1;
+  __syncthreads();
+  // one thread per (tile, bin 0 or 511): its 32 owners in column order
+  if (tid < 2 * kTiles) {
+    const int t = tid >> 1, k = (tid & 1) * 2;
+    float c = 0.f, e = 0.f;
+    for (int tc = 0; tc < 32; ++tc) {
+      const int src = (((t >> 2) * 4 + (tc >> 3)) << 5) + (t & 3) * 8 + (tc & 7);
+      c += w.sp[k * kHs + src];
+      e = __fadd_rn(e, w.sp[(k + 1) * kHs + src]);
+    }
+    w.sres[t * 4 + k] = c;
+    w.sres[t * 4 + k + 1] = e;
+  }
+  __syncthreads();
+}
+
+// dct_hist_tiled: one CTA per 64 rows; each live tile's 512-bin row.
 __global__ void __launch_bounds__(kThreads, 2)
-dct_hist_flat_kernel(const float* __restrict__ x,
-                     const float* __restrict__ dt,     // D^T, row-major
-                     float* __restrict__ y, float* __restrict__ cnt,
-                     float* __restrict__ eng, int nb, float bin_scale) {
+dct_flat_tiled_kernel(const float* __restrict__ x,
+                      const float* __restrict__ dt,   // D^T, row-major
+                      float* __restrict__ y, float* __restrict__ cnt,
+                      float* __restrict__ eng, int nb, float bin_scale) {
   extern __shared__ float4 smem4[];
   float* xs = reinterpret_cast<float*>(smem4);
-  float* panel = xs + kTileBytes / sizeof(float);
+  float* stages = xs + kTileBytes / sizeof(float);
   const long row0 = (long)blockIdx.x * kRows;
   const Owner o;
   float acc[8][8];
-  dct_rows(x, dt, y, nb, xs, panel, o, acc);
-  __syncthreads();  // every thread is done with the row tile and the panel
-  float* ys = xs;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    float* yr = ys + (o.tr * 8 + i) * kBlock;
-    *reinterpret_cast<float4*>(yr + o.c0) =
-        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    *reinterpret_cast<float4*>(yr + o.c0 + 128) =
-        make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
-  }
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  unsigned* hc = reinterpret_cast<unsigned*>(panel) + warp * 2 * kNbins;
-  float* he = panel + warp * 2 * kNbins + kNbins;
-  for (int b = lane; b < kNbins; b += 32) {
-    hc[b] = 0u;
-    he[b] = 0.f;
-  }
-  __syncthreads();
-  if (row0 + warp * kTile >= nb) return;   // the warp's tile is past the end
-  const float* yt = ys + warp * kTile * kBlock;
-  for (int it = 0; it < kTile * kBlock / 32; ++it) {
-    const float* yi = yt + it * 32;
-    const int b = bin_index(fabsf(yi[lane]), bin_scale);
-    const unsigned peers = __match_any_sync(0xffffffffu, b);
-    if (lane == __ffs(peers) - 1) {
-      float s = 0.f;
-      for (unsigned m = peers; m; m &= m - 1) {
-        const float a = fabsf(yi[__ffs(m) - 1]);
-        s = __fadd_rn(s, __fmul_rn(a, a));
-      }
-      hc[b] += __popc(peers);
-      he[b] = __fadd_rn(he[b], s);
+  const bool live = dct_rows_pipe(x, dt, y, nb, row0, xs, stages, o, acc);
+  const FlatWords w(xs);
+  bin_flat(acc, live, bin_scale, w, o);
+  const long tile0 = row0 / kTile;
+  for (int idx = threadIdx.x; idx < kWords; idx += kThreads) {
+    const int t = idx / kNbins, b = idx % kNbins;
+    if (row0 + t * kTile >= nb) break;   // t only grows with idx
+    float c, e;
+    if (b == 0 || b == kNbins - 1) {
+      const int k = b ? 2 : 0;
+      c = w.sres[t * 4 + k];
+      e = w.sres[t * 4 + k + 1];
+    } else {
+      const unsigned h = w.hi[idx];
+      c = (float)(h >> kLoBits);
+      e = flat_energy(((unsigned long long)(h & kLoMask) << kLoBits) + w.lo[idx], b);
     }
-    __syncwarp();
+    cnt[(tile0 + t) * kNbins + b] = c;
+    eng[(tile0 + t) * kNbins + b] = e;
   }
-  const long tile = blockIdx.x * (long)(kRows / kTile) + warp;
-  for (int b = lane; b < kNbins; b += 32) {
-    cnt[tile * kNbins + b] = (float)hc[b];
-    eng[tile * kNbins + b] = he[b];
+}
+
+// dct_hist: CTA g runs the 64-row groups [g * per, (g + 1) * per) in
+// order and keeps one 512-bin row for the range in shared memory, each
+// bin owned by one thread: counts and the exact units of bins 1..510 as
+// u64, bins 0 and 511 as double sums of the tiles' fixed-order f32 sums
+// in tile order. It writes the range's row to the partial rows, which
+// flat_total_kernel sums in a fixed order. per depends on n_blocks alone.
+constexpr int kMaxParts = 264;   // 2 CTAs on each of an H100's 132 SMs
+constexpr size_t kRangeSmem = kFlatSmem + 2 * kNbins * sizeof(unsigned long long);
+
+__global__ void __launch_bounds__(kThreads, 2)
+dct_flat_range_kernel(const float* __restrict__ x,
+                      const float* __restrict__ dt,   // D^T, row-major
+                      float* __restrict__ y,
+                      unsigned long long* __restrict__ part_c,
+                      unsigned long long* __restrict__ part_e, int nb,
+                      long per, float bin_scale) {
+  extern __shared__ float4 smem4[];
+  float* xs = reinterpret_cast<float*>(smem4);
+  float* stages = xs + kTileBytes / sizeof(float);
+  unsigned long long* sum_c =
+      reinterpret_cast<unsigned long long*>(stages + 2 * kStageFloats);
+  unsigned long long* sum_e = sum_c + kNbins;
+  const Owner o;
+  const FlatWords w(xs);
+  const int tid = threadIdx.x;
+  for (int b = tid; b < kNbins; b += kThreads) sum_c[b] = sum_e[b] = 0ull;
+  const long n_groups = (nb + kRows - 1) / kRows;
+  const long g0 = blockIdx.x * per;
+  const long g1 = g0 + per < n_groups ? g0 + per : n_groups;
+  float acc[8][8];
+  for (long g = g0; g < g1; ++g) {
+    const long row0 = g * kRows;
+    __syncthreads();  // the last group's sums are done with the row tile
+    const bool live = dct_rows_pipe(x, dt, y, nb, row0, xs, stages, o, acc);
+    bin_flat(acc, live, bin_scale, w, o);
+    for (int b = tid; b < kNbins; b += kThreads) {
+      unsigned long long c = sum_c[b], e = sum_e[b];
+      for (int t = 0; t < kTiles && row0 + t * kTile < nb; ++t) {
+        if (b == 0 || b == kNbins - 1) {
+          const int k = b ? 2 : 0;
+          c += (unsigned long long)w.sres[t * 4 + k];
+          e = (unsigned long long)__double_as_longlong(
+              __longlong_as_double((long long)e) + (double)w.sres[t * 4 + k + 1]);
+        } else {
+          const unsigned h = w.hi[t * kNbins + b];
+          c += h >> kLoBits;
+          e += ((unsigned long long)(h & kLoMask) << kLoBits) + w.lo[t * kNbins + b];
+        }
+      }
+      sum_c[b] = c;
+      sum_e[b] = e;
+    }
+  }
+  for (int b = tid; b < kNbins; b += kThreads) {
+    part_c[blockIdx.x * kNbins + b] = sum_c[b];
+    part_e[blockIdx.x * kNbins + b] = sum_e[b];
   }
 }
 
@@ -500,50 +757,47 @@ reduce_rows_kernel(const float* __restrict__ cnt_rows,
   }
 }
 
-// The flat single histogram from its tile rows, in two fixed-order stages
-// (one CTA summing 131k rows of 512 bins would leave 2 threads per bin):
-// CTA g of the first sums rows [g * per, (g + 1) * per), thread b down bin
-// b (a warp reads 32 bins of a row, coalesced), counts as 64-bit integers
-// and energies in double; the second adds the partial rows in range order
-// and rounds once. per, and with it the order, depends on n_rows alone.
-constexpr int kMaxParts = 256;
+// The flat single histogram from dct_flat_range_kernel's partial rows.
+// CTA k takes 32 bins; its thread (slice s, bin) adds rows s, s + 16, ...
+// (a warp reads 32 bins of a row, coalesced) and the first slice adds the
+// 16 slice sums in order: counts and the exact units of bins 1..510 as
+// u64 (rounded once by flat_energy), bins 0 and 511 in double, rounded
+// once. The order depends on n_parts alone. (One CTA over all rows took
+// tens of microseconds: one SM's share of the card's bandwidth.)
+constexpr int kTotalBins = 32;
+constexpr int kTotalSlices = 16;
 
-__host__ __device__ inline long flat_rows_per_part(long n_rows) {
-  const long per = (n_rows + kMaxParts - 1) / kMaxParts;
-  return per < 16 ? 16 : per;
-}
-
-__global__ void __launch_bounds__(kNbins)
-flat_partial_kernel(const float* __restrict__ cnt_rows,
-                    const float* __restrict__ eng_rows, long n_rows,
-                    long per, long long* __restrict__ part_c,
-                    double* __restrict__ part_e) {
-  const int b = threadIdx.x;
-  const long r0 = blockIdx.x * per;
-  const long r1 = r0 + per < n_rows ? r0 + per : n_rows;
-  long long c = 0;
-  double e = 0.0;
-  for (long r = r0; r < r1; ++r) {
-    c += (long long)cnt_rows[r * kNbins + b];
-    e += (double)eng_rows[r * kNbins + b];
-  }
-  part_c[blockIdx.x * kNbins + b] = c;
-  part_e[blockIdx.x * kNbins + b] = e;
-}
-
-__global__ void __launch_bounds__(kNbins)
-flat_total_kernel(const long long* __restrict__ part_c,
-                  const double* __restrict__ part_e, int n_parts,
+__global__ void __launch_bounds__(kTotalBins * kTotalSlices)
+flat_total_kernel(const unsigned long long* __restrict__ part_c,
+                  const unsigned long long* __restrict__ part_e, int n_parts,
                   float* __restrict__ cnt, float* __restrict__ eng) {
-  const int b = threadIdx.x;
-  long long c = 0;
-  double e = 0.0;
-  for (int g = 0; g < n_parts; ++g) {
+  __shared__ unsigned long long sc[kTotalSlices][kTotalBins];
+  __shared__ unsigned long long se[kTotalSlices][kTotalBins];
+  const int i = threadIdx.x % kTotalBins, s = threadIdx.x / kTotalBins;
+  const int b = blockIdx.x * kTotalBins + i;
+  const bool edge = b == 0 || b == kNbins - 1;
+  unsigned long long c = 0, u = 0;
+  double d = 0.0;
+  for (int g = s; g < n_parts; g += kTotalSlices) {
     c += part_c[g * kNbins + b];
-    e += part_e[g * kNbins + b];
+    if (edge)
+      d += __longlong_as_double((long long)part_e[g * kNbins + b]);
+    else
+      u += part_e[g * kNbins + b];
   }
-  cnt[b] = (float)c;
-  eng[b] = (float)e;
+  sc[s][i] = c;
+  se[s][i] = edge ? (unsigned long long)__double_as_longlong(d) : u;
+  __syncthreads();
+  if (s != 0) return;
+  for (int k = 1; k < kTotalSlices; ++k) {
+    c += sc[k][i];
+    if (edge)
+      d += __longlong_as_double((long long)se[k][i]);
+    else
+      u += se[k][i];
+  }
+  cnt[b] = __ull2float_rn(c);
+  eng[b] = edge ? (float)d : flat_energy(u, b);
 }
 
 }  // namespace
@@ -609,44 +863,55 @@ int spectral_dct_hist_tiled(const float* x, const float* dt, float* y,
                             float* cnt, float* eng, int nb, float bin_scale,
                             void* stream) {
   if (nb <= 0) return 0;
-  cudaFuncSetAttribute(dct_hist_flat_kernel,
+  cudaFuncSetAttribute(dct_flat_tiled_kernel,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)kDctSmem);
+                       (int)kFlatSmem);
+  cudaFuncSetAttribute(dct_flat_tiled_kernel,
+                       cudaFuncAttributePreferredSharedMemoryCarveout,
+                       cudaSharedmemCarveoutMaxShared);
   const int grid = (nb + kRows - 1) / kRows;
-  dct_hist_flat_kernel<<<grid, kThreads, kDctSmem, (cudaStream_t)stream>>>(
+  dct_flat_tiled_kernel<<<grid, kThreads, kFlatSmem, (cudaStream_t)stream>>>(
       x, dt, y, cnt, eng, nb, bin_scale);
   return (int)cudaGetLastError();
 }
 
-// Bytes of the partial rows spectral_dct_hist needs as scratch.
+// Bytes of the partial rows spectral_dct_hist needs as scratch: kMaxParts
+// rows of 512 (u64 count, u64 energy) pairs.
 size_t spectral_dct_hist_parts_bytes() {
-  return (size_t)kMaxParts * kNbins * (sizeof(long long) + sizeof(double));
+  return (size_t)kMaxParts * kNbins * 2 * sizeof(unsigned long long);
 }
 
-// The flat single histogram: the tiled kernel into the caller's scratch
-// rows (n_blocks / 8 of them), their partial sums into ``parts``
-// (spectral_dct_hist_parts_bytes()), then the total into cnt and eng (all
-// zero for n_blocks = 0).
-int spectral_dct_hist(const float* x, const float* dt, float* y,
-                      float* cnt_rows, float* eng_rows, void* parts,
+// The flat single histogram: dct_flat_range_kernel over ranges of 64-row
+// groups fixed by n_blocks alone (ceil(groups / kMaxParts) each) into
+// ``parts`` (spectral_dct_hist_parts_bytes()), then their total into cnt
+// and eng (all zero for n_blocks = 0). Refuses (cudaErrorInvalidValue) a
+// histogram of kMaxFlatCount elements or more, past which the exact u64
+// sums could carry out.
+int spectral_dct_hist(const float* x, const float* dt, float* y, void* parts,
                       float* cnt, float* eng, int nb, float bin_scale,
                       void* stream) {
-  int err = spectral_dct_hist_tiled(x, dt, y, cnt_rows, eng_rows, nb,
-                                    bin_scale, stream);
-  if (err != 0) return err;
-  const long n_rows = nb > 0 ? nb / kTile : 0;
-  const long per = flat_rows_per_part(n_rows);
-  const int n_parts = (int)((n_rows + per - 1) / per);
-  long long* part_c = static_cast<long long*>(parts);
-  double* part_e = reinterpret_cast<double*>(part_c + kMaxParts * kNbins);
+  if ((long long)nb * kBlock >= kMaxFlatCount) return (int)cudaErrorInvalidValue;
+  const long n_groups = nb > 0 ? (nb + kRows - 1) / kRows : 0;
+  const long per = n_groups > 0 ? (n_groups + kMaxParts - 1) / kMaxParts : 1;
+  const int n_parts = (int)((n_groups + per - 1) / per);
+  unsigned long long* part_c = static_cast<unsigned long long*>(parts);
+  unsigned long long* part_e = part_c + (size_t)kMaxParts * kNbins;
   if (n_parts > 0) {
-    flat_partial_kernel<<<n_parts, kNbins, 0, (cudaStream_t)stream>>>(
-        cnt_rows, eng_rows, n_rows, per, part_c, part_e);
-    err = (int)cudaGetLastError();
+    cudaFuncSetAttribute(dct_flat_range_kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)kRangeSmem);
+    cudaFuncSetAttribute(dct_flat_range_kernel,
+                         cudaFuncAttributePreferredSharedMemoryCarveout,
+                         cudaSharedmemCarveoutMaxShared);
+    dct_flat_range_kernel<<<n_parts, kThreads, kRangeSmem,
+                            (cudaStream_t)stream>>>(x, dt, y, part_c, part_e,
+                                                    nb, per, bin_scale);
+    const int err = (int)cudaGetLastError();
     if (err != 0) return err;
   }
-  flat_total_kernel<<<1, kNbins, 0, (cudaStream_t)stream>>>(
-      part_c, part_e, n_parts, cnt, eng);
+  flat_total_kernel<<<kNbins / kTotalBins, kTotalBins * kTotalSlices, 0,
+                      (cudaStream_t)stream>>>(part_c, part_e, n_parts, cnt,
+                                              eng);
   return (int)cudaGetLastError();
 }
 

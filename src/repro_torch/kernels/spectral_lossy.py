@@ -174,7 +174,7 @@ _SIGNATURES = {name: (args, ctypes.c_int) for name, args in {
     "spectral_dct_hist_coarse": [_P] * 7 + [_I, _F, _P],
     "spectral_hist_refine": [_P] * 6 + [_I, _F, _P],
     "spectral_dct_hist_tiled": [_P, _P, _P, _P, _P, _I, _F, _P],
-    "spectral_dct_hist": [_P] * 8 + [_I, _F, _P],
+    "spectral_dct_hist": [_P] * 6 + [_I, _F, _P],
     "spectral_threshold_quant": [_P, _P, _P, _P, _I, _P],
     "spectral_dequant_idct": [_P, _P, _P, _P, _I, _P],
 }.items()}
@@ -382,7 +382,9 @@ def dct_hist(xb: torch.Tensor, *, tile: int | None = None):
 
     The flat 512-bin pass with ONE histogram of the whole tensor: the
     baseline the two-level pair (``dct_hist_coarse`` + ``hist_refine``)
-    replaced."""
+    replaced. On the card it allocates y, the kernel's partial rows (one
+    per persistent CTA's range, at most 264 of 512 bins) and the output,
+    and no per-tile rows."""
     tile = tile or HIST_TILE
     name = "dct_hist"
     _check_blocks(xb, tile, name)
@@ -394,15 +396,13 @@ def dct_hist(xb: torch.Tensor, *, tile: int | None = None):
     with torch.cuda.device(xb.device):
         lib = _lib()
         y = torch.empty_like(xb)
-        rows = torch.empty((2, nb // tile, NBINS), dtype=torch.float32,
-                           device=xb.device)
         parts = torch.empty(lib.spectral_dct_hist_parts_bytes() // 8,
-                            dtype=torch.float64, device=xb.device)
+                            dtype=torch.int64, device=xb.device)
         out = torch.empty((2, NBINS), dtype=torch.float32, device=xb.device)
         _launch(name, lib.spectral_dct_hist, xb.data_ptr(),
                 _basis(xb.device, True).data_ptr(), y.data_ptr(),
-                rows[0].data_ptr(), rows[1].data_ptr(), parts.data_ptr(),
-                out[0].data_ptr(), out[1].data_ptr(), nb, _BIN_SCALE)
+                parts.data_ptr(), out[0].data_ptr(), out[1].data_ptr(), nb,
+                _BIN_SCALE)
     _build.count_launch(dct_hist)
     return y, out[0], out[1]
 

@@ -4,9 +4,11 @@
 compute/memory roofline of one H100 (the constants of
 :mod:`repro_torch.roofline.analysis`):
 
-  compute_s = flops / peak_flops    (bf16 tensor cores unless the caller
-                                     passes another rate: the spectral
-                                     kernels compute in f32 by rule)
+  compute_s = flops / peak_flops    (each kernel's own rate from _COSTS:
+                                     f32 FMA for the spectral kernels, TF32
+                                     not allowed; the operands' dtype for
+                                     paged attention; bf16 tensor cores
+                                     for any other function)
   memory_s  = bytes / HBM_BW
   bound     = whichever ceiling is higher; intensity vs the ridge point
               (peak_flops / HBM_BW) tells the same story per byte.
@@ -34,7 +36,8 @@ import torch
 
 from repro_torch.kernels.ref import BLOCK, NBINS, NBINS_COARSE, NBINS_FINE
 from repro_torch.kernels.spectral_lossy import HIST_TILE
-from repro_torch.roofline.analysis import HBM_BW, PEAK_FLOPS_BF16
+from repro_torch.roofline.analysis import (HBM_BW, PEAK_FLOPS_BF16,
+                                           PEAK_FLOPS_F32)
 
 RIDGE_INTENSITY = PEAK_FLOPS_BF16 / HBM_BW     # flops/byte at the roof knee
 
@@ -108,18 +111,33 @@ def _paged(q, k_pages, v_pages, page_table, length):
     return 2 * hq * tokens * (d_k + d_v), nbytes
 
 
+def _f32(*_) -> float:
+    return PEAK_FLOPS_F32
+
+
+def _dtype_rate(q, *_) -> float:
+    """f32 FMA for f32 operands, the tensor cores' rate for 16-bit ones."""
+    return PEAK_FLOPS_F32 if q.dtype == torch.float32 else PEAK_FLOPS_BF16
+
+
+# name: (its least (flops, bytes), the peak rate of its arithmetic)
 _COSTS = {
-    "paged_decode_attention": _paged,
-    "dct_blocks": lambda xb: _dct(xb, _nbytes(xb)),
-    "dct_hist_coarse_tiled": lambda xb: _dct(
-        xb, _nbytes(xb), _rows(xb, NBINS_COARSE)),
-    "dct_hist_coarse": lambda xb: _dct(xb, _nbytes(xb), NBINS_COARSE * 8),
-    "dct_hist_tiled": lambda xb: _dct(xb, _nbytes(xb), _rows(xb, NBINS)),
-    "dct_hist": lambda xb: _dct(xb, _nbytes(xb), NBINS * 8),
-    "hist_refine_tiled": lambda y, coarse: _pass(y, _rows(y, NBINS_FINE)),
-    "hist_refine": lambda y, coarse: _pass(y, NBINS_FINE * 8),
-    "threshold_quant": lambda y, t: _pass(y, y.numel() + 4 * y.shape[0]),
-    "dequant_idct": lambda q, scale: _dct(q, _nbytes(q) + _nbytes(scale)),
+    "paged_decode_attention": (_paged, _dtype_rate),
+    "dct_blocks": (lambda xb: _dct(xb, _nbytes(xb)), _f32),
+    "dct_hist_coarse_tiled": (lambda xb: _dct(
+        xb, _nbytes(xb), _rows(xb, NBINS_COARSE)), _f32),
+    "dct_hist_coarse": (lambda xb: _dct(xb, _nbytes(xb), NBINS_COARSE * 8),
+                        _f32),
+    "dct_hist_tiled": (lambda xb: _dct(xb, _nbytes(xb), _rows(xb, NBINS)),
+                       _f32),
+    "dct_hist": (lambda xb: _dct(xb, _nbytes(xb), NBINS * 8), _f32),
+    "hist_refine_tiled": (lambda y, coarse: _pass(y, _rows(y, NBINS_FINE)),
+                          _f32),
+    "hist_refine": (lambda y, coarse: _pass(y, NBINS_FINE * 8), _f32),
+    "threshold_quant": (lambda y, t: _pass(y, y.numel() + 4 * y.shape[0]),
+                        _f32),
+    "dequant_idct": (lambda q, scale: _dct(q, _nbytes(q) + _nbytes(scale)),
+                     _f32),
 }
 KERNELS = tuple(_COSTS)
 
@@ -130,7 +148,7 @@ def kernel_cost(name: str, *args) -> tuple[int, int]:
     their shapes and dtypes are read, and paged attention's lengths). Each
     input is read once and each output written once."""
     try:
-        cost = _COSTS[name]
+        cost, _ = _COSTS[name]
     except KeyError:
         raise KeyError(f"no cost model for {name!r}; known: "
                        f"{', '.join(KERNELS)}") from None
@@ -193,10 +211,12 @@ def _time_call(fn, args, iters: int) -> tuple[float, str]:
 def kernel_report(fn, args, *, name: str = "", measure: bool = False,
                   iters: int = 3,
                   flops_override: Optional[float] = None,
-                  bytes_override: Optional[float] = None,
-                  peak_flops: float = PEAK_FLOPS_BF16) -> KernelReport:
-    """Place ``fn(*args)`` on the compute/memory roofline."""
+                  bytes_override: Optional[float] = None) -> KernelReport:
+    """Place ``fn(*args)`` on the compute/memory roofline, at the peak rate
+    of the kernel's arithmetic (``_COSTS``; bf16 for another function)."""
     name = name or getattr(fn, "__name__", "kernel")
+    peak_flops = (_COSTS[name][1](*args) if name in _COSTS
+                  else PEAK_FLOPS_BF16)
     notes = []
     flops = byts = None
     if flops_override is None or bytes_override is None:

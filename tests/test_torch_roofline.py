@@ -24,6 +24,7 @@ from repro_torch.roofline import kernels as RK
 
 HBM = 3.35e12                      # H100 SXM, NVIDIA data sheet
 F32 = 67e12
+BF16 = 989e12
 
 # ---------------------------------------------------------------------------
 # the bound formulas as chip_smoke.py computed them before the cost model
@@ -58,7 +59,7 @@ def _paged_bound(q, k, v, table, length):
     tokens = sum(table.shape[1] * ps if n == 0 else n for n in lens)
     flops = 2 * hq * tokens * (d_k + d_v)
     t_bytes = nbytes / HBM * 1e3
-    t_ops = flops / F32 * 1e3
+    t_ops = flops / (F32 if q.dtype == torch.float32 else BF16) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -100,7 +101,7 @@ def _args(name, nb):
 
 
 def _bound(name, *args):
-    rep = RK.kernel_report(None, args, name=name, peak_flops=TA.PEAK_FLOPS_F32)
+    rep = RK.kernel_report(None, args, name=name)
     return rep.roofline_s * 1e3, ("operations" if rep.bound == "compute"
                                   else "bytes")
 
@@ -244,8 +245,7 @@ def test_report_of_a_named_kernel_uses_the_cost_model_and_notes_the_cpu():
     xb = torch.from_numpy(np.random.default_rng(1).standard_normal(
         (64, TR.BLOCK)).astype(np.float32))
     TK.reset_launches()
-    rep = RK.kernel_report(TK.dct_hist, (xb,), measure=True, iters=2,
-                           peak_flops=TA.PEAK_FLOPS_F32)
+    rep = RK.kernel_report(TK.dct_hist, (xb,), measure=True, iters=2)
     assert rep.name == "dct_hist"
     assert (rep.flops, rep.bytes_accessed) == RK.kernel_cost("dct_hist", xb)
     assert rep.bound == "compute"
@@ -257,6 +257,29 @@ def test_report_of_a_named_kernel_uses_the_cost_model_and_notes_the_cpu():
                         "hardware-honest")
     assert TK.dct_hist.launches == 0      # the plain version ran
     assert RK.kernel_report(TK.dct_hist, (xb,)).note == ""
+
+
+@pytest.mark.parametrize("dtype, peak", [(torch.bfloat16, BF16),
+                                         (torch.float32, F32)])
+def test_each_kernel_is_placed_at_the_rate_of_its_arithmetic(dtype, peak):
+    """Paged attention at its operands' rate, the spectral kernels at the
+    f32 FMA rate (TF32 is not allowed for the codec), any other function
+    at the bf16 tensor cores' rate."""
+    q = torch.empty((8, 1, 9, 64), dtype=dtype, device="meta")
+    pages = torch.empty((33, 16, 3, 64), dtype=dtype, device="meta")
+    args = (q, pages, pages, torch.empty((8, 4), dtype=torch.int32,
+                                         device="meta"),
+            torch.full((8,), 64, dtype=torch.int32))
+    rep = RK.kernel_report(None, args, name="paged_decode_attention")
+    assert rep.ridge_intensity == peak / HBM
+    assert rep.compute_s == rep.flops / peak
+    for name in RK.KERNELS:
+        if name != "paged_decode_attention":
+            rep = RK.kernel_report(None, _args(name, 64), name=name)
+            assert rep.compute_s == rep.flops / F32, name
+    rep = RK.kernel_report(torch.matmul, (torch.ones(8, 16, dtype=dtype),
+                                          torch.ones(16, 4, dtype=dtype)))
+    assert rep.ridge_intensity == BF16 / HBM
 
 
 def test_report_of_another_function_counts_its_flops_and_says_so():

@@ -25,15 +25,18 @@ Tolerances (f32 throughout, TF32 off for the plain product):
   bitwise. The kernel's y is cuBLAS's and the CPU product's bit for bit
   (each output one FMA chain in k order), and both selectors land on the
   same bin edge.
-* the flat 512-bin pair: y bitwise equal to the coarse kernel's (one DCT
-  body); on the kernel's own y, counts equal to the plain version's, to
+* the flat 512-bin pair: y bitwise equal to the coarse kernel's (the same
+  FMA chain per output); on the kernel's own y, counts equal to the plain version's, to
   the coarse kernel's per 16 bins and to the refine kernel's inside a
-  coarse bin; energies rtol 1e-5 (per bin at most 32 lane-ordered then 64
-  f32 terms, the same ~95 x 2^-24 bound as above); the single histogram
-  equal to its tile rows summed (counts exactly, energies rtol 1e-6: both
-  are double sums of the same f32 rows, rounded once); its threshold
+  coarse bin; energies rtol 1e-5; the single histogram
+  equal to its tile rows summed (counts exactly, energies rtol 1e-6: the
+  rows and the single histogram are each rounded once from sums of the
+  same squares); its threshold
   equal bitwise to the two-level kernels'; energies equal bitwise from
-  run to run (no atomics).
+  run to run. The flat pair adds bins 1..510 as exact integers (u32
+  shared-memory atomics, whose order does not change the sum), so those
+  energies equal the plain version's f64 sums bit for bit; bins 0 and
+  511 are summed in a fixed order (at most 64 then 32 f32 terms).
 """
 import threading
 
@@ -409,14 +412,86 @@ def test_dct_hist_equals_its_rows_summed_and_the_two_level_threshold(
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("nb", [1000, 4096, 16384, 40000])
 @pytest.mark.parametrize("kind", ["normal", "cauchy", "sparse", "tiny"])
-def test_flat_histograms_are_the_same_bits_every_run(cuda, kind):
+def test_flat_histograms_are_the_same_bits_every_run(cuda, kind, nb):
+    """1000 blocks end inside a CTA's 64 rows; dct_hist gives each of its
+    persistent CTAs one 64-row group at 16,384 blocks and three at
+    40,000."""
     rng = np.random.default_rng(31)
-    xb = torch.from_numpy(_payload(rng, 4096, kind)).to(cuda)
+    xb = torch.from_numpy(_payload(rng, nb, kind)).to(cuda)
     first = K.dct_hist_tiled(xb) + K.dct_hist(xb)
     for _ in range(3):
         again = K.dct_hist_tiled(xb) + K.dct_hist(xb)
         assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def _mixed(rng, nb):
+    """Blocks of zeros, 1e-30 and 1e15 magnitudes, magnitudes whose square
+    overflows f32, and Gaussians, mixed inside every 8-block tile: tiles
+    that fill bins 0 and 511 beside interior bins."""
+    x = rng.standard_normal((nb, ref.BLOCK)).astype(np.float32)
+    scale = np.array([0.0, 1e-30, 1e15, 1e20, 1.0], dtype=np.float32)
+    x *= scale[rng.integers(0, len(scale), nb)][:, None]
+    x[rng.random(x.shape) < 0.05] = 0.0
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb", [64, 1000, 40000])
+def test_flat_pair_on_tiles_that_mix_bins_0_511_and_interior(cuda, nb):
+    rng = np.random.default_rng(nb + 41)
+    xb = torch.from_numpy(_mixed(rng, nb)).to(cuda)
+    y, cnt, eng = K.dct_hist_tiled(xb)
+    y9, cnt9, eng9 = K.dct_hist(xb)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y9)
+    cnt_p, eng_p = _flat_plain(y)
+    assert torch.equal(cnt, cnt_p)
+    assert bool((cnt_p[:, 0] > 0).any() and (cnt_p[:, -1] > 0).any())
+    assert bool(torch.isinf(eng_p[:, -1]).any())
+    # bins 1..510 are exact sums rounded once: the plain version's f64 sums
+    assert torch.equal(eng[:, 1:-1], eng_p[:, 1:-1])
+    torch.testing.assert_close(eng, eng_p, rtol=1e-5, atol=0.0)
+    cs, es = K._sum_rows(cnt_p, eng_p)
+    assert torch.equal(cnt9, cs)
+    torch.testing.assert_close(eng9, es, rtol=1e-5, atol=0.0)
+    for _ in range(2):
+        again = K.dct_hist_tiled(xb) + K.dct_hist(xb)
+        assert all(torch.equal(a, b)
+                   for a, b in zip((y, cnt, eng, y9, cnt9, eng9), again))
+
+
+@pytest.mark.cuda
+def test_dct_hist_allocates_no_tile_rows(cuda):
+    """The caching allocator's peak grows by y, the partial rows and the
+    2 x 512 output, each rounded up to the allocator's granule (512 bytes;
+    2 MiB above 1 MiB, where a block keeps a remainder of 1 MiB or less),
+    and nothing per tile (per-tile rows would take 20 MB at this size)."""
+    nb = 40000
+    xb = torch.from_numpy(_payload(np.random.default_rng(5), nb, "normal")
+                          ).to(cuda)
+    K.dct_hist(xb)                       # the library and D are made once
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()             # fresh segments: no cached slack
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = K.dct_hist(xb)
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated() - base
+    parts = K._lib().spectral_dct_hist_parts_bytes()
+    assert parts <= 264 * ref.NBINS * 16
+    want = _allocated(xb.numel() * 4) + _allocated(parts) + _allocated(
+        2 * ref.NBINS * 4)
+    assert grown <= want, (grown, want)
+    assert grown < xb.numel() * 4 + 2 * (nb // 8) * ref.NBINS * 4
+    del out
+
+
+def _allocated(n):
+    """At most the bytes the caching allocator counts for an n-byte tensor."""
+    g = 512 if n <= 1 << 20 else 2 << 20
+    return -(-n // g) * g
 
 
 @pytest.mark.cuda
