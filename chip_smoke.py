@@ -46,8 +46,11 @@ Phases (any failure exits non-zero; none is swallowed):
    leaf at a time) held against their plain versions at the shape of each
    of the 22 moment leaves of full-width ``smollm-135m`` (8 to 110,592
    blocks) and at edge shapes (8 blocks, 1001 -> 1008 blocks, 1e-20-scaled
-   and 1 %-sparse payloads). Gates: y of the DCT as in 4; on the kernel's
-   own y, counts equal and energies rtol 1e-5; the thresholds of the
+   and 1 %-sparse payloads). Gates: y of the DCT as in 4, and bitwise
+   ``dct_hist_coarse_tiled``'s; ``dct_hist_coarse``'s histogram equal to
+   ``dct_hist_coarse_tiled``'s tile rows summed (counts exactly, energies
+   rtol 1e-6 of the rows summed in f64); on the kernel's own y, counts
+   equal and energies rtol 1e-5; the thresholds of the
    card's two-level route equal to the CPU's flat route; and
    ``spectral_compress`` on the card bitwise equal (q and scale) to
    ``spectral_compress`` of the same leaf on the CPU. Each kernel is timed
@@ -60,8 +63,9 @@ Phases (any failure exits non-zero; none is swallowed):
    256 and 4096 standard-normal blocks (seed 0), at the ``embed``
    moment leaf in four payload kinds (1e-20 and 1 %-sparse included) and
    at the packed moment buffer of 4 (the main shape of its table row).
-   Gates: y bitwise equal to ``dct_hist_coarse_tiled``'s; on the kernel's
-   own y, counts equal to the plain version's (an element on a bin edge
+   Gates: y (and ``dct_hist_coarse``'s) bitwise equal to
+   ``dct_hist_coarse_tiled``'s; on the kernel's own y, counts equal to the
+   plain version's (an element on a bin edge
    where the kernel's log2f and ``ref.bin_index`` could round apart may
    move, and is counted and printed) and energies rtol 1e-5; the single
    histogram equal to the tile rows summed (energies rtol 1e-6); every 16
@@ -519,7 +523,7 @@ def spectral_phase() -> dict:
         "dct_hist_coarse_tiled": (
             lambda: K.dct_hist_coarse_tiled(xb),
             lambda: K.dct_hist_coarse_tiled_plain(xb),
-            lambda: torch.matmul(xb, dt_), "dct_hist_coarse_kernel"),
+            lambda: torch.matmul(xb, dt_), "dct_coarse_tiled_kernel"),
         "hist_refine_tiled": (
             lambda: K.hist_refine_tiled(y, block_cc),
             lambda: K.hist_refine_tiled_plain(y, block_cc), None,
@@ -601,7 +605,20 @@ def single_tensor_check(x, eps, label):
     xb = ops._pad_blocks(ref.blockize(x)[0], K.HIST_TILE)
     nb = xb.shape[0]
     y, cnt, eng = K.dct_hist_coarse(xb)
+    y2, cnt2, eng2 = K.dct_hist_coarse_tiled(xb)
     torch.cuda.synchronize()
+    # kernel 6 is kernel 2's tile rows summed: y and counts bitwise, the
+    # energies to rtol 1e-6 of the rows summed in f64 (each is a double sum
+    # of the same f32 rows, in its own order, rounded once)
+    if not torch.equal(y, y2):
+        raise AssertionError(f"{label}: dct_hist_coarse y is not "
+                             f"dct_hist_coarse_tiled's")
+    cnt_s, eng_s = K._sum_rows(cnt2, eng2)
+    del y2, cnt2, eng2
+    if not torch.equal(cnt, cnt_s):
+        raise AssertionError(f"{label}: dct_hist_coarse counts are not "
+                             f"dct_hist_coarse_tiled's rows summed")
+    torch.testing.assert_close(eng, eng_s, rtol=1e-6, atol=0.0)
     y_p = ref.dct_blocks(xb)
     err_y = _check_close(f"{label} dct y", y, y_p, y_p)
     del y_p
@@ -640,6 +657,7 @@ def single_tensor_check(x, eps, label):
             f"{int((card.scale.cpu() != cpu.scale).sum())} differing)")
     return {"blocks": nb, "err_y": err_y,
             "energy_rel": _rel_err(eng, eng_p),
+            "rows_energy_rel": _rel_err(eng, eng_s),
             "refine_energy_rel": _rel_err(feng, feng_p),
             "refine_abs_err": (feng - feng_p).abs().max().item(),
             "y_differing_vs_cpu": y_differ,
@@ -712,7 +730,8 @@ def single_tensor_phase() -> dict:
         "dct_hist_coarse": (lambda: K.dct_hist_coarse(xb),
                             lambda: K.dct_hist_coarse_plain(xb),
                             lambda: torch.matmul(xb, dt_),
-                            ("dct_hist_coarse_kernel", "reduce_rows_kernel")),
+                            ("dct_coarse_range_kernel",
+                             "coarse_total_kernel")),
         "hist_refine": (lambda: K.hist_refine(y, cc),
                         lambda: K.hist_refine_plain(y, block_cc), None,
                         ("hist_refine_kernel", "reduce_rows_kernel")),
@@ -816,6 +835,9 @@ def flat_check(xb, label):
         raise AssertionError(f"{label}: flat bins inside a coarse bin differ "
                              f"from the refine kernel's counts")
     y6, _, ce = K.dct_hist_coarse(xb)
+    if not torch.equal(y6, y2):
+        raise AssertionError(f"{label}: dct_hist_coarse y is not "
+                             f"dct_hist_coarse_tiled's")
     thresholds = {}
     for eps in FLAT_EPS:
         c, cc, base, budget = ref.select_coarse(ce, eps)

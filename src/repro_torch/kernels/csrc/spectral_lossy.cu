@@ -44,47 +44,48 @@
 //   histogram and the quantiser read 4 bytes per element and do a log2 or
 //   a divide on it: bound by bytes.
 //
-// Design (a first, simple one; right before fast):
+// Design:
 //   * DCT kernels: one CTA of 256 threads per 64 rows. The CTA's rows sit
 //     transposed in shared memory (68 KB); D cannot (256 KB against 227
-//     KB per block), so it streams through in panels of 32 rows of the
-//     basis (32 KB), each read once per CTA from L2 (D is 256 KB, resident
-//     there). Every thread owns an 8 x 8 block of outputs in registers and
-//     runs the classic outer-product loop: two float4 reads of the row
-//     tile and two of the panel feed 64 FFMAs. Every output is one
-//     sequential f32 FMA chain over k = 0..255: no TF32, no split sums.
-//     The coarse kernels run this body (dct_rows) and the flat pair its
-//     pipelined twin (dct_rows_pipe), with the same chain per output, so
-//     every forward-DCT kernel gives the same y bits for the same input.
+//     KB per block), so it streams through in panels of the basis, each
+//     read once per CTA from L2 (D is 256 KB, resident there). Every thread
+//     owns an 8 x 8 block of outputs in registers and runs the classic
+//     outer-product loop: two float4 reads of the row tile and two of the
+//     panel feed 64 FFMAs. Every output is one sequential f32 FMA chain
+//     over k = 0..255: no TF32, no split sums. Both histogram pairs run
+//     dct_rows_pipe, whose 16-row panels are double-buffered by cp.async
+//     (the copy of the next panel overlaps the FFMAs of this one) and which
+//     runs at cuBLAS's time; the inverse still runs gemm_rows (synchronous
+//     32-row panels). Every kernel gives the same y bits for the same input.
 //   * Coarse histogram: the rows a thread owns are one 8-row tile. After
 //     the product each thread bins its 64 outputs into a private column of
 //     a shared-memory table (the row tile's space, reused), and one thread
-//     per (tile, bin) sums the 32 columns of its tile in a fixed order and
-//     writes the tile's row. No atomics anywhere: a run is deterministic,
-//     as the TPU's in-order grid was.
-//   * Flat pair: its own product body (dct_rows_pipe: the same
-//     arithmetic, D's panels double-buffered by cp.async so that the copy
-//     of the next 16 basis rows overlaps the FFMAs of this one). Private
-//     columns of 512 bins would take 1 MiB per CTA, so each thread bins
-//     its 64 outputs straight from registers into its tile's bins in
-//     shared memory with u32 atomic adds, which are exact and so give the
-//     same bits in any order: a bin's |y|^2 are integer multiples of one
-//     unit (see flat_base for the bound), summed as integers and rounded
-//     once, so energies of bins 1..510 equal the plain version's f64 sums
-//     bit for bit. Bins 0 and 511 take the coarse kernel's fixed-order
-//     columns. dct_hist runs persistent CTAs over fixed ranges of row
-//     groups, each with one 512-bin row in shared memory, and writes no
-//     tile rows.
+//     per (tile, bin) sums the 32 columns of its tile in a fixed order: the
+//     tile's row. No atomics: a run is deterministic, as the TPU's in-order
+//     grid was. (u32 shared atomics into exact integer words, as the flat
+//     pair's, timed slower here, with one word pair per (tile, bin) or
+//     eight: tools/torch_coarse_split.py.)
+//   * Flat pair: private columns of 512 bins would take 1 MiB per CTA, so
+//     each thread bins its 64 outputs straight from registers into its
+//     tile's bins in shared memory with u32 atomic adds, which are exact
+//     and so give the same bits in any order: a bin's |y|^2 are integer
+//     multiples of one unit (see flat_base for the bound), summed as
+//     integers and rounded once, so energies of bins 1..510 equal the plain
+//     version's f64 sums bit for bit. Bins 0 and 511 take the coarse
+//     kernel's fixed-order columns.
 //   * Refine: one warp per 8-row tile (2048 elements, 64 per lane),
 //     private per-lane bins in shared memory, then the same fixed-order
 //     sum. Quantiser: one warp per row, a warp max for amax.
 //   * Single-tensor histograms: the TPU kernel carries one histogram from
-//     grid step to grid step; CTAs here run in no order. The coarse and
-//     refine kernels write their tile rows into scratch and one CTA of
-//     1024 threads sums them in a fixed order: counts as 64-bit integers,
-//     energies in double, rounded once. The flat one (512 bins) sums in
-//     its persistent CTAs, then adds their range rows in a fixed order. No
-//     float atomics anywhere.
+//     grid step to grid step; CTAs here run in no order. dct_hist_coarse
+//     and dct_hist run persistent CTAs over ranges of 64-row groups fixed
+//     by n_blocks alone (not by the SM count), each adding its tiles into
+//     one row for its range in tile order, then a small kernel adds the
+//     range rows in a fixed order: counts as 64-bit integers, energies in
+//     double (or exact integers), rounded once. They write no tile rows.
+//     The refine kernel still writes its tile rows into scratch, and one
+//     CTA of 1024 threads sums them in a fixed order. No float atomics
+//     anywhere.
 //   * Ragged edges are masked in the kernels: rows past n_blocks read as
 //     zero and are never written, which is what the JAX wrappers' zero pad
 //     and slice amount to.
@@ -186,109 +187,19 @@ __device__ __forceinline__ void tile_slot(int f, int& r, int& k4) {
   k4 = ((g & 7) * 8 + (l & 7)) * 4;
 }
 
-// y = x . D^T for the CTA's kRows rows (rows past nb read as zero): the
-// thread's 8 x 8 outputs stay in acc, and those of live rows are written
-// to y. Every kernel that computes the forward DCT runs this body or
-// dct_rows_pipe (the same FMA chain per output), so all of them give the
-// same bits for the same input. Returns whether the
-// thread's 8-row tile is live (nb is a multiple of kTile).
-__device__ __forceinline__ bool dct_rows(const float* __restrict__ x,
-                                         const float* __restrict__ dt,
-                                         float* __restrict__ y, int nb,
-                                         float* xs, float* panel,
-                                         const Owner& o, float acc[8][8]) {
-  const long row0 = (long)blockIdx.x * kRows;
-  for (int f = threadIdx.x; f < kRows * kBlock / 4; f += kThreads) {
-    int r, k4;
-    tile_slot(f, r, k4);
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < nb)
-      v = *reinterpret_cast<const float4*>(x + (row0 + r) * kBlock + k4);
-    xs[(k4 + 0) * kXs + r] = v.x;
-    xs[(k4 + 1) * kXs + r] = v.y;
-    xs[(k4 + 2) * kXs + r] = v.z;
-    xs[(k4 + 3) * kXs + r] = v.w;
-  }
-  gemm_rows(xs, panel, dt, o, acc);
-
-  const bool live = row0 + o.tr * 8 < nb;
-  if (live) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      float* yr = y + (row0 + o.tr * 8 + i) * kBlock;
-      *reinterpret_cast<float4*>(yr + o.c0) =
-          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-      *reinterpret_cast<float4*>(yr + o.c0 + 128) =
-          make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
-    }
-  }
-  return live;
-}
-
-__global__ void __launch_bounds__(kThreads, 2)
-dct_hist_coarse_kernel(const float* __restrict__ x,
-                       const float* __restrict__ dt,   // D^T, row-major
-                       float* __restrict__ y, float* __restrict__ cnt,
-                       float* __restrict__ eng, int nb, float bin_scale) {
-  extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);
-  float* panel = xs + kTileBytes / sizeof(float);
-  const long row0 = (long)blockIdx.x * kRows;
-  const Owner o;
-  float acc[8][8];
-  const bool live = dct_rows(x, dt, y, nb, xs, panel, o, acc);
-  // private (count, energy) columns, in the row tile's space
-  __syncthreads();
-  float* hc = xs;
-  float* he = xs + kCoarse * kHs;
-  const int tid = threadIdx.x;
-#pragma unroll
-  for (int b = 0; b < kCoarse; ++b) {
-    hc[b * kHs + tid] = 0.f;
-    he[b * kHs + tid] = 0.f;
-  }
-  if (live) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float a = fabsf(acc[i][j]);
-        const int b = bin_index(a, bin_scale) >> 4;
-        hc[b * kHs + tid] += 1.f;
-        he[b * kHs + tid] = __fadd_rn(he[b * kHs + tid], __fmul_rn(a, a));
-      }
-  }
-  __syncthreads();
-  // one thread per (tile, bin): sum the tile's 32 owner columns in order
-  const int t = tid >> 5, b = tid & 31;
-  const long tile = blockIdx.x * (long)(kRows / kTile) + t;
-  if (row0 + t * kTile < nb) {
-    float c = 0.f, e = 0.f;
-    for (int tc = 0; tc < 32; ++tc) {
-      const int src = (((t >> 2) * 4 + (tc >> 3)) << 5) + (t & 3) * 8 + (tc & 7);
-      c += hc[b * kHs + src];
-      e = __fadd_rn(e, he[b * kHs + src]);
-    }
-    cnt[tile * kCoarse + b] = c;
-    eng[tile * kCoarse + b] = e;
-  }
-}
-
 // ---------------------------------------------------------------------------
-// The flat 512-bin pair (dct_hist_tiled, dct_hist): its own product body,
-// its exact binning from registers, and the two kernels built on them.
+// The product body of every forward-DCT kernel (both histogram pairs).
 // ---------------------------------------------------------------------------
 
-// The product body of the flat pair. gemm_rows' arithmetic (each output
-// one sequential f32 FMA chain over k = 0..255, so y is the same bits),
-// with D's rows streamed through two 16-row stages by cp.async: the copy
-// of panel p + 1 is in flight while panel p is consumed, one barrier per
-// panel. Kernels 2, 5 and 6 still run gemm_rows; the smoke holds the two
-// bodies to the same y bit for bit.
+// gemm_rows' arithmetic (each output one sequential f32 FMA chain over k =
+// 0..255, so y is the same bits in every kernel and cuBLAS's), with D's
+// rows streamed through two 16-row stages by cp.async: the copy of panel
+// p + 1 is in flight while panel p is consumed, one barrier per panel.
+// Only dequant_idct still runs gemm_rows.
 constexpr int kPipePanel = 16;                     // basis rows per stage
 constexpr int kPanels = kBlock / kPipePanel;
 constexpr int kStageFloats = kPipePanel * kBlock;  // 16 KB
-constexpr size_t kFlatSmem = kTileBytes + 2 * kStageFloats * sizeof(float);
+constexpr size_t kPipeSmem = kTileBytes + 2 * kStageFloats * sizeof(float);
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
@@ -348,8 +259,11 @@ __device__ __forceinline__ void gemm_rows_pipe(const float* xs, float* stages,
   }
 }
 
-// dct_rows for the kRows rows from row0, through gemm_rows_pipe: the first
-// panel's copy overlaps the load of the row tile.
+// y = x . D^T for the CTA's kRows rows from row0 (rows past nb read as
+// zero): the thread's 8 x 8 outputs stay in acc, and those of live rows are
+// written to y. The first panel's copy overlaps the load of the row tile.
+// Returns whether the thread's 8-row tile is live (nb is a multiple of
+// kTile).
 __device__ __forceinline__ bool dct_rows_pipe(const float* __restrict__ x,
                                               const float* __restrict__ dt,
                                               float* __restrict__ y, int nb,
@@ -383,6 +297,11 @@ __device__ __forceinline__ bool dct_rows_pipe(const float* __restrict__ x,
   }
   return live;
 }
+
+// ---------------------------------------------------------------------------
+// The flat 512-bin pair (dct_hist_tiled, dct_hist): its exact binning from
+// registers, and the two kernels built on it.
+// ---------------------------------------------------------------------------
 
 // Exact, order-free energies of the flat bins 1..510.
 //
@@ -543,7 +462,7 @@ dct_flat_tiled_kernel(const float* __restrict__ x,
 // in tile order. It writes the range's row to the partial rows, which
 // flat_total_kernel sums in a fixed order. per depends on n_blocks alone.
 constexpr int kMaxParts = 264;   // 2 CTAs on each of an H100's 132 SMs
-constexpr size_t kRangeSmem = kFlatSmem + 2 * kNbins * sizeof(unsigned long long);
+constexpr size_t kRangeSmem = kPipeSmem + 2 * kNbins * sizeof(unsigned long long);
 
 __global__ void __launch_bounds__(kThreads, 2)
 dct_flat_range_kernel(const float* __restrict__ x,
@@ -800,6 +719,164 @@ flat_total_kernel(const unsigned long long* __restrict__ part_c,
   eng[b] = edge ? (float)d : flat_energy(u, b);
 }
 
+// ---------------------------------------------------------------------------
+// The coarse 32-bin pair (dct_hist_coarse_tiled, dct_hist_coarse): the
+// pipelined product, then each thread's 64 outputs binned into private
+// columns in fixed order, and the two kernels built on them.
+// ---------------------------------------------------------------------------
+
+// Bin the thread's 64 outputs (tile o.tr) into its private (count, energy)
+// columns of the 32 coarse bins, in the row tile's space, then return the
+// cell (tile tid / 32, bin tid % 32): that tile's 32 owner columns summed
+// in a fixed order (a tile past nb sums to zeros). Starts with a barrier;
+// the caller puts one between this and the next write of the row tile.
+__device__ __forceinline__ void bin_coarse(float acc[8][8], bool live,
+                                           float bin_scale, float* xs,
+                                           float& c, float& e) {
+  float* hc = xs;
+  float* he = xs + kCoarse * kHs;
+  const int tid = threadIdx.x;
+  __syncthreads();  // every thread is done with the row tile
+#pragma unroll
+  for (int b = 0; b < kCoarse; ++b) {
+    hc[b * kHs + tid] = 0.f;
+    he[b * kHs + tid] = 0.f;
+  }
+  if (live) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float a = fabsf(acc[i][j]);
+        const int b = bin_index(a, bin_scale) >> 4;
+        hc[b * kHs + tid] += 1.f;
+        he[b * kHs + tid] = __fadd_rn(he[b * kHs + tid], __fmul_rn(a, a));
+      }
+  }
+  __syncthreads();
+  const int t = tid >> 5, b = tid & 31;
+  c = 0.f;
+  e = 0.f;
+  for (int tc = 0; tc < 32; ++tc) {
+    const int src = (((t >> 2) * 4 + (tc >> 3)) << 5) + (t & 3) * 8 + (tc & 7);
+    c += hc[b * kHs + src];
+    e = __fadd_rn(e, he[b * kHs + src]);
+  }
+}
+
+// dct_hist_coarse_tiled: one CTA per 64 rows; each live tile's 32-bin row.
+__global__ void __launch_bounds__(kThreads, 2)
+dct_coarse_tiled_kernel(const float* __restrict__ x,
+                        const float* __restrict__ dt,   // D^T, row-major
+                        float* __restrict__ y, float* __restrict__ cnt,
+                        float* __restrict__ eng, int nb, float bin_scale) {
+  extern __shared__ float4 smem4[];
+  float* xs = reinterpret_cast<float*>(smem4);
+  float* stages = xs + kTileBytes / sizeof(float);
+  const long row0 = (long)blockIdx.x * kRows;
+  const Owner o;
+  float acc[8][8];
+  const bool live = dct_rows_pipe(x, dt, y, nb, row0, xs, stages, o, acc);
+  float c, e;
+  bin_coarse(acc, live, bin_scale, xs, c, e);
+  const int t = threadIdx.x >> 5, b = threadIdx.x & 31;
+  if (row0 + t * kTile < nb) {
+    const long tile = row0 / kTile + t;
+    cnt[tile * kCoarse + b] = c;
+    eng[tile * kCoarse + b] = e;
+  }
+}
+
+// dct_hist_coarse: CTA g runs the 64-row groups [g * per, (g + 1) * per)
+// in order (per from n_blocks alone, at most kMaxParts ranges) and adds
+// each live tile's cells, in tile order, into one 32-bin row for the range
+// held by the first warp: counts as u64, energies in double. It writes
+// that row to the partial rows, which coarse_total_kernel sums in a fixed
+// order. So the histogram is kernel 2's tile rows summed in double in an
+// order fixed by n_blocks, rounded once.
+constexpr size_t kCellsAt = 2 * kCoarse * kHs;     // floats into the row tile
+static_assert((kCellsAt + 2 * kThreads) * sizeof(float) <= kTileBytes,
+              "the tile cells must fit in the row tile's space");
+
+__global__ void __launch_bounds__(kThreads, 2)
+dct_coarse_range_kernel(const float* __restrict__ x,
+                        const float* __restrict__ dt,   // D^T, row-major
+                        float* __restrict__ y,
+                        unsigned long long* __restrict__ part_c,
+                        double* __restrict__ part_e, int nb, long per,
+                        float bin_scale) {
+  extern __shared__ float4 smem4[];
+  float* xs = reinterpret_cast<float*>(smem4);
+  float* stages = xs + kTileBytes / sizeof(float);
+  float* cells = xs + kCellsAt;   // counts [tile][bin], then energies
+  const Owner o;
+  const int tid = threadIdx.x;
+  const long n_groups = (nb + kRows - 1) / kRows;
+  const long g0 = blockIdx.x * per;
+  const long g1 = g0 + per < n_groups ? g0 + per : n_groups;
+  unsigned long long sum_c = 0ull;   // bin tid of the range (tid < 32)
+  double sum_e = 0.0;
+  float acc[8][8];
+  for (long g = g0; g < g1; ++g) {
+    const long row0 = g * kRows;
+    __syncthreads();  // the last group's sums are done with the cells
+    const bool live = dct_rows_pipe(x, dt, y, nb, row0, xs, stages, o, acc);
+    float c, e;
+    bin_coarse(acc, live, bin_scale, xs, c, e);
+    cells[tid] = c;
+    cells[kThreads + tid] = e;
+    __syncthreads();
+    if (tid < kCoarse) {
+      for (int t = 0; t < kTiles && row0 + t * kTile < nb; ++t) {
+        sum_c += (unsigned long long)cells[t * kCoarse + tid];
+        sum_e += (double)cells[kThreads + t * kCoarse + tid];
+      }
+    }
+  }
+  if (tid < kCoarse) {
+    part_c[blockIdx.x * kCoarse + tid] = sum_c;
+    part_e[blockIdx.x * kCoarse + tid] = sum_e;
+  }
+}
+
+// The coarse single histogram from dct_coarse_range_kernel's partial rows,
+// in one CTA: thread (slice s, bin) adds rows s, s + 16, ... and the first
+// slice adds the 16 slice sums in order; counts as u64, energies in
+// double, each rounded once. The order depends on n_parts alone.
+__global__ void __launch_bounds__(kCoarse * kTotalSlices)
+coarse_total_kernel(const unsigned long long* __restrict__ part_c,
+                    const double* __restrict__ part_e, int n_parts,
+                    float* __restrict__ cnt, float* __restrict__ eng) {
+  __shared__ unsigned long long sc[kTotalSlices][kCoarse];
+  __shared__ double se[kTotalSlices][kCoarse];
+  const int b = threadIdx.x % kCoarse, s = threadIdx.x / kCoarse;
+  unsigned long long c = 0;
+  double e = 0.0;
+  for (int g = s; g < n_parts; g += kTotalSlices) {
+    c += part_c[g * kCoarse + b];
+    e += part_e[g * kCoarse + b];
+  }
+  sc[s][b] = c;
+  se[s][b] = e;
+  __syncthreads();
+  if (s != 0) return;
+  for (int k = 1; k < kTotalSlices; ++k) {
+    c += sc[k][b];
+    e += se[k][b];
+  }
+  cnt[b] = __ull2float_rn(c);
+  eng[b] = (float)e;
+}
+
+// The ranges of the persistent single-histogram kernels: n_blocks' 64-row
+// groups in at most kMaxParts ranges of ``per`` groups (from n_blocks
+// alone, never the SM count). Returns the number of ranges.
+int range_parts(int nb, long& per) {
+  const long n_groups = nb > 0 ? (nb + kRows - 1) / kRows : 0;
+  per = n_groups > 0 ? (n_groups + kMaxParts - 1) / kMaxParts : 1;
+  return (int)((n_groups + per - 1) / per);
+}
+
 }  // namespace
 
 extern "C" {
@@ -807,17 +884,18 @@ extern "C" {
 // Every entry launches on the given stream, allocates nothing, and returns
 // cudaGetLastError() right after the launch (0 when n_blocks is 0).
 
-size_t spectral_dct_smem_bytes() { return kDctSmem; }
-
 int spectral_dct_hist_coarse_tiled(const float* x, const float* dt, float* y,
                                    float* cnt, float* eng, int nb,
                                    float bin_scale, void* stream) {
   if (nb <= 0) return 0;
-  cudaFuncSetAttribute(dct_hist_coarse_kernel,
+  cudaFuncSetAttribute(dct_coarse_tiled_kernel,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)kDctSmem);
+                       (int)kPipeSmem);
+  cudaFuncSetAttribute(dct_coarse_tiled_kernel,
+                       cudaFuncAttributePreferredSharedMemoryCarveout,
+                       cudaSharedmemCarveoutMaxShared);
   const int grid = (nb + kRows - 1) / kRows;
-  dct_hist_coarse_kernel<<<grid, kThreads, kDctSmem, (cudaStream_t)stream>>>(
+  dct_coarse_tiled_kernel<<<grid, kThreads, kPipeSmem, (cudaStream_t)stream>>>(
       x, dt, y, cnt, eng, nb, bin_scale);
   return (int)cudaGetLastError();
 }
@@ -833,18 +911,38 @@ int spectral_hist_refine_tiled(const float* y, const int* coarse, float* cnt,
   return (int)cudaGetLastError();
 }
 
-// The single-tensor pair: the tiled kernel into the caller's scratch rows
-// (n_blocks / 8 of them), then their fixed-order sum into cnt and eng (all
-// zero for n_blocks = 0).
+// Bytes of the partial rows spectral_dct_hist_coarse needs as scratch:
+// kMaxParts rows of 32 (u64 count, f64 energy) pairs.
+size_t spectral_dct_hist_coarse_parts_bytes() {
+  return (size_t)kMaxParts * kCoarse * (sizeof(unsigned long long) +
+                                        sizeof(double));
+}
+
+// The coarse single histogram: dct_coarse_range_kernel over range_parts'
+// ranges into ``parts`` (spectral_dct_hist_coarse_parts_bytes()), then their
+// total into cnt and eng (all zero for n_blocks = 0).
 int spectral_dct_hist_coarse(const float* x, const float* dt, float* y,
-                             float* cnt_rows, float* eng_rows, float* cnt,
-                             float* eng, int nb, float bin_scale,
-                             void* stream) {
-  const int err = spectral_dct_hist_coarse_tiled(x, dt, y, cnt_rows, eng_rows,
-                                                 nb, bin_scale, stream);
-  if (err != 0) return err;
-  reduce_rows_kernel<kCoarse><<<1, kReduceThreads, 0, (cudaStream_t)stream>>>(
-      cnt_rows, eng_rows, nb > 0 ? nb / kTile : 0, cnt, eng);
+                             void* parts, float* cnt, float* eng, int nb,
+                             float bin_scale, void* stream) {
+  long per;
+  const int n_parts = range_parts(nb, per);
+  unsigned long long* part_c = static_cast<unsigned long long*>(parts);
+  double* part_e = reinterpret_cast<double*>(part_c + (size_t)kMaxParts * kCoarse);
+  if (n_parts > 0) {
+    cudaFuncSetAttribute(dct_coarse_range_kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)kPipeSmem);
+    cudaFuncSetAttribute(dct_coarse_range_kernel,
+                         cudaFuncAttributePreferredSharedMemoryCarveout,
+                         cudaSharedmemCarveoutMaxShared);
+    dct_coarse_range_kernel<<<n_parts, kThreads, kPipeSmem,
+                              (cudaStream_t)stream>>>(x, dt, y, part_c, part_e,
+                                                      nb, per, bin_scale);
+    const int err = (int)cudaGetLastError();
+    if (err != 0) return err;
+  }
+  coarse_total_kernel<<<1, kCoarse * kTotalSlices, 0, (cudaStream_t)stream>>>(
+      part_c, part_e, n_parts, cnt, eng);
   return (int)cudaGetLastError();
 }
 
@@ -865,12 +963,12 @@ int spectral_dct_hist_tiled(const float* x, const float* dt, float* y,
   if (nb <= 0) return 0;
   cudaFuncSetAttribute(dct_flat_tiled_kernel,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)kFlatSmem);
+                       (int)kPipeSmem);
   cudaFuncSetAttribute(dct_flat_tiled_kernel,
                        cudaFuncAttributePreferredSharedMemoryCarveout,
                        cudaSharedmemCarveoutMaxShared);
   const int grid = (nb + kRows - 1) / kRows;
-  dct_flat_tiled_kernel<<<grid, kThreads, kFlatSmem, (cudaStream_t)stream>>>(
+  dct_flat_tiled_kernel<<<grid, kThreads, kPipeSmem, (cudaStream_t)stream>>>(
       x, dt, y, cnt, eng, nb, bin_scale);
   return (int)cudaGetLastError();
 }
@@ -891,9 +989,8 @@ int spectral_dct_hist(const float* x, const float* dt, float* y, void* parts,
                       float* cnt, float* eng, int nb, float bin_scale,
                       void* stream) {
   if ((long long)nb * kBlock >= kMaxFlatCount) return (int)cudaErrorInvalidValue;
-  const long n_groups = nb > 0 ? (nb + kRows - 1) / kRows : 0;
-  const long per = n_groups > 0 ? (n_groups + kMaxParts - 1) / kMaxParts : 1;
-  const int n_parts = (int)((n_groups + per - 1) / per);
+  long per;
+  const int n_parts = range_parts(nb, per);
   unsigned long long* part_c = static_cast<unsigned long long*>(parts);
   unsigned long long* part_e = part_c + (size_t)kMaxParts * kNbins;
   if (n_parts > 0) {

@@ -171,14 +171,15 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {name: (args, ctypes.c_int) for name, args in {
     "spectral_dct_hist_coarse_tiled": [_P, _P, _P, _P, _P, _I, _F, _P],
     "spectral_hist_refine_tiled": [_P, _P, _P, _P, _I, _F, _P],
-    "spectral_dct_hist_coarse": [_P] * 7 + [_I, _F, _P],
+    "spectral_dct_hist_coarse": [_P] * 6 + [_I, _F, _P],
     "spectral_hist_refine": [_P] * 6 + [_I, _F, _P],
     "spectral_dct_hist_tiled": [_P, _P, _P, _P, _P, _I, _F, _P],
     "spectral_dct_hist": [_P] * 6 + [_I, _F, _P],
     "spectral_threshold_quant": [_P, _P, _P, _P, _I, _P],
     "spectral_dequant_idct": [_P, _P, _P, _P, _I, _P],
 }.items()}
-_SIGNATURES["spectral_dct_hist_parts_bytes"] = ([], ctypes.c_size_t)
+_SIGNATURES.update({name: ([], ctypes.c_size_t) for name in (
+    "spectral_dct_hist_parts_bytes", "spectral_dct_hist_coarse_parts_bytes")})
 
 
 def _lib() -> ctypes.CDLL:
@@ -299,7 +300,9 @@ def dct_hist_coarse(xb: torch.Tensor, *, tile: int | None = None):
     (y (n_blocks, 256), counts (32,), energies (32,)).
 
     First pass of the single-tensor two-level selector: the DCT and ONE
-    coarse (count, energy) histogram over the whole tensor."""
+    coarse (count, energy) histogram over the whole tensor. On the card it
+    allocates y, the kernel's partial rows (one per persistent CTA's range,
+    at most 264 of 32 bins) and the output, and no per-tile rows."""
     tile = tile or HIST_TILE
     name = "dct_hist_coarse"
     _check_blocks(xb, tile, name)
@@ -308,16 +311,17 @@ def dct_hist_coarse(xb: torch.Tensor, *, tile: int | None = None):
     _kernel_tile(name, tile)
     _need(name, xb, "xb", torch.float32)
     nb = xb.shape[0]
-    y = torch.empty_like(xb)
-    rows = torch.empty((2, nb // tile, NBINS_COARSE), dtype=torch.float32,
-                       device=xb.device)
-    out = torch.empty((2, NBINS_COARSE), dtype=torch.float32,
-                      device=xb.device)
     with torch.cuda.device(xb.device):
-        _launch(name, _lib().spectral_dct_hist_coarse, xb.data_ptr(),
+        lib = _lib()
+        y = torch.empty_like(xb)
+        parts = torch.empty(lib.spectral_dct_hist_coarse_parts_bytes() // 8,
+                            dtype=torch.int64, device=xb.device)
+        out = torch.empty((2, NBINS_COARSE), dtype=torch.float32,
+                          device=xb.device)
+        _launch(name, lib.spectral_dct_hist_coarse, xb.data_ptr(),
                 _basis(xb.device, True).data_ptr(), y.data_ptr(),
-                rows[0].data_ptr(), rows[1].data_ptr(), out[0].data_ptr(),
-                out[1].data_ptr(), nb, _BIN_SCALE)
+                parts.data_ptr(), out[0].data_ptr(), out[1].data_ptr(), nb,
+                _BIN_SCALE)
     _build.count_launch(dct_hist_coarse)
     return y, out[0], out[1]
 

@@ -20,6 +20,11 @@ Tolerances (f32 throughout, TF32 off for the plain product):
   round half to even).
 * single-tensor histograms, on the kernel's own y: counts equal; energies
   rtol 1e-5 (the tile rows as above, then summed in double).
+  ``dct_hist_coarse`` against ``dct_hist_coarse_tiled`` on the same input:
+  y bitwise, counts equal to its tile rows summed, energies rtol 1e-6 of
+  them summed in f64 (the kernel adds the same f32 rows in double, in an
+  order fixed by n_blocks, and rounds once); the same bits in every run;
+  no per-tile rows allocated.
 * the single-tensor codec on the card (two-level selection through the
   kernels) against the CPU's (the flat oracle): thresholds, q and scale
   bitwise. The kernel's y is cuBLAS's and the CPU product's bit for bit
@@ -509,3 +514,81 @@ def test_flat_kernels_at_zero_blocks_and_their_refusals(cuda):
         K.dct_hist(torch.zeros((8, ref.BLOCK), device=cuda).double())
     with pytest.raises(ValueError, match="contiguous"):
         K.dct_hist_tiled(torch.zeros((ref.BLOCK, 8), device=cuda).T)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb", [8, 24, 1000, 1008, 16384, 20008, 40000])
+@pytest.mark.parametrize("kind", KINDS)
+def test_dct_hist_coarse_is_its_tiled_rows_summed(cuda, nb, kind):
+    """20,008 and 40,000 blocks are past 264 groups of 64 rows, so each
+    persistent CTA runs two or three groups (20,008 ends inside one)."""
+    rng = np.random.default_rng(nb + 50)
+    xb = torch.from_numpy(_payload(rng, nb, kind)).to(cuda)
+    K.reset_launches()
+    y, cnt, eng = K.dct_hist_coarse(xb)
+    y2, cnt2, eng2 = K.dct_hist_coarse_tiled(xb)
+    torch.cuda.synchronize()
+    assert K.dct_hist_coarse.launches == K.dct_hist_coarse_tiled.launches == 1
+    assert torch.equal(y, y2)
+    cnt_s, eng_s = K._sum_rows(cnt2, eng2)
+    assert torch.equal(cnt, cnt_s)
+    assert int(cnt.sum()) == nb * ref.BLOCK
+    torch.testing.assert_close(eng, eng_s, rtol=1e-6, atol=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb", [1000, 4096, 16384, 20008, 40000])
+@pytest.mark.parametrize("kind", ["normal", "cauchy", "sparse", "tiny"])
+def test_coarse_pair_is_the_same_bits_every_run(cuda, kind, nb):
+    rng = np.random.default_rng(32)
+    xb = torch.from_numpy(_payload(rng, nb, kind)).to(cuda)
+    first = K.dct_hist_coarse_tiled(xb) + K.dct_hist_coarse(xb)
+    for _ in range(3):
+        again = K.dct_hist_coarse_tiled(xb) + K.dct_hist_coarse(xb)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb", [8, 24, 64, 72, 1000, 1008])
+@pytest.mark.parametrize("kind", KINDS)
+def test_the_four_forward_kernels_give_the_same_y(cuda, nb, kind):
+    rng = np.random.default_rng(nb + 60)
+    xb = torch.from_numpy(_payload(rng, nb, kind)).to(cuda)
+    y2 = K.dct_hist_coarse_tiled(xb)[0]
+    for fn in (K.dct_hist_coarse, K.dct_hist_tiled, K.dct_hist):
+        assert torch.equal(fn(xb)[0], y2), fn.__name__
+
+
+@pytest.mark.cuda
+def test_dct_hist_coarse_allocates_no_tile_rows(cuda):
+    """The caching allocator's peak grows by y, the partial rows and the
+    2 x 32 output, each rounded up to its granule, and nothing per tile
+    (per-tile rows would take 1.28 MB here, a 2 MiB block)."""
+    nb = 40000
+    xb = torch.from_numpy(_payload(np.random.default_rng(6), nb, "normal")
+                          ).to(cuda)
+    K.dct_hist_coarse(xb)                # the library and D are made once
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = K.dct_hist_coarse(xb)
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated() - base
+    parts = K._lib().spectral_dct_hist_coarse_parts_bytes()
+    assert parts <= 264 * ref.NBINS_COARSE * 16
+    want = _allocated(xb.numel() * 4) + _allocated(parts) + _allocated(
+        2 * ref.NBINS_COARSE * 4)
+    assert grown <= want, (grown, want)
+    del out
+
+
+@pytest.mark.cuda
+def test_coarse_pair_at_zero_blocks(cuda):
+    empty = torch.zeros((0, ref.BLOCK), device=cuda)
+    y, cnt, eng = K.dct_hist_coarse(empty)
+    assert y.shape == (0, ref.BLOCK)
+    assert cnt.shape == eng.shape == (ref.NBINS_COARSE,)
+    assert not cnt.any() and not eng.any()
+    y, cnt, eng = K.dct_hist_coarse_tiled(empty)
+    assert y.shape == (0, ref.BLOCK) and cnt.shape == (0, ref.NBINS_COARSE)
