@@ -15,10 +15,13 @@ Phases (any failure exits non-zero; none is swallowed):
 3. kernels — the paged decode-attention kernel held against its plain
    PyTorch version on the card, in f32 (tol 1e-5) and bf16 (atol 3.2e-2, see
    ``tests/test_torch_paged_attention_card.py`` for why), at the serving
-   shapes and at one long-context shape; timed per call with CUDA events
-   (warm-up, then the median of 25 samples of 10 launches; host overhead
-   between launches included) and on the device alone with
-   ``torch.profiler``, beside the plain version,
+   shapes (one split of 4 pages) and at one long-context shape (a
+   256-page table: 32 splits of 8 pages a row, gated to at least two CTAs
+   per (row, kv head)); timed per call with CUDA events (warm-up, then
+   the median of 25 samples of 10 launches; host overhead between
+   launches included) and on the device alone with ``torch.profiler``
+   (the split kernel plus, for several splits, the combine), beside the
+   plain version,
    ``scaled_dot_product_attention`` on the gathered cache (a yardstick
    only; the port never calls it) and the least time the card could take
    (HBM 3.35 TB/s, and 67 TFLOP/s f32 FMA or 989 TFLOP/s bf16 by the
@@ -317,17 +320,22 @@ def kernel_phase(serve_table_width: int) -> dict:
         p_ms = time_ms(lambda: PK.paged_decode_attention_plain(*args))
         lib_ms = time_ms(_sdpa_call(*args))
         b_ms, b_by = bound_ms("paged_decode_attention", *args)
-        dev_ms, _ = kernel_device_ms(
-            lambda: PK.paged_decode_attention(*args), ("paged_decode_kernel",),
-            20)
+        # the split kernel and, for more than one split, the combine
+        dev_ms, dev_ops = kernel_device_ms(
+            lambda: PK.paged_decode_attention(*args),
+            ("paged_decode_kernel", "paged_combine_kernel"), 20)
+        splits, per = PK.split_plan(shp["pps"], ps, shp["b"], shp["n_kv"])
+        if name == "long":     # at least two CTAs per (row, kv head)
+            assert shp["b"] * splits >= 2 * shp["b"] * shp["n_kv"], splits
         out[name] = {"shape": dict(shp, len=full, dtype="bfloat16"),
+                     "splits": splits, "pages_per_split": per,
                      "max_abs_err": err, "ms": k_ms, "device_ms": dev_ms,
-                     "plain_ms": p_ms, "library_ms": lib_ms,
-                     "bound_ms": b_ms, "bound_by": b_by}
-        log(f"kernel {name} timing (bf16, B={shp['b']}, len={full}): "
-            f"kernel {k_ms:.4f} ms per call (device {dev_ms} ms), plain "
-            f"{p_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.6f} ms "
-            f"({b_by})")
+                     "device_ops": dev_ops, "plain_ms": p_ms,
+                     "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}
+        log(f"kernel {name} timing (bf16, B={shp['b']}, len={full}, "
+            f"{splits} splits of {per} pages): kernel {k_ms:.4f} ms per "
+            f"call (device {dev_ms} ms: {dev_ops}), plain {p_ms:.4f} ms, "
+            f"sdpa {lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
     return out
 
 

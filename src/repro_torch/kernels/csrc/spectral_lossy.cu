@@ -55,8 +55,10 @@
 //     over k = 0..255: no TF32, no split sums. Both histogram pairs run
 //     dct_rows_pipe, whose 16-row panels are double-buffered by cp.async
 //     (the copy of the next panel overlaps the FFMAs of this one) and which
-//     runs at cuBLAS's time; the inverse still runs gemm_rows (synchronous
-//     32-row panels). Every kernel gives the same y bits for the same input.
+//     runs at cuBLAS's time. The inverse runs the same body on its
+//     dequantised int8 tile (16 bytes of q per load, conflict-free
+//     transposed writes). Every kernel gives the same y bits for the same
+//     input.
 //   * Coarse histogram: the rows a thread owns are one 8-row tile. After
 //     the product each thread bins its 64 outputs into a private column of
 //     a shared-memory table (the row tile's space, reused), and one thread
@@ -114,13 +116,10 @@ constexpr int kNbins = 512;
 constexpr float kInv127 = 1.f / 127.f;
 
 constexpr int kRows = 64;              // rows per CTA in the DCT kernels
-constexpr int kPanel = 32;             // basis rows staged per panel
 constexpr int kXs = kRows + 4;         // padded stride of the transposed tile
 constexpr int kThreads = 256;
 constexpr int kHs = kThreads + 1;      // padded stride of the private bins
 constexpr size_t kTileBytes = (size_t)kBlock * kXs * sizeof(float);
-constexpr size_t kPanelBytes = (size_t)kPanel * kBlock * sizeof(float);
-constexpr size_t kDctSmem = kTileBytes + kPanelBytes;
 static_assert(2 * kCoarse * kHs * sizeof(float) <= kTileBytes,
               "private coarse bins must fit in the row tile's space");
 
@@ -142,41 +141,6 @@ struct Owner {
   }
 };
 
-// acc[i][j] = sum_k a[tr*8+i][k] * m[k][col(j)] over k = 0..255, with the
-// CTA's A tile already transposed in xs (xs[k*kXs + r]).
-__device__ __forceinline__ void gemm_rows(const float* xs, float* panel,
-                                          const float* __restrict__ m,
-                                          const Owner& o, float acc[8][8]) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  for (int k0 = 0; k0 < kBlock; k0 += kPanel) {
-    __syncthreads();  // the A tile is written / the last panel is consumed
-    const float4* src = reinterpret_cast<const float4*>(m + (size_t)k0 * kBlock);
-    float4* dst = reinterpret_cast<float4*>(panel);
-#pragma unroll
-    for (int i = 0; i < kPanel * kBlock / 4 / kThreads; ++i)
-      dst[threadIdx.x + i * kThreads] = src[threadIdx.x + i * kThreads];
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < kPanel; ++kk) {
-      const float* ar = xs + (k0 + kk) * kXs + o.tr * 8;
-      const float* br = panel + kk * kBlock + o.c0;
-      const float4 a0 = *reinterpret_cast<const float4*>(ar);
-      const float4 a1 = *reinterpret_cast<const float4*>(ar + 4);
-      const float4 b0 = *reinterpret_cast<const float4*>(br);
-      const float4 b1 = *reinterpret_cast<const float4*>(br + 128);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-  }
-}
-
 // Lane mapping of the A-tile loads (f = 0 .. kRows*kBlock/4 - 1, one
 // 4-element slot each): 8 lanes read contiguous slots of a row, a warp
 // covers 4 rows per access, so the transposed shared-memory writes spread
@@ -188,14 +152,15 @@ __device__ __forceinline__ void tile_slot(int f, int& r, int& k4) {
 }
 
 // ---------------------------------------------------------------------------
-// The product body of every forward-DCT kernel (both histogram pairs).
+// The product body of every DCT kernel (both histogram pairs and the
+// inverse).
 // ---------------------------------------------------------------------------
 
-// gemm_rows' arithmetic (each output one sequential f32 FMA chain over k =
-// 0..255, so y is the same bits in every kernel and cuBLAS's), with D's
-// rows streamed through two 16-row stages by cp.async: the copy of panel
-// p + 1 is in flight while panel p is consumed, one barrier per panel.
-// Only dequant_idct still runs gemm_rows.
+// acc[i][j] = sum_k a[tr*8+i][k] * m[k][col(j)], each output one sequential
+// f32 FMA chain over k = 0..255 (so y is the same bits in every kernel and
+// cuBLAS's), with the CTA's A tile transposed in xs (xs[k*kXs + r]) and
+// m's rows streamed through two 16-row stages by cp.async: the copy of
+// panel p + 1 is in flight while panel p is consumed, one barrier per panel.
 constexpr int kPipePanel = 16;                     // basis rows per stage
 constexpr int kPanels = kBlock / kPipePanel;
 constexpr int kStageFloats = kPipePanel * kBlock;  // 16 KB
@@ -220,8 +185,8 @@ __device__ __forceinline__ void issue_panel(float* stage,
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// acc = A . m as gemm_rows computes it; the caller has issued panel 0
-// into stage 0 and written the transposed A tile into xs.
+// acc = A . m; the caller has issued panel 0 into stage 0 and written the
+// transposed A tile into xs.
 __device__ __forceinline__ void gemm_rows_pipe(const float* xs, float* stages,
                                                const float* __restrict__ m,
                                                const Owner& o,
@@ -514,6 +479,11 @@ dct_flat_range_kernel(const float* __restrict__ x,
   }
 }
 
+// dequant_idct: one CTA per 64 rows. The first basis panel's copy is in
+// flight while the int8 tile is loaded, 16 bytes of q a load: a warp's
+// lanes take 32 consecutive rows r of one 16-column segment k16, so the
+// transposed write of column k16 + j lands in bank (4 j + r) mod 32 (k16 *
+// kXs is a multiple of 32): 32 distinct banks.
 __global__ void __launch_bounds__(kThreads, 2)
 dequant_idct_kernel(const int8_t* __restrict__ q,
                     const float* __restrict__ scale,
@@ -521,26 +491,31 @@ dequant_idct_kernel(const int8_t* __restrict__ q,
                     float* __restrict__ x, int nb) {
   extern __shared__ float4 smem4[];
   float* xs = reinterpret_cast<float*>(smem4);
-  float* panel = xs + kTileBytes / sizeof(float);
+  float* stages = xs + kTileBytes / sizeof(float);
   const long row0 = (long)blockIdx.x * kRows;
-  for (int f = threadIdx.x; f < kRows * kBlock / 4; f += kThreads) {
-    int r, k4;
-    tile_slot(f, r, k4);
-    float v[4] = {0.f, 0.f, 0.f, 0.f};
-    if (row0 + r < nb) {
-      const char4 c = *reinterpret_cast<const char4*>(q + (row0 + r) * kBlock + k4);
-      const float s = scale[row0 + r];
-      v[0] = __fmul_rn((float)c.x, s);
-      v[1] = __fmul_rn((float)c.y, s);
-      v[2] = __fmul_rn((float)c.z, s);
-      v[3] = __fmul_rn((float)c.w, s);
-    }
+  issue_panel(stages, d, 0);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) xs[(k4 + j) * kXs + r] = v[j];
+  for (int i = 0; i < kRows * kBlock / 16 / kThreads; ++i) {
+    const int f = threadIdx.x + i * kThreads;
+    const int r = ((f >> 5) & 1) * 32 + (f & 31);
+    const int k16 = (f >> 6) * 16;
+    int4 c = make_int4(0, 0, 0, 0);
+    float s = 0.f;
+    if (row0 + r < nb) {
+      c = *reinterpret_cast<const int4*>(q + (row0 + r) * kBlock + k16);
+      s = scale[row0 + r];
+    }
+    const int w[4] = {c.x, c.y, c.z, c.w};
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      // byte j of the segment, sign-extended: the int8 coefficient
+      const int e = (int)((unsigned)w[j >> 2] << (24 - 8 * (j & 3))) >> 24;
+      xs[(k16 + j) * kXs + r] = __fmul_rn((float)e, s);
+    }
   }
   const Owner o;
   float acc[8][8];
-  gemm_rows(xs, panel, d, o, acc);
+  gemm_rows_pipe(xs, stages, d, o, acc);
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const long row = row0 + o.tr * 8 + i;
@@ -1026,9 +1001,9 @@ int spectral_dequant_idct(const int8_t* q, const float* scale, const float* d,
   if (nb <= 0) return 0;
   cudaFuncSetAttribute(dequant_idct_kernel,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)kDctSmem);
+                       (int)kPipeSmem);
   const int grid = (nb + kRows - 1) / kRows;
-  dequant_idct_kernel<<<grid, kThreads, kDctSmem, (cudaStream_t)stream>>>(
+  dequant_idct_kernel<<<grid, kThreads, kPipeSmem, (cudaStream_t)stream>>>(
       q, scale, d, x, nb);
   return (int)cudaGetLastError();
 }

@@ -451,7 +451,7 @@ def dequant_idct(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
                          f"{q.shape[0]} blocks")
     if _device_of(name, q, scale) == "cpu":
         return dequant_idct_plain(q, scale)
-    _need(name, q, "q", torch.int8, 4)
+    _need(name, q, "q", torch.int8)
     _need(name, scale, "scale", torch.float32, 4)
     nb = q.shape[0]
     x = torch.empty((nb, BLOCK), dtype=torch.float32, device=q.device)

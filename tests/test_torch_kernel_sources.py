@@ -66,9 +66,19 @@ def test_the_coarse_pair_runs_the_pipelined_body_alone():
     assert "atomicAdd(" not in src.split("The coarse 32-bin pair")[1]
 
 
+def test_the_inverse_runs_the_pipelined_body_and_the_old_one_is_gone():
+    src = (CSRC / "spectral_lossy.cu").read_text()
+    for gone in ("gemm_rows(", "kPanel ", "kPanelBytes", "kDctSmem"):
+        assert gone not in src, gone
+    body = src[src.index("dequant_idct_kernel("):]
+    body = body[:body.index("\n}\n")]
+    assert "gemm_rows_pipe(" in body and "issue_panel(" in body
+
+
 @pytest.mark.parametrize("script", ["chip_smoke.py",
                                     "tools/torch_flat_split.py",
-                                    "tools/torch_coarse_split.py"])
+                                    "tools/torch_coarse_split.py",
+                                    "tools/torch_paged_split.py"])
 def test_card_scripts_import_no_jax(script):
     tree = ast.parse((ROOT / script).read_text())
     names = set()

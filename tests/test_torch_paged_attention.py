@@ -115,6 +115,25 @@ def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(mutate, err):
         PK.check_args(*args)
 
 
+def _misaligned(t):
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype)
+    return flat[1:].view(t.shape).copy_(t)
+
+
+@pytest.mark.parametrize("mutate", [
+    # a 6 x 4-byte head row is off the kernel's 16-byte page copies
+    lambda a: (a.__setitem__(0, a[0][..., :6].contiguous()),
+               a.__setitem__(1, a[1][..., :6].contiguous())),
+    lambda a: a.__setitem__(2, _misaligned(a[2])),
+])
+def test_kernel_wrapper_refuses_pages_off_16_bytes(mutate):
+    args = _ok_args()
+    PK.check_args(*args)
+    mutate(args)
+    with pytest.raises(ValueError, match="16"):
+        PK.check_args(*args)
+
+
 def test_wrapper_refuses_devices_without_a_kernel():
     args = [a.to("meta") for a in _ok_args()]
     with pytest.raises(ValueError, match="no kernel"):

@@ -16,6 +16,10 @@ Tolerances:
   f32 until the output, so they may differ by a couple of bf16 steps.
   ``chip_smoke.py`` on an H100 measured at most one step (7.8e-3) at the
   serving and 4096-token shapes.
+
+The kernel splits each row's page table (``split_plan``) and combines the
+splits in a fixed order, so a call gives the same bits every time, and a
+CUDA-graph replay the eager call's.
 """
 import numpy as np
 import pytest
@@ -91,3 +95,77 @@ def test_kernel_refuses_mixed_devices(cuda):
     args[3] = args[3].cpu()
     with pytest.raises(ValueError, match="several devices"):
         PK.paged_decode_attention(*args)
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("width", [64, 256])
+@pytest.mark.parametrize("group,ps,d_k,d_v", [(3, 16, 64, 64), (2, 5, 24, 40)])
+def test_split_edges_match_plain_on_card(cuda, dtype, width, group, ps, d_k,
+                                         d_v):
+    """Long tables, several splits a row: lengths on and beside the first
+    two split edges, and splits wholly past the length."""
+    rng = np.random.default_rng(14)
+    n_kv, b = 3, 11
+    n_splits, per = PK.split_plan(width, ps, b, n_kv)
+    assert n_splits > 1
+    edge, full = per * ps, ps * width
+    lengths = [0, 1, edge - 1, edge, edge + 1, 2 * edge, 2 * edge + 1,
+               full // 2 + 3, full - 1, full, full + 7]
+    args = _case(rng, b=b, hq=n_kv * group, n_kv=n_kv, d_k=d_k, d_v=d_v,
+                 ps=ps, pps=width, lengths=lengths,
+                 dtype=getattr(torch, dtype), dev=cuda)
+    out = PK.paged_decode_attention(*args)
+    torch.cuda.synchronize()
+    ref = PK.paged_decode_attention_plain(*args)
+    tol = F32_TOL if dtype == "float32" else dict(rtol=0, atol=BF16_ATOL)
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+
+
+def _long_case(rng, width, dev):
+    ps, full = 16, 16 * width
+    return _case(rng, b=8, hq=9, n_kv=3, d_k=64, d_v=64, ps=ps, pps=width,
+                 lengths=[0, 1, ps + 1, 100, full // 2 + 3, full - 1, full,
+                          full], dtype=torch.bfloat16, dev=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [4, 64, 256])
+def test_same_bits_every_call(cuda, width):
+    args = _long_case(np.random.default_rng(15), width, cuda)
+    first = _bits(PK.paged_decode_attention(*args)).clone()
+    for _ in range(4):
+        assert torch.equal(_bits(PK.paged_decode_attention(*args)), first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [4, 256])
+def test_cuda_graph_replay_equals_eager(cuda, width):
+    """One call captured in a CUDA graph: no host sync or allocation in the
+    C side, the split plan from shapes alone. A replay equals the eager
+    call bit for bit, also after the lengths change in place, and adds
+    nothing to the launch count (only a wrapper call counts)."""
+    rng = np.random.default_rng(16)
+    args = _long_case(rng, width, cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        PK.paged_decode_attention(*args)          # warm up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static_out = PK.paged_decode_attention(*args)
+    for lengths in (None, [5, 16 * width, 0, 17, 33, 16 * width - 1, 1, 2]):
+        if lengths is not None:
+            args[4].copy_(torch.tensor(lengths, dtype=torch.int32))
+        before = PK.paged_decode_attention.launches
+        graph.replay()
+        torch.cuda.synchronize()
+        assert PK.paged_decode_attention.launches == before
+        eager = PK.paged_decode_attention(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(static_out), _bits(eager))

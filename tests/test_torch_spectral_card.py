@@ -166,6 +166,20 @@ def test_dequant_idct_matches_plain(cuda, nb):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("nb", [1, 13, 1001, 110592])
+def test_dequant_idct_same_bits_every_call(cuda, nb):
+    """Each output one FMA chain in k order: no run-to-run change (up to
+    the ``embed`` moment leaf's 110,592 blocks)."""
+    gen = torch.Generator(device=cuda).manual_seed(nb)
+    q = torch.randint(-127, 128, (nb, ref.BLOCK), generator=gen,
+                      device=cuda, dtype=torch.int32).to(torch.int8)
+    s = torch.rand(nb, generator=gen, device=cuda) + 0.5
+    first = K.dequant_idct(q, s).view(torch.int32).clone()
+    for _ in range(3):
+        assert torch.equal(K.dequant_idct(q, s).view(torch.int32), first)
+
+
+@pytest.mark.cuda
 def test_fused_tree_roundtrip_within_bound(cuda):
     """The packed path on the card: every moment leaf restores within the
     codec's error bound, weights pass through untouched, and each kernel
