@@ -56,7 +56,11 @@ Phases (any failure exits non-zero; none is swallowed):
    equal and energies rtol 1e-5; the thresholds of the
    card's two-level route equal to the CPU's flat route; and
    ``spectral_compress`` on the card bitwise equal (q and scale) to
-   ``spectral_compress`` of the same leaf on the CPU. Each kernel is timed
+   ``spectral_compress`` of the same leaf on the CPU; ``hist_refine``'s
+   membership table deciding none of the 2^31 non-negative f32 bit
+   patterns differently from the kernel's ``bin_index``, and its output
+   the same bits over 5 calls and from two calls at once on two worker
+   threads' streams (at ``embed``). Each kernel is timed
    at the ``embed`` leaf (as in 4; ``torch.matmul`` of the same f32
    product is the DCT's yardstick) and summed over the 22 leaves of one
    save.
@@ -674,6 +678,58 @@ def single_tensor_check(x, eps, label):
             "xb": xb, "y": y, "cc": cc}
 
 
+def refine_gates(y, cc) -> dict:
+    """``hist_refine``'s membership table against ``bin_index`` over all
+    2^31 non-negative f32 patterns (0 decided differently), and its bits:
+    the same over 5 calls, and from two calls at once on two worker
+    threads, each on its own stream."""
+    import threading
+
+    import torch
+    from repro_torch.kernels import spectral_lossy as K
+
+    dev = y.device
+    t0 = time.perf_counter()
+    bad = K.refine_table_errors(dev)
+    check_s = time.perf_counter() - t0
+    if bad:
+        raise AssertionError(f"hist_refine: the membership table decides "
+                             f"{bad} of 2^31 patterns differently from "
+                             f"bin_index")
+    bits = lambda: torch.cat(K.hist_refine(y, cc)).view(torch.int32)  # noqa: E731
+    first = bits().clone()
+    for i in range(4):
+        if not torch.equal(bits(), first):
+            raise AssertionError(f"hist_refine: call {i + 2} gave other bits")
+    outs, errors = [None, None], []
+    streams = [torch.cuda.Stream(dev) for _ in outs]
+    main = torch.cuda.current_stream(dev)
+    for s in streams:
+        s.wait_stream(main)
+
+    def work(i):
+        try:
+            with torch.cuda.stream(streams[i]):
+                outs[i] = bits().clone()
+            streams[i].synchronize()
+        except BaseException as e:  # noqa: BLE001 - raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    if errors:
+        raise errors[0]
+    if not all(torch.equal(o.to(first.device), first) for o in outs):
+        raise AssertionError("hist_refine: two worker streams gave other bits")
+    table = (K._refine_table(dev).cpu().long() & 0xFFFFFFFF).view(2, -1)
+    return {"table_patterns_off": bad, "table_check_s": check_s,
+            "same_bits_calls": 5, "same_bits_streams": 2,
+            "table_lo": table[0].tolist(), "table_hi": table[1].tolist()}
+
+
 def single_tensor_phase() -> dict:
     import torch
     from repro_torch.configs import base as configs
@@ -731,8 +787,12 @@ def single_tensor_phase() -> dict:
         edges[label] = res
         log(f"single edge {label}: {res}")
 
-    # timings at the embed leaf (the main path's largest call)
+    # the refine kernel's membership table and its bits (gates)
     xb, y, cc, block_cc, bounds = embed
+    refine_bits = refine_gates(y, cc)
+    log(f"single hist_refine gates: {refine_bits}")
+
+    # timings at the embed leaf (the main path's largest call)
     dt_ = ref.dct_tensor(dev).T.contiguous()
     calls = {
         "dct_hist_coarse": (lambda: K.dct_hist_coarse(xb),
@@ -742,7 +802,7 @@ def single_tensor_phase() -> dict:
                              "coarse_total_kernel")),
         "hist_refine": (lambda: K.hist_refine(y, cc),
                         lambda: K.hist_refine_plain(y, block_cc), None,
-                        ("hist_refine_kernel", "reduce_rows_kernel")),
+                        ("refine_range_kernel", "refine_total_kernel")),
     }
     timing = {}
     for name, (kern, plain, lib, syms) in calls.items():
@@ -761,7 +821,7 @@ def single_tensor_phase() -> dict:
             f"ms, library {l_ms} ms, bound {b_ms:.4f} ms ({b_by}); summed "
             f"over one save's 22 leaves: {per_save[name]}")
     out = {"leaves": leaves, "edges": edges, "timing": timing,
-           "embed_blocks": xb.shape[0],
+           "embed_blocks": xb.shape[0], "refine_gates": refine_bits,
            "max_abs_err": {
                "dct_hist_coarse": max(r["err_y"] for r in leaves.values()),
                "hist_refine": max(r["refine_abs_err"]

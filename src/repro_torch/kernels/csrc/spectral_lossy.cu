@@ -41,8 +41,9 @@
 //   bytes moved (f32 in and out), about 64 flops per byte where the card
 //   balances at 20. dct_hist_tiled's rows add 4 KB per 8 rows (half the
 //   bytes of y), which leaves it bound by operations. The refine
-//   histogram and the quantiser read 4 bytes per element and do a log2 or
-//   a divide on it: bound by bytes.
+//   histograms and the quantiser read 4 bytes per element and do a few
+//   integer operations (a log2 for some) or a divide on it: bound by
+//   bytes.
 //
 // Design:
 //   * DCT kernels: one CTA of 256 threads per 64 rows. The CTA's rows sit
@@ -75,9 +76,10 @@
 //     integers and rounded once, so energies of bins 1..510 equal the plain
 //     version's f64 sums bit for bit. Bins 0 and 511 take the coarse
 //     kernel's fixed-order columns.
-//   * Refine: one warp per 8-row tile (2048 elements, 64 per lane),
-//     private per-lane bins in shared memory, then the same fixed-order
-//     sum. Quantiser: one warp per row, a warp max for amax.
+//   * Refine, per tile (hist_refine_tiled): one warp per 8-row tile (2048
+//     elements, 64 per lane), private per-lane bins in shared memory, then
+//     the same fixed-order sum. Quantiser: one warp per row, a warp max for
+//     amax.
 //   * Single-tensor histograms: the TPU kernel carries one histogram from
 //     grid step to grid step; CTAs here run in no order. dct_hist_coarse
 //     and dct_hist run persistent CTAs over ranges of 64-row groups fixed
@@ -85,9 +87,14 @@
 //     one row for its range in tile order, then a small kernel adds the
 //     range rows in a fixed order: counts as 64-bit integers, energies in
 //     double (or exact integers), rounded once. They write no tile rows.
-//     The refine kernel still writes its tile rows into scratch, and one
-//     CTA of 1024 threads sums them in a fixed order. No float atomics
-//     anywhere.
+//     hist_refine makes one pass over y at HBM rate on the same ranges:
+//     membership in the coarse bin is decided on the bits of |y| by a
+//     table of intervals built on the card with bin_index itself (so the
+//     logarithm runs only inside the interval, ~10 % of the elements on a
+//     moment), each warp keeps a whole 8-row tile of loads in flight,
+//     members add exact integer units into per-warp u32 words (flat bins 0
+//     and 511 in double, in a fixed order), and a small kernel adds the
+//     range rows in a fixed order. No float atomics anywhere.
 //   * Ragged edges are masked in the kernels: rows past n_blocks read as
 //     zero and are never written, which is what the JAX wrappers' zero pad
 //     and slice amount to.
@@ -615,42 +622,6 @@ threshold_quant_kernel(const float* __restrict__ y,
   if (lane == 0) scale[row] = s;
 }
 
-// One histogram row from n_rows per-tile rows of NB bins, summed in an
-// order fixed by n_rows alone: thread t takes bin t % NB of rows t / NB,
-// t / NB + G, ... (G = 1024 / NB; a warp reads whole rows, coalesced),
-// then one thread per bin adds the G partial sums in order. Counts are
-// exact integers (a tile counts at most 2048); energies are summed in
-// double and rounded once.
-constexpr int kReduceThreads = 1024;
-
-template <int NB>
-__global__ void __launch_bounds__(kReduceThreads)
-reduce_rows_kernel(const float* __restrict__ cnt_rows,
-                   const float* __restrict__ eng_rows, long n_rows,
-                   float* __restrict__ cnt, float* __restrict__ eng) {
-  constexpr int kG = kReduceThreads / NB;
-  __shared__ long long sc[kReduceThreads];
-  __shared__ double se[kReduceThreads];
-  const int t = threadIdx.x, b = t % NB, g = t / NB;
-  long long c = 0;
-  double e = 0.0;
-  for (long r = g; r < n_rows; r += kG) {
-    c += (long long)cnt_rows[r * NB + b];
-    e += (double)eng_rows[r * NB + b];
-  }
-  sc[t] = c;
-  se[t] = e;
-  __syncthreads();
-  if (g == 0) {
-    for (int k = 1; k < kG; ++k) {
-      c += sc[k * NB + b];
-      e += se[k * NB + b];
-    }
-    cnt[b] = (float)c;
-    eng[b] = (float)e;
-  }
-}
-
 // The flat single histogram from dct_flat_range_kernel's partial rows.
 // CTA k takes 32 bins; its thread (slice s, bin) adds rows s, s + 16, ...
 // (a warp reads 32 bins of a row, coalesced) and the first slice adds the
@@ -692,6 +663,386 @@ flat_total_kernel(const unsigned long long* __restrict__ part_c,
   }
   cnt[b] = __ull2float_rn(c);
   eng[b] = edge ? (float)d : flat_energy(u, b);
+}
+
+// ---------------------------------------------------------------------------
+// The single-tensor refine histogram (hist_refine): one pass over y.
+// ---------------------------------------------------------------------------
+
+// Membership by the bits of |y|. Non-negative floats order as their bit
+// patterns do, and an element adds to the refine histogram of coarse bin c
+// only if bin_index(|y|) >> 4 == c. The table holds, for each c, the least
+// interval [lo_c, hi_c) of patterns that holds every pattern whose coarse
+// bin is c, found by refine_table_scan with bin_index itself over all 2^31
+// non-negative patterns (never from another library's log2). An element
+// outside c's interval is no member; bin_index decides inside it, so the
+// table can only spend time, never change a bin. bin_index puts NaN
+// patterns in bin 0, so coarse bin 0's interval reaches the top of the
+// range and every element is tested there (a selection picks bin 0 only
+// for a tensor whose energy lies almost all below 2^-37.5, such as a
+// 1e-20-scaled payload). Layout: lo[32], then hi[32].
+constexpr unsigned kPatterns = 0x80000000u;        // non-negative patterns
+constexpr int kScanPer = 1024;                     // patterns per thread
+constexpr int kScanThreads = 256;
+
+__global__ void refine_table_init(unsigned* __restrict__ table) {
+  table[threadIdx.x] = 0xffffffffu;
+  table[kCoarse + threadIdx.x] = 0u;
+}
+
+__global__ void __launch_bounds__(kScanThreads)
+refine_table_scan(unsigned* __restrict__ table, float bin_scale) {
+  const unsigned first = (blockIdx.x * kScanThreads + threadIdx.x) * kScanPer;
+  int cur = -1;
+  unsigned lo = 0u;
+  for (unsigned u = first; u < first + kScanPer; ++u) {
+    const int c = bin_index(__uint_as_float(u), bin_scale) >> 4;
+    if (c != cur) {
+      if (cur >= 0) {
+        atomicMin(table + cur, lo);
+        atomicMax(table + kCoarse + cur, u);
+      }
+      cur = c;
+      lo = u;
+    }
+  }
+  atomicMin(table + cur, lo);
+  atomicMax(table + kCoarse + cur, first + kScanPer);
+}
+
+// Whether bit pattern u (of |y|) lies in the interval [lo, lo + span).
+__device__ __forceinline__ bool refine_candidate(unsigned u, unsigned lo,
+                                                 unsigned span) {
+  return u - lo < span;
+}
+
+// (lo, span) of coarse bin c; no pattern for a c outside 0..31, which has
+// no members.
+__device__ __forceinline__ void refine_interval(const unsigned* table, int c,
+                                                unsigned& lo, unsigned& span) {
+  const bool ok = c >= 0 && c < kCoarse;
+  lo = ok ? table[c] : 0u;
+  span = ok ? table[kCoarse + c] - lo : 0u;
+}
+
+// Patterns whose membership the table decides differently from bin_index:
+// a pattern outside the interval of its own coarse bin (inside the others'
+// intervals bin_index decides). Counted into *bad; must be 0.
+__global__ void __launch_bounds__(kScanThreads)
+refine_table_check_kernel(const unsigned* __restrict__ table, float bin_scale,
+                          unsigned long long* __restrict__ bad) {
+  const unsigned first = (blockIdx.x * kScanThreads + threadIdx.x) * kScanPer;
+  unsigned long long n = 0;
+  for (unsigned u = first; u < first + kScanPer; ++u) {
+    unsigned lo, span;
+    refine_interval(table, bin_index(__uint_as_float(u), bin_scale) >> 4, lo,
+                    span);
+    n += !refine_candidate(u, lo, span);
+  }
+  if (n) atomicAdd(bad, n);
+}
+
+// The coarse bin of block i: the caller's value when there is no tensor,
+// else its int32 or int64 element i * stride (stride 0: one for all).
+__device__ __forceinline__ int coarse_at(const void* coarse, int elem,
+                                         long i, int value) {
+  if (coarse == nullptr) return value;
+  return elem == 8 ? (int)static_cast<const long long*>(coarse)[i]
+                   : static_cast<const int*>(coarse)[i];
+}
+
+// The range kernel. CTA g takes the 8-row tiles of range_parts' range g,
+// warp w the tiles w, w + 8, ... of it, in half tiles (4 rows, 8 float4 a
+// lane, 4 KB a warp) copied by cp.async into a ring of kStages half tiles
+// per warp in shared memory: while the warp scans one, the next two are on
+// the way (8 KB a warp, 128 KB an SM at two CTAs an SM), so the loads no
+// longer wait for the scan's instructions, nor it for them. Each lane reads
+// back only the 16-byte slots it copied. An element's bits decide whether it is
+// a candidate (above). A divergent branch on that would cost every lane
+// the logarithm whenever any lane of the warp has a candidate (nearly
+// always), so the warp compacts its candidates into a queue in shared
+// memory (a ballot, each candidate at its rank) and bins them 32 at a
+// time, one per lane. A member adds to its warp's words of the 16 fine
+// bins with u32 shared atomics: its count and the exact units of its
+// square (flat_units of flat bin 16c + k, which lies in 1..510 for coarse
+// bins 1..30 and for all but fine bin 0 of c = 0 and fine bin 15 of c =
+// 31). The words of a tile cannot carry out (as the flat pair's: 2048
+// elements), and after each tile lane k adds those of fine bin k into a
+// u64 count and a u64 sum of units, exact in any order. Flat bins 0 and
+// 511 (zeros and subnormal squares; squares up to inf) have no such unit:
+// each thread sums their squares in double in the order the queue hands
+// them to it, and the CTA adds the threads' sums in a fixed order. With one
+// coarse bin for all blocks (PER_BLOCK false), a range's units stay exact;
+// with a coarse bin per block, a run of rows of one bin is turned into
+// double (units times the bin's unit, exact) when the bin changes, and
+// added in row order. The CTA writes its range's row (counts, units,
+// doubles); refine_total_kernel adds the rows in a fixed order. Every
+// order here depends on y and n_blocks alone.
+constexpr int kRangeWarps = 8;
+constexpr int kRangeThreads = kRangeWarps * 32;
+constexpr int kTileLoads = kTile * kBlock / 4 / 32;    // float4 a lane: 16
+constexpr int kHalfLoads = kTileLoads / 2;
+constexpr int kQueue = 32 + 4 * 32;    // < 32 left over + one float4 a lane
+constexpr int kStages = 3;             // half tiles in a warp's ring
+constexpr size_t kRingSmem =
+    (size_t)kRangeWarps * kStages * kHalfLoads * 32 * sizeof(float4);  // 96 KB
+
+__device__ __forceinline__ void refine_flush(unsigned* lo_w, unsigned* hi_w,
+                                             int lane,
+                                             unsigned long long& cnt,
+                                             unsigned long long& units) {
+  __syncwarp();
+  if (lane < kFine) {
+    const unsigned h = hi_w[lane];
+    cnt += h >> kLoBits;
+    units += ((unsigned long long)(h & kLoMask) << kLoBits) + lo_w[lane];
+    lo_w[lane] = 0u;
+    hi_w[lane] = 0u;
+  }
+  __syncwarp();
+}
+
+// Bins the candidates q[0 .. n) (n <= 32), one per lane: a member of
+// coarse bin c adds to the warp's words, or to the thread's double sums of
+// flat bins 0 and 511.
+__device__ __forceinline__ void refine_members(const float* q, int n,
+                                               int lane, int c,
+                                               float bin_scale,
+                                               unsigned* lo_w, unsigned* hi_w,
+                                               double& e0, double& e511) {
+  if (lane >= n) return;
+  const float a = q[lane];
+  const int b = bin_index(a, bin_scale);
+  const int k = b - c * kFine;
+  if ((unsigned)k >= (unsigned)kFine) return;
+  const float a2 = __fmul_rn(a, a);
+  if (b == 0 || b == kNbins - 1) {
+    if (b == 0)
+      e0 += (double)a2;
+    else
+      e511 += (double)a2;
+    atomicAdd(hi_w + k, 1u << kLoBits);
+  } else {
+    const unsigned un = flat_units(a2, b);
+    atomicAdd(lo_w + k, un & kLoMask);
+    atomicAdd(hi_w + k, (1u << kLoBits) | (un >> kLoBits));
+  }
+}
+
+// units of coarse bin c's fine bin k as double: the integer rounded once
+// to 53 bits, times the unit (a power of two, exact)
+__device__ __forceinline__ double refine_units_energy(unsigned long long units,
+                                                      int c, int k) {
+  const long long e = flat_base(c * kFine + k) - 23 + 1023;
+  return __ull2double_rn(units) * __longlong_as_double(e << 52);
+}
+
+template <bool PER_BLOCK>
+__global__ void __launch_bounds__(kRangeThreads, 2)
+refine_range_kernel(const float* __restrict__ y, const void* coarse,
+                    int coarse_elem, int coarse_value,
+                    const unsigned* __restrict__ table,
+                    unsigned long long* __restrict__ part_c,
+                    unsigned long long* __restrict__ part_u,
+                    double* __restrict__ part_d, int nb, long per,
+                    float bin_scale) {
+  extern __shared__ float4 ring_smem[];   // kRingSmem: the warps' rings
+  __shared__ unsigned words[kRangeWarps][2][kFine];
+  __shared__ float queue[kRangeWarps][kQueue];
+  __shared__ unsigned long long sc[kRangeWarps][kFine], su[kRangeWarps][kFine];
+  __shared__ double sd[kRangeWarps][kFine];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  unsigned* lo_w = words[warp][0];
+  unsigned* hi_w = words[warp][1];
+  float* q = queue[warp];
+  if (lane < kFine) lo_w[lane] = hi_w[lane] = 0u;
+  __syncwarp();
+  const long n_groups = (nb + kRows - 1) / kRows;
+  const long g1 = (blockIdx.x + 1) * per < n_groups ? (blockIdx.x + 1) * per
+                                                    : n_groups;
+  const long t1 = g1 * (kRows / kTile) < nb / kTile ? g1 * (kRows / kTile)
+                                                   : nb / kTile;
+  // the run's coarse bin and interval (one for all blocks: read once)
+  int run_c = PER_BLOCK ? -1 : coarse_at(coarse, coarse_elem, 0, coarse_value);
+  unsigned lo, span;
+  refine_interval(table, run_c, lo, span);
+  unsigned long long cnt = 0ull, units = 0ull;   // fine bin `lane` (< 16)
+  double dbl = 0.0;
+  double e0 = 0.0, e511 = 0.0;                   // this thread's flat 0, 511
+  int qn = 0;   // candidates in the warp's queue (the same in every lane)
+  int row_c[kTile];
+  // scan float4s i0 .. i0 + 7 of a tile (rows i0 / 2 ..): queue the
+  // candidates, bin them 32 at a time
+  auto scan = [&](const float4 (&v)[kHalfLoads], int i0) {
+#pragma unroll
+    for (int i = 0; i < kHalfLoads; ++i) {
+      // float4 i0 + i of every lane lies in row (i0 + i) / 2 of the tile
+      if constexpr (PER_BLOCK) {
+        const int c = row_c[(i0 + i) / 2];
+        if (c != run_c) {   // the same for the whole warp
+          __syncwarp();
+          refine_members(q, qn, lane, run_c, bin_scale, lo_w, hi_w, e0, e511);
+          qn = 0;
+          refine_flush(lo_w, hi_w, lane, cnt, units);
+          if (lane < kFine && run_c >= 0 && run_c < kCoarse)
+            dbl += refine_units_energy(units, run_c, lane);
+          units = 0ull;
+          run_c = c;
+          refine_interval(table, run_c, lo, span);
+        }
+      }
+      const float vs[4] = {v[i].x, v[i].y, v[i].z, v[i].w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const unsigned u = __float_as_uint(vs[j]) & 0x7fffffffu;
+        const bool cand = refine_candidate(u, lo, span);
+        const unsigned m = __ballot_sync(0xffffffffu, cand);
+        if (cand) q[qn + __popc(m & below)] = __uint_as_float(u);
+        qn += __popc(m);
+      }
+      if (qn >= 32) {
+        __syncwarp();
+        do {
+          qn -= 32;
+          refine_members(q + qn, 32, lane, run_c, bin_scale, lo_w, hi_w, e0,
+                         e511);
+        } while (qn >= 32);
+        __syncwarp();
+      }
+    }
+  };
+  // the warp's half tiles h = 0, 1, ...: tile t0 + (h / 2) * 8, half h % 2
+  const long t0 = blockIdx.x * per * (kRows / kTile) + warp;
+  const int n_half = t0 < t1 ? 2 * (int)((t1 - t0 + kRangeWarps - 1) /
+                                        kRangeWarps)
+                             : 0;
+  float4* ring = reinterpret_cast<float4*>(ring_smem) +
+                 (size_t)warp * kStages * kHalfLoads * 32;
+  // copy half h into its stage, as one group (an empty group past the end,
+  // so that wait_group counts the same every step)
+  auto issue = [&](int h) {
+    if (h < n_half) {
+      const float4* src = reinterpret_cast<const float4*>(
+          y + (t0 + (long)(h / 2) * kRangeWarps) * kTile * kBlock) +
+          (h % 2) * kHalfLoads * 32 + lane;
+      float4* dst = ring + (h % kStages) * kHalfLoads * 32 + lane;
+#pragma unroll
+      for (int i = 0; i < kHalfLoads; ++i) cp_async16(dst + 32 * i, src + 32 * i);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+#pragma unroll
+  for (int h = 0; h < kStages - 1; ++h) issue(h);
+  for (int h = 0; h < n_half; ++h) {
+    issue(h + kStages - 1);
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 1) : "memory");
+    const long t = t0 + (long)(h / 2) * kRangeWarps;
+    if (PER_BLOCK && h % 2 == 0) {
+#pragma unroll
+      for (int r = 0; r < kTile; ++r)
+        row_c[r] = coarse_at(coarse, coarse_elem, t * kTile + r, 0);
+    }
+    const float4* stage = ring + (h % kStages) * kHalfLoads * 32 + lane;
+    float4 v[kHalfLoads];
+#pragma unroll
+    for (int i = 0; i < kHalfLoads; ++i) v[i] = stage[32 * i];
+    scan(v, (h % 2) * kHalfLoads);
+    if (h % 2 == 1) {   // the tile is done: bin what is queued, flush
+      __syncwarp();
+      refine_members(q, qn, lane, run_c, bin_scale, lo_w, hi_w, e0, e511);
+      qn = 0;
+      refine_flush(lo_w, hi_w, lane, cnt, units);
+    }
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  if (PER_BLOCK && lane < kFine && run_c >= 0 && run_c < kCoarse) {
+    dbl += refine_units_energy(units, run_c, lane);
+    units = 0ull;
+  }
+  // the warp's flat 0 and 511 sums in a fixed tree order, to fine bins 0
+  // and 15
+  for (int off = 16; off > 0; off >>= 1) {
+    e0 += __shfl_down_sync(0xffffffffu, e0, off);
+    e511 += __shfl_down_sync(0xffffffffu, e511, off);
+  }
+  e511 = __shfl_sync(0xffffffffu, e511, 0);
+  if (lane == 0) dbl += e0;
+  if (lane == kFine - 1) dbl += e511;
+  if (lane < kFine) {
+    sc[warp][lane] = cnt;
+    su[warp][lane] = units;
+    sd[warp][lane] = dbl;
+  }
+  __syncthreads();
+  if (threadIdx.x < kFine) {
+    const int k = threadIdx.x;
+    unsigned long long c = 0ull, s = 0ull;
+    double d = 0.0;
+    for (int w = 0; w < kRangeWarps; ++w) {
+      c += sc[w][k];
+      s += su[w][k];
+      d += sd[w][k];
+    }
+    part_c[blockIdx.x * kFine + k] = c;
+    part_u[blockIdx.x * kFine + k] = s;
+    part_d[blockIdx.x * kFine + k] = d;
+  }
+}
+
+// The refine histogram from refine_range_kernel's rows, in one CTA: thread
+// (slice s, bin k) adds rows s, s + 16, ... and the first slice adds the 16
+// slice sums in order. Counts and units as u64, rounded once; with one
+// coarse bin for all blocks a bin's units are its exact energy (flat_energy
+// of flat bin 16c + k); the doubles (flat bins 0 and 511, or the runs of a
+// coarse bin per block) are rounded once. The order depends on n_parts
+// alone.
+__global__ void __launch_bounds__(kFine * kTotalSlices)
+refine_total_kernel(const unsigned long long* __restrict__ part_c,
+                    const unsigned long long* __restrict__ part_u,
+                    const double* __restrict__ part_d, int n_parts,
+                    const void* coarse, int coarse_elem, int coarse_value,
+                    float* __restrict__ out) {
+  __shared__ unsigned long long sc[kTotalSlices][kFine], su[kTotalSlices][kFine];
+  __shared__ double sd[kTotalSlices][kFine];
+  const int k = threadIdx.x % kFine, s = threadIdx.x / kFine;
+  // every load of the slice issued before the first add (one L2 round
+  // trip, not one a row), then the adds in row order
+  constexpr int kRowsPer = (kMaxParts + kTotalSlices - 1) / kTotalSlices;
+  unsigned long long pc[kRowsPer], pu[kRowsPer];
+  double pd[kRowsPer];
+#pragma unroll
+  for (int i = 0; i < kRowsPer; ++i) {
+    const int g = s + i * kTotalSlices;
+    const bool in = g < n_parts;
+    pc[i] = in ? part_c[g * kFine + k] : 0ull;
+    pu[i] = in ? part_u[g * kFine + k] : 0ull;
+    pd[i] = in ? part_d[g * kFine + k] : 0.0;
+  }
+  unsigned long long c = 0ull, u = 0ull;
+  double d = 0.0;
+#pragma unroll
+  for (int i = 0; i < kRowsPer; ++i) {
+    c += pc[i];
+    u += pu[i];
+    d += pd[i];
+  }
+  sc[s][k] = c;
+  su[s][k] = u;
+  sd[s][k] = d;
+  __syncthreads();
+  if (s != 0) return;
+  for (int i = 1; i < kTotalSlices; ++i) {
+    c += sc[i][k];
+    u += su[i][k];
+    d += sd[i][k];
+  }
+  out[k] = __ull2float_rn(c);
+  // units are left only with one coarse bin for all blocks, which then
+  // has members: c lies in 0..31 and 16c + k in 1..510
+  out[kFine + k] = u ? flat_energy(u, coarse_at(coarse, coarse_elem, 0,
+                                                coarse_value) * kFine + k)
+                     : (float)d;
 }
 
 // ---------------------------------------------------------------------------
@@ -921,14 +1272,78 @@ int spectral_dct_hist_coarse(const float* x, const float* dt, float* y,
   return (int)cudaGetLastError();
 }
 
-int spectral_hist_refine(const float* y, const int* coarse, float* cnt_rows,
-                         float* eng_rows, float* cnt, float* eng, int nb,
+// Bytes of the partial rows spectral_hist_refine needs as scratch:
+// kMaxParts rows of 16 (u64 count, u64 units, f64) triples.
+size_t spectral_hist_refine_parts_bytes() {
+  return (size_t)kMaxParts * kFine * (2 * sizeof(unsigned long long) +
+                                      sizeof(double));
+}
+
+// The refine kernel's membership table (2 x 32 u32: lo, then hi) into
+// ``table``, by a scan of all 2^31 non-negative patterns with bin_index.
+int spectral_refine_table(void* table, float bin_scale, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  unsigned* t = static_cast<unsigned*>(table);
+  refine_table_init<<<1, kCoarse, 0, s>>>(t);
+  refine_table_scan<<<kPatterns / kScanPer / kScanThreads, kScanThreads, 0,
+                      s>>>(t, bin_scale);
+  return (int)cudaGetLastError();
+}
+
+// Adds to *bad (u64) the non-negative patterns whose membership ``table``
+// decides differently from bin_index (all 2^31 of them checked).
+int spectral_refine_table_check(const void* table, void* bad, float bin_scale,
+                                void* stream) {
+  refine_table_check_kernel<<<kPatterns / kScanPer / kScanThreads,
+                              kScanThreads, 0, (cudaStream_t)stream>>>(
+      static_cast<const unsigned*>(table), bin_scale,
+      static_cast<unsigned long long*>(bad));
+  return (int)cudaGetLastError();
+}
+
+// The refine histogram of one tensor into out (16 counts, then 16
+// energies): refine_range_kernel over range_parts' ranges into ``parts``
+// (spectral_hist_refine_parts_bytes()), then their total (all zero for
+// n_blocks = 0). The coarse bin: ``coarse_value`` when ``coarse`` is null,
+// else the int32 or int64 (``coarse_elem`` bytes) tensor at ``coarse``, one
+// value for all blocks (``coarse_stride`` 0) or one per block (1).
+// ``table`` is spectral_refine_table's. Refuses (cudaErrorInvalidValue) a
+// histogram of kMaxFlatCount elements or more, past which the exact u64
+// sums could carry out.
+int spectral_hist_refine(const float* y, const void* coarse, int coarse_elem,
+                         int coarse_stride, int coarse_value,
+                         const void* table, void* parts, float* out, int nb,
                          float bin_scale, void* stream) {
-  const int err = spectral_hist_refine_tiled(y, coarse, cnt_rows, eng_rows, nb,
-                                             bin_scale, stream);
-  if (err != 0) return err;
-  reduce_rows_kernel<kFine><<<1, kReduceThreads, 0, (cudaStream_t)stream>>>(
-      cnt_rows, eng_rows, nb > 0 ? nb / kTile : 0, cnt, eng);
+  if ((long long)nb * kBlock >= kMaxFlatCount) return (int)cudaErrorInvalidValue;
+  long per;
+  const int n_parts = range_parts(nb, per);
+  unsigned long long* part_c = static_cast<unsigned long long*>(parts);
+  unsigned long long* part_u = part_c + (size_t)kMaxParts * kFine;
+  double* part_d = reinterpret_cast<double*>(part_u + (size_t)kMaxParts * kFine);
+  const unsigned* t = static_cast<const unsigned*>(table);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n_parts > 0) {
+    const void* fns[2] = {(const void*)refine_range_kernel<true>,
+                          (const void*)refine_range_kernel<false>};
+    for (const void* fn : fns) {
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)kRingSmem);
+      cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
+                           cudaSharedmemCarveoutMaxShared);
+    }
+    if (coarse_stride)
+      refine_range_kernel<true><<<n_parts, kRangeThreads, kRingSmem, s>>>(
+          y, coarse, coarse_elem, coarse_value, t, part_c, part_u, part_d, nb,
+          per, bin_scale);
+    else
+      refine_range_kernel<false><<<n_parts, kRangeThreads, kRingSmem, s>>>(
+          y, coarse, coarse_elem, coarse_value, t, part_c, part_u, part_d, nb,
+          per, bin_scale);
+    const int err = (int)cudaGetLastError();
+    if (err != 0) return err;
+  }
+  refine_total_kernel<<<1, kFine * kTotalSlices, 0, s>>>(
+      part_c, part_u, part_d, n_parts, coarse, coarse_elem, coarse_value, out);
   return (int)cudaGetLastError();
 }
 

@@ -39,7 +39,9 @@ checkpoint's workers launch concurrently).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -172,14 +174,17 @@ _SIGNATURES = {name: (args, ctypes.c_int) for name, args in {
     "spectral_dct_hist_coarse_tiled": [_P, _P, _P, _P, _P, _I, _F, _P],
     "spectral_hist_refine_tiled": [_P, _P, _P, _P, _I, _F, _P],
     "spectral_dct_hist_coarse": [_P] * 6 + [_I, _F, _P],
-    "spectral_hist_refine": [_P] * 6 + [_I, _F, _P],
+    "spectral_hist_refine": [_P, _P, _I, _I, _I, _P, _P, _P, _I, _F, _P],
+    "spectral_refine_table": [_P, _F, _P],
+    "spectral_refine_table_check": [_P, _P, _F, _P],
     "spectral_dct_hist_tiled": [_P, _P, _P, _P, _P, _I, _F, _P],
     "spectral_dct_hist": [_P] * 6 + [_I, _F, _P],
     "spectral_threshold_quant": [_P, _P, _P, _P, _I, _P],
     "spectral_dequant_idct": [_P, _P, _P, _P, _I, _P],
 }.items()}
 _SIGNATURES.update({name: ([], ctypes.c_size_t) for name in (
-    "spectral_dct_hist_parts_bytes", "spectral_dct_hist_coarse_parts_bytes")})
+    "spectral_dct_hist_parts_bytes", "spectral_dct_hist_coarse_parts_bytes",
+    "spectral_hist_refine_parts_bytes")})
 
 
 def _lib() -> ctypes.CDLL:
@@ -326,33 +331,114 @@ def dct_hist_coarse(xb: torch.Tensor, *, tile: int | None = None):
     return y, out[0], out[1]
 
 
+def _coarse_arg(name: str, coarse, nb: int, device: torch.device):
+    """The kernel's view of a coarse bin for ``nb`` blocks on ``device``:
+    (tensor to keep alive until the launch, pointer or None, element
+    bytes, stride 0 or 1, value). A Python int or a value on the host is
+    passed by value; a 0-d or one-element CUDA tensor by pointer with
+    stride 0 (no copy, no read on the host); a per-block (nb,) int32 or
+    int64 tensor by pointer with stride 1 (a copy on the card of one
+    given on the host or in another dtype)."""
+    if not isinstance(coarse, torch.Tensor):
+        coarse = torch.as_tensor(coarse)
+    if coarse.numel() != 1 and tuple(coarse.shape) != (nb,):
+        raise ValueError(f"expected a scalar or ({nb},) per-block value, "
+                         f"got shape {tuple(coarse.shape)}")
+    if coarse.device.type == "cpu":
+        if coarse.numel() == 1:
+            return None, None, 0, 0, int(coarse.to(torch.int32))
+        coarse = coarse.to(device)
+    elif coarse.device != device:
+        raise ValueError(f"{name}: coarse on {coarse.device}, y on {device}")
+    if coarse.dtype not in (torch.int32, torch.int64):
+        coarse = coarse.to(torch.int32)
+    elem = coarse.element_size()
+    if coarse.numel() == 1:
+        return coarse, coarse.data_ptr(), elem, 0, 0
+    _need(name, coarse, "coarse", coarse.dtype, elem)
+    return coarse, coarse.data_ptr(), elem, 1, 0
+
+
+_TABLES: dict[torch.device, torch.Tensor] = {}
+
+
+def _refine_table(device: torch.device) -> torch.Tensor:
+    """The refine kernel's membership table on ``device`` (per coarse bin,
+    the least interval of |y| bit patterns holding all its members), made
+    once per process on the card by a scan of every non-negative f32
+    pattern with the kernel's own ``bin_index``, under the build lock. Its
+    scan is waited for before any stream may read it."""
+    table = _TABLES.get(device)
+    if table is None:
+        with _build.lock:
+            table = _TABLES.get(device)
+            if table is None:
+                table = torch.empty(2 * NBINS_COARSE, dtype=torch.int32,
+                                    device=device)
+                _launch("hist_refine", _lib().spectral_refine_table,
+                        table.data_ptr(), _BIN_SCALE)
+                torch.cuda.current_stream(device).synchronize()
+                _TABLES[device] = table
+    return table
+
+
+@functools.cache
+def _refine_floats() -> int:
+    """f32 words of ``hist_refine``'s one allocation: the 2 x 16 output,
+    then the kernel's partial rows."""
+    return 2 * NBINS_FINE + _lib().spectral_hist_refine_parts_bytes() // 4
+
+
+def refine_table_errors(device) -> int:
+    """How many of the 2^31 non-negative f32 bit patterns the refine
+    kernel's membership table on ``device`` decides differently from the
+    kernel's ``bin_index`` (0 for a right table; a check, not a launch of
+    ``hist_refine``)."""
+    device = torch.device(device)
+    with torch.cuda.device(device):
+        bad = torch.zeros(1, dtype=torch.int64, device=device)
+        _launch("refine_table_errors", _lib().spectral_refine_table_check,
+                _refine_table(device).data_ptr(), bad.data_ptr(), _BIN_SCALE)
+        return int(bad.item())
+
+
 def hist_refine(y: torch.Tensor, coarse, *, tile: int | None = None):
     """y: (n_blocks, 256), coarse: a scalar or per-block (n_blocks,) int32
     coarse bin -> (counts (16,), energies (16,)).
 
     Second pass of the single-tensor selector: ONE fine histogram of the
     16 fine bins inside each block's coarse bin; elements outside it add
-    exactly 0."""
+    exactly 0. On the card a Python int, a 0-d or a one-element tensor is
+    passed as it is (no per-block copy), and one allocation holds the
+    output and the kernel's partial rows (one per range, at most 264 of 16
+    bins); nothing on the card is read on the host."""
     tile = tile or HIST_TILE
     name = "hist_refine"
     _check_blocks(y, tile, name)
-    coarse = _per_block(coarse, y.shape[0], torch.int32, y.device)
-    if _device_of(name, y, coarse) == "cpu":
-        return hist_refine_plain(y, coarse, tile)
-    _kernel_tile(name, tile)
-    coarse = coarse.contiguous()
-    _need(name, y, "y", torch.float32)
-    _need(name, coarse, "coarse", torch.int32, 4)
     nb = y.shape[0]
-    rows = torch.empty((2, nb // tile, NBINS_FINE), dtype=torch.float32,
-                       device=y.device)
-    out = torch.empty((2, NBINS_FINE), dtype=torch.float32, device=y.device)
-    with torch.cuda.device(y.device):
-        _launch(name, _lib().spectral_hist_refine, y.data_ptr(),
-                coarse.data_ptr(), rows[0].data_ptr(), rows[1].data_ptr(),
-                out[0].data_ptr(), out[1].data_ptr(), nb, _BIN_SCALE)
+    if _device_of(name, y) == "cpu":
+        return hist_refine_plain(
+            y, _per_block(coarse, nb, torch.int32, y.device), tile)
+    _kernel_tile(name, tile)
+    _need(name, y, "y", torch.float32)
+    # ``keep`` holds a copy the kernel reads until after the launch, so
+    # that the allocation below cannot take its memory
+    keep, ptr, elem, stride, value = _coarse_arg(name, coarse, nb, y.device)
+    dev = y.device
+    switch = dev.index != torch.cuda.current_device()
+    with torch.cuda.device(dev) if switch else contextlib.nullcontext():
+        lib = _lib()
+        table = _refine_table(dev)
+        n = _refine_floats()
+        out = torch.empty(n, dtype=torch.float32, device=dev)
+        base = out.data_ptr()
+        _launch(name, lib.spectral_hist_refine, y.data_ptr(), ptr, elem,
+                stride, value, table.data_ptr(), base + 2 * NBINS_FINE * 4,
+                base, nb, _BIN_SCALE)
+        del keep
     _build.count_launch(hist_refine)
-    return out[0], out[1]
+    cnt, eng, _ = out.split((NBINS_FINE, NBINS_FINE, n - 2 * NBINS_FINE))
+    return cnt, eng
 
 
 def dct_hist_tiled(xb: torch.Tensor, *, tile: int | None = None):

@@ -19,7 +19,14 @@ Tolerances (f32 throughout, TF32 off for the plain product):
   plain version's arithmetic: |y| >= t, amax * f32(1/127), IEEE division,
   round half to even).
 * single-tensor histograms, on the kernel's own y: counts equal; energies
-  rtol 1e-5 (the tile rows as above, then summed in double).
+  rtol 1e-5 (``dct_hist_coarse``: the tile rows as above, then summed in
+  double; ``hist_refine``: with one coarse bin for all blocks, exact
+  integer units rounded once, flat bins 0 and 511 summed in double in a
+  fixed order; with a coarse bin per block, each run of one bin's exact
+  units turned into double and added in row order). ``hist_refine`` gives
+  the same bits on every call and on every stream, and its membership
+  table decides none of the 2^31 non-negative f32 patterns differently
+  from ``bin_index``.
   ``dct_hist_coarse`` against ``dct_hist_coarse_tiled`` on the same input:
   y bitwise, counts equal to its tile rows summed, energies rtol 1e-6 of
   them summed in f64 (the kernel adds the same f32 rows in double, in an
@@ -260,10 +267,41 @@ def test_dct_hist_coarse_single_matches_plain(cuda, nb, kind):
     torch.testing.assert_close(eng, eng_p, rtol=1e-5, atol=0.0)
 
 
+def _coarse_forms(busiest, per_block, cuda):
+    """The coarse bin as every caller may give it: a Python int, 0-d and
+    one-element tensors on the card (int64, as the selection returns it,
+    and int32) and on the host, and per-block int32 and int64 vectors."""
+    return {"int": busiest,
+            "0-d int64": torch.tensor(busiest, device=cuda),
+            "0-d int32": torch.tensor(busiest, dtype=torch.int32,
+                                      device=cuda),
+            "one element": torch.tensor([busiest], dtype=torch.int32,
+                                        device=cuda),
+            "0-d host": torch.tensor(busiest),
+            "per block int32": per_block,
+            "per block int64": per_block.long()}
+
+
+def _refine_matches_plain(y, forms):
+    nb = y.shape[0]
+    for label, c in forms.items():
+        K.reset_launches()
+        cnt, eng = K.hist_refine(y, c)
+        assert K.hist_refine.launches == 1
+        cnt_p, eng_p = K.hist_refine_plain(
+            y, K._per_block(c, nb, torch.int32, y.device))
+        assert cnt.shape == eng.shape == (ref.NBINS_FINE,), label
+        assert torch.equal(cnt, cnt_p), label
+        torch.testing.assert_close(eng, eng_p, rtol=1e-5, atol=0.0,
+                                   msg=label)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("nb", [8, 24, 1000, 1008])
+@pytest.mark.parametrize("nb", [8, 24, 72, 1000, 1008, 12960])
 @pytest.mark.parametrize("kind", KINDS)
 def test_hist_refine_single_matches_plain(cuda, nb, kind):
+    """Every form of the coarse bin; per block, half the blocks take the
+    busiest bin and half a random one (runs of one row)."""
     rng = np.random.default_rng(nb + 11)
     y = ref.dct_blocks(torch.from_numpy(_payload(rng, nb, kind)).to(cuda))
     _, coarse = _own_coarse(y)
@@ -271,13 +309,150 @@ def test_hist_refine_single_matches_plain(cuda, nb, kind):
     per_block = torch.from_numpy(rng.integers(0, 32, nb).astype(np.int32)
                                  ).to(cuda)
     per_block[::2] = busiest
-    for c in (busiest, per_block):
+    _refine_matches_plain(y, _coarse_forms(busiest, per_block, cuda))
+    # the coarse bin a real selection picks, as the codec passes it
+    _, ce = _own_coarse_hist(y)
+    _refine_matches_plain(y, {"selected": ref.select_coarse(ce, 1e-2)[1]})
+
+
+def _own_coarse_hist(y):
+    a, coarse = _own_coarse(y)
+    return K._sum_rows(*K._tile_sums(a * a, coarse, ref.NBINS_COARSE,
+                                     K.HIST_TILE))
+
+
+@pytest.mark.cuda
+def test_hist_refine_keeps_a_copied_coarse_alive(cuda):
+    """A per-block coarse bin given on the host or in another dtype is
+    copied to the card; at 25,376 blocks the int32 copy is as large as the
+    wrapper's one allocation (the output and 264 partial rows), so the
+    caching allocator would hand it over if the wrapper let it go before
+    the kernel read it."""
+    nb = 25376
+    rng = np.random.default_rng(nb)
+    y = ref.dct_blocks(torch.from_numpy(_payload(rng, nb, "normal")).to(cuda))
+    assert nb * 4 == 4 * 2 * ref.NBINS_FINE + \
+        K._lib().spectral_hist_refine_parts_bytes()
+    _, coarse = _own_coarse(y)
+    per_block = coarse.mode(dim=1).values.to(torch.int32)
+    for _ in range(3):
+        _refine_matches_plain(y, {"per block host": per_block.cpu(),
+                                  "per block int16": per_block.short()})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb", [8, 1008, 12960])
+def test_hist_refine_at_coarse_bins_0_and_31(cuda, nb):
+    """Values straight from ``_mixed`` (zeros, 1e-30, 1e15, 1e20 whose
+    squares overflow, Gaussians): coarse bin 0 holds flat bin 0 (zeros
+    and subnormal squares) and coarse bin 31 flat bin 511 (up to inf),
+    which the kernel sums in double in a fixed order; per block, runs of
+    bins 0 and 31 and others."""
+    rng = np.random.default_rng(nb + 12)
+    y = torch.from_numpy(_mixed(rng, nb)).to(cuda)
+    a, coarse = _own_coarse(y)
+    assert bool((coarse == 0).any() and (coarse == ref.NBINS_COARSE - 1).any())
+    per_block = torch.from_numpy(rng.choice([0, 31, 3, 30], nb).astype(
+        np.int32)).to(cuda)
+    per_block[: nb // 2] = 31
+    _refine_matches_plain(y, {"0": 0, "31": 31, "0-d 0": torch.tensor(
+        0, device=cuda), "0-d 31": torch.tensor(31, device=cuda),
+        "per block": per_block})
+    cnt, _ = K.hist_refine(y, 31)
+    assert int(cnt.sum()) == int((coarse == 31).sum())
+    # a bin no block holds, and bins outside 0..31: no members
+    for c in (-1, 32, 40):
         cnt, eng = K.hist_refine(y, c)
-        cnt_p, eng_p = K.hist_refine_plain(
-            y, K._per_block(c, nb, torch.int32, cuda))
-        assert cnt.shape == (ref.NBINS_FINE,)
-        assert torch.equal(cnt, cnt_p)
-        torch.testing.assert_close(eng, eng_p, rtol=1e-5, atol=0.0)
+        assert not cnt.any() and not eng.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb", [8, 1008, 12960, 110592])
+@pytest.mark.parametrize("kind", ["normal", "tiny", "cauchy"])
+def test_hist_refine_same_bits_every_call_and_stream(cuda, nb, kind):
+    """Five calls, then two at once from two worker threads on their own
+    streams: the same bits (every sum's order depends on n_blocks
+    alone)."""
+    rng = np.random.default_rng(nb + 13)
+    y = ref.dct_blocks(torch.from_numpy(_payload(rng, nb, kind)).to(cuda))
+    _, ce = _own_coarse_hist(y)
+    cc = ref.select_coarse(ce, 1e-2)[1]
+    per_block = torch.full((nb,), int(cc), dtype=torch.int32, device=cuda)
+    per_block[::5] = 3
+    for c in (cc, per_block):
+        bits = lambda: torch.cat(K.hist_refine(y, c)).view(torch.int32)  # noqa: E731
+        first = bits().clone()
+        for _ in range(4):
+            assert torch.equal(bits(), first)
+        outs = [None, None]
+        streams = [torch.cuda.Stream() for _ in outs]
+        for s in streams:
+            s.wait_stream(torch.cuda.current_stream())
+
+        def work(i):
+            with torch.cuda.stream(streams[i]):
+                outs[i] = bits().clone()
+            streams[i].synchronize()
+
+        threads = [threading.Thread(target=work, args=(i,)) for i in (0, 1)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        assert all(torch.equal(o, first) for o in outs)
+
+
+@pytest.mark.cuda
+def test_refine_membership_table_is_exact(cuda):
+    """All 2^31 non-negative f32 bit patterns: the table's intervals put
+    none outside the interval of its own coarse bin (bin_index decides
+    inside), and the intervals of coarse bins 1..31 come in bin order."""
+    assert K.refine_table_errors(cuda) == 0
+    table = (K._refine_table(cuda).cpu().long() & 0xFFFFFFFF).view(2, -1)
+    lo, hi = table[0], table[1]
+    assert lo[0] == 0 and hi[0] == 1 << 31           # NaNs are bin 0's
+    assert bool((lo[1:] < hi[1:]).all())
+    assert bool((lo[2:] > lo[1:-1]).all()) and hi[-1] == 0x7F800001
+
+
+@pytest.mark.cuda
+def test_hist_refine_allocates_no_tile_rows(cuda):
+    """The caching allocator's peak grows by one block for the output and
+    the partial rows (at most 264 of 16 bins), and by no per-block copy of
+    the coarse bin or per-tile rows (1.3 MB and 0.4 MB here)."""
+    nb = 40000
+    y = torch.from_numpy(_payload(np.random.default_rng(7), nb, "normal")
+                         ).to(cuda)
+    cc = torch.tensor(12, device=cuda)
+    K.hist_refine(y, cc)                 # the library and table are made once
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = K.hist_refine(y, cc)
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated() - base
+    parts = K._lib().spectral_hist_refine_parts_bytes()
+    assert parts <= 264 * ref.NBINS_FINE * 24
+    assert grown <= _allocated(parts + 2 * ref.NBINS_FINE * 4), grown
+    del out
+
+
+@pytest.mark.cuda
+def test_hist_refine_at_zero_blocks_and_its_refusals(cuda):
+    empty = torch.zeros((0, ref.BLOCK), device=cuda)
+    for c in (3, torch.tensor(3, device=cuda),
+              torch.zeros(0, dtype=torch.int32, device=cuda)):
+        cnt, eng = K.hist_refine(empty, c)
+        assert cnt.shape == eng.shape == (ref.NBINS_FINE,)
+        assert not cnt.any() and not eng.any()
+    y = torch.zeros((16, ref.BLOCK), device=cuda)
+    with pytest.raises(ValueError, match="per-block"):
+        K.hist_refine(y, torch.zeros(15, dtype=torch.int32, device=cuda))
+    with pytest.raises(TypeError, match="dtype"):
+        K.hist_refine(y.double(), 3)
+    with pytest.raises(ValueError, match="tile"):
+        K.hist_refine(y, 3, tile=16)
 
 
 @pytest.mark.cuda
