@@ -93,38 +93,50 @@ Phases (any failure exits non-zero; none is swallowed):
 7. serve   — the port's ``serve_loop("smollm-135m", smoke=False)``: full
    published widths (30 layers, d_model 576, 9 query / 3 KV heads, d_ff
    1536, vocab 49152), bf16 random weights from seed 0, 16 requests of 32
-   new tokens over a 17-page pool (requests queue on pages), with the
-   default async ``serve_snapshot`` plan persisting its chain under
-   ``build/``. Asserts: all served, pool empty at exit, snapshots
-   published, the chain restores bit-identically to what was emitted at
-   its step, and the kernel ran once per layer per decode step. Then one
-   full-width decode step runs twice from the same state — through the
+   new tokens over a 17-page pool (requests queue on pages). The same
+   traffic runs four times: with no in-situ task and with the default
+   async ``serve_snapshot`` plan (persisting its chain under ``build/``),
+   each once stepping eagerly (``cuda_graph=False``) and once replaying
+   the decode step's CUDA graph (the default); tok/s of all four are
+   printed. Asserts: the four runs decode the same token streams; all
+   served, pool empty at exit, snapshots published, each chain restores
+   bit-identically to what was emitted at its step, and in the graphed
+   run with snapshots the kernel ran once per layer per decode step
+   (launches counted under replay). Then a graphed and an eager engine
+   step 8 times from one state and their logits must be the same bits;
+   one full-width decode step runs twice from one state — through the
    kernel and through the plain version — and the logits are compared
    (atol 0.125: a few bf16 steps of attention difference carried through
-   30 layers; logits are O(1)), and ten decode steps are profiled: host
-   wall per step, device busy time and idle share, the busiest device ops.
+   30 layers; logits are O(1)); and ten decode steps of each engine are
+   profiled: host wall per step, aten ops, device busy time and idle
+   share, the busiest device ops.
 
 8. train   — the port's ``train_loop("smollm-135m", smoke=False)``:
    full published widths, batch 4 x 4096 tokens (``train_4k``'s length,
    its global batch of 256 cut to 4 for one card), bf16 state from seed
-   0, HYBRID placement. First 20 steps with no checkpoint task bound (what
-   the in-situ work costs), then 20 steps with a checkpoint every 5 steps
+   0, each step a replay of the captured train step (the default). First
+   the bare loop (no in-situ task), 5 steps from seed 0, eagerly twice
+   and graphed once: the graphed losses must be bitwise the eager ones if
+   the two eager runs are bitwise equal, else within their spread. Then,
+   in HYBRID placement, 20 steps with no checkpoint task bound (what the
+   in-situ work costs), then 20 steps with a checkpoint every 5 steps
    under ``build/`` (launch counts are set to 0 just before and read just
    after: kernels 2-4 once per save), then a direct restore of the newest
    step (kernel 5 once per lossy leaf) whose params must equal bitwise
    the state emitted at that step and whose moments must be within
    ``error_bound(eps)`` relative L2 per leaf, then a second run that
-   resumes from it. Also: one train step's device profile and the device
-   stage alone on the trained state.
-9. train (sync/async ckpt) — the same loop, 10 steps with a checkpoint
-   every 5 steps (saves at 0 and 5) in SYNC and then in ASYNC placement:
-   the lossy stage runs per leaf on the checkpoint's workers through the
-   single-tensor kernels. Launch counts are set to 0 just before each run
-   and read just after: 22 each of ``dct_hist_coarse``, ``hist_refine``
-   and ``threshold_quant`` per save, none of the tiled pair. Then a
-   restore of step 5 (params bitwise as emitted, moments within
-   ``error_bound(eps)``). Printed beside the HYBRID run's numbers: step
-   time, the checkpoint's loop-blocking seconds, its worker seconds,
+   resumes from it. Also: the device stage alone on the trained state,
+   and one train step's device profile, eager and replayed, each with
+   its peak memory (and what the graph's pool keeps).
+9. train (sync/async ckpt) — the same graphed loop, 10 steps with a
+   checkpoint every 5 steps (saves at 0 and 5) in SYNC and then in ASYNC
+   placement: the lossy stage runs per leaf on the checkpoint's workers
+   through the single-tensor kernels. Launch counts are set to 0 just
+   before each run and read just after: 22 each of ``dct_hist_coarse``,
+   ``hist_refine`` and ``threshold_quant`` per save, none of the tiled
+   pair. Then a restore of step 5 (params bitwise as emitted, moments
+   within ``error_bound(eps)``). Printed beside the HYBRID run's numbers:
+   step time, the checkpoint's loop-blocking seconds, its worker seconds,
    raw/stored bytes and the restore time; the p_o/p_i allocator's choice
    from the measured SYNC and ASYNC save costs.
 
@@ -205,6 +217,19 @@ def device_profile(fn, n: int) -> dict:
             "per_launch_ms": {k: ms * n / launches[k]
                               for k, ms in ops.items()},
             "launches": launches}
+
+
+def host_wall_ms(fn, n: int) -> float:
+    """Host wall ms per call of ``fn`` over n calls, without the profiler
+    (whose tracing of each kernel of a graph replay inflates the wall)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
 
 
 def kernel_device_ms(fn, syms, n: int = 3) -> tuple[float | None, dict]:
@@ -1080,6 +1105,11 @@ def roofline_phase(serve_table_width: int) -> dict:
 # serve phase
 # ---------------------------------------------------------------------------
 
+def _serve_wall_s(run: dict) -> float:
+    """The serve loop's wall seconds (its tokens over its tok/s)."""
+    return sum(len(r.out) for r in run["requests"]) / run["tok_per_s"]
+
+
 def serve_phase(chain_dir: Path) -> dict:
     import numpy as np
     import torch
@@ -1096,22 +1126,26 @@ def serve_phase(chain_dir: Path) -> dict:
     from repro_torch.serving.pages import PagedServingEngine, make_paged_decode
 
     cfg = configs.get("smollm-135m")
-    if chain_dir.exists():
-        shutil.rmtree(chain_dir)
-    # the default plan, persisted on disk, plus a probe on the same stream
-    # that keeps what was emitted at each firing (to check the restore);
-    # the probe runs SYNC, a D2H copy on the loop every 4 steps, so that it
-    # never holds ring slots the snapshot task competes for
-    emitted: dict[int, dict] = {}
-    base = InSituPlan.from_dict(
-        default_serve_plan(snapshot_dir=str(chain_dir)))
-    probe = TaskSpec(name="probe", stream="kv_pages", trigger=Every(4),
-                     placement=Placement.SYNC,
-                     sink=lambda step, p: emitted.__setitem__(
-                         step, S._flatten(p["cache"])))
-    plan = InSituPlan(streams=base.streams, tasks=[*base.tasks, probe],
-                      workers=base.workers,
-                      staging_capacity=base.staging_capacity)
+    eager_dir = chain_dir.with_name(chain_dir.name + "_eager")
+    for d in (chain_dir, eager_dir):
+        if d.exists():
+            shutil.rmtree(d)
+
+    def snapshot_plan(directory: Path, emitted: dict) -> InSituPlan:
+        # the default plan, persisted on disk, plus a probe on the same
+        # stream that keeps what was emitted at each firing (to check the
+        # restore); the probe runs SYNC, a D2H copy on the loop every 4
+        # steps, so that it never holds ring slots the snapshot task
+        # competes for
+        base = InSituPlan.from_dict(
+            default_serve_plan(snapshot_dir=str(directory)))
+        probe = TaskSpec(name="probe", stream="kv_pages", trigger=Every(4),
+                         placement=Placement.SYNC,
+                         sink=lambda step, p: emitted.__setitem__(
+                             step, S._flatten(p["cache"])))
+        return InSituPlan(streams=base.streams, tasks=[*base.tasks, probe],
+                          workers=base.workers,
+                          staging_capacity=base.staging_capacity)
 
     lines: list[str] = []
 
@@ -1119,21 +1153,53 @@ def serve_phase(chain_dir: Path) -> dict:
         lines.append(msg)
         log(f"serve: {msg}")
 
-    # first the same traffic with no in-situ task bound (what the
-    # snapshots cost; it also warms the full-width shapes up)
-    bare = serve_loop("smollm-135m", smoke=False, device="cuda", seed=0,
-                      plan={"streams": ["kv_pages"]}, log=lambda _: None,
-                      **SERVE)
-    assert all(r.done for r in bare["requests"])
-    log(f"serve: without in-situ tasks: {bare['tok_per_s']:.1f} tok/s")
+    # the same traffic four times: with no in-situ task bound (what the
+    # snapshots cost; the first run also warms the full-width shapes up)
+    # and with the snapshot plan, each stepping eagerly and replaying the
+    # captured decode graph; all four must decode the same tokens
+    runs = {}
+    for graph in (False, True):
+        runs["bare", graph] = serve_loop(
+            "smollm-135m", smoke=False, device="cuda", seed=0,
+            plan={"streams": ["kv_pages"]}, log=lambda _: None,
+            cuda_graph=graph, **SERVE)
+        assert all(r.done for r in runs["bare", graph]["requests"])
+    emitted_eager: dict[int, dict] = {}
+    runs["plan", False] = serve_loop(
+        "smollm-135m", smoke=False, device="cuda", seed=0,
+        plan=snapshot_plan(eager_dir, emitted_eager), cuda_graph=False,
+        log=lambda m: log(f"serve (eager): {m}"), **SERVE)
+    bare = runs["bare", True]
 
+    emitted: dict[int, dict] = {}
     PK.paged_decode_attention.launches = 0
     t0 = time.perf_counter()
-    out = serve_loop("smollm-135m", smoke=False, device="cuda", plan=plan,
-                     seed=0, log=serve_log, **SERVE)
+    out = serve_loop("smollm-135m", smoke=False, device="cuda",
+                     plan=snapshot_plan(chain_dir, emitted), seed=0,
+                     log=serve_log, **SERVE)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = PK.paged_decode_attention.launches
+    runs["plan", True] = out
+    tok_s = {f"{'graph' if g else 'eager'}_{k}": r["tok_per_s"]
+             for (k, g), r in runs.items()}
+    log(f"serve: tok/s {tok_s}")
+    for (k, g), r in runs.items():
+        rep = r["session_report"]
+        log(f"serve: {'graph' if g else 'eager'}_{k}: wall "
+            f"{_serve_wall_s(r):.3f} s = admissions "
+            f"{r['telemetry'].total('serve/admit'):.3f} + decode "
+            f"steps {rep['step_compute_s']:.3f} + hand-off dispatch "
+            f"{rep['handoff_dispatch_s']:.3f} + sync stall "
+            f"{rep['sync_stall_s']:.3f} + the rest")
+    streams = {key: [r.out for r in run["requests"]]
+               for key, run in runs.items()}
+    for key, got in streams.items():
+        assert got == streams["plan", True], (
+            f"serve run {key} decoded other tokens than the graphed run "
+            f"with snapshots")
+    log(f"serve: the four runs decode the same {SERVE['n_requests']} token "
+        f"streams ({sum(map(len, streams['plan', True]))} tokens)")
 
     reqs = out["requests"]
     decode_steps = len(out["telemetry"].spans("step/compute"))
@@ -1153,31 +1219,44 @@ def serve_phase(chain_dir: Path) -> dict:
         f"kernel launches {launches} != {decode_steps} decode steps x "
         f"{cfg.n_layers} layers")
 
-    store = S.SnapshotStore(str(chain_dir))
-    step, leaves = store.restore("kv_pages")
-    want = emitted[step]
-    assert list(leaves) == list(want), "restored leaf keys differ"
-    for key, arr in leaves.items():
-        assert arr.shape == want[key].shape, key
-        if not np.array_equal(arr.reshape(-1).view(np.uint8),
-                              want[key].reshape(-1).view(np.uint8)):
-            raise AssertionError(f"restored leaf {key} differs at step {step}")
-    log(f"serve: chain restores bit-identically to the payload emitted at "
-        f"step {step} ({len(leaves)} leaves, "
-        f"{sum(a.nbytes for a in leaves.values())} bytes)")
+    for directory, kept in ((chain_dir, emitted), (eager_dir, emitted_eager)):
+        store = S.SnapshotStore(str(directory))
+        step, leaves = store.restore("kv_pages")
+        want = kept[step]
+        assert list(leaves) == list(want), "restored leaf keys differ"
+        for key, arr in leaves.items():
+            assert arr.shape == want[key].shape, key
+            if not np.array_equal(arr.reshape(-1).view(np.uint8),
+                                  want[key].reshape(-1).view(np.uint8)):
+                raise AssertionError(f"{directory.name}: restored leaf {key} "
+                                     f"differs at step {step}")
+        log(f"serve: {directory.name} restores bit-identically to the "
+            f"payload emitted at step {step} ({len(leaves)} leaves, "
+            f"{sum(a.nbytes for a in leaves.values())} bytes)")
 
-    # one full-width decode step from one state, kernel vs plain version
+    # a graphed engine and an eager one from one state: 8 full-width
+    # steps whose logits must be the same bits
     params = P.materialize(torch.Generator().manual_seed(0),
                            transformer.param_spec(cfg), "cuda")
-    eng = PagedServingEngine(cfg, params, num_pages=33, page_size=16,
-                             max_reqs=8, prompt_len=16, max_len=64,
-                             device="cuda")
-    rng = np.random.default_rng(5)
-    for i in range(8):
-        assert eng.admit(Request(i, rng.integers(0, cfg.vocab_size, 16),
-                                 max_new=32))
-    for _ in range(7):
+    engines = {}
+    for graph in (True, False):
+        e = engines[graph] = PagedServingEngine(
+            cfg, params, num_pages=33, page_size=16, max_reqs=8,
+            prompt_len=16, max_len=64, device="cuda", cuda_graph=graph)
+        rng = np.random.default_rng(5)
+        for i in range(8):
+            assert e.admit(Request(i, rng.integers(0, cfg.vocab_size, 16),
+                                   max_new=32))
+    eng, eng_eager = engines[True], engines[False]
+    for _ in range(8):
         eng.step()
+        eng_eager.step()
+        if not torch.equal(eng.logits, eng_eager.logits):
+            raise AssertionError("graphed and eager decode logits differ")
+    log("serve: 8 full-width decode steps (8 rows), graph replay and eager "
+        "step: logits bitwise equal")
+
+    # one full-width decode step from one state, kernel vs plain version
 
     def one_step(decode):
         pool = tree_map(lambda t: t.clone(), eng.pool)
@@ -1199,19 +1278,31 @@ def serve_phase(chain_dir: Path) -> dict:
         f"argmax agreement {agree.item():.3f}")
 
     # where a full-width decode step's time goes (8 active rows, no
-    # in-situ work): host wall per step against device busy time
-    decode = device_profile(eng.step, 10)
-    log(f"serve: decode step (8 rows, full width): {decode['wall_ms']:.2f} "
-        f"ms wall, {decode['host_aten_ops']:.0f} aten ops on the host, "
-        f"device busy {decode['device_busy_ms']} ms, idle share "
-        f"{decode['device_idle_share']}")
-    for op, ms in decode["top"]:
-        log(f"serve:   {ms * 1e3:9.1f} us/step  {op[:90]}")
-    decode["paged_launches_recorded"] = sum(
-        c for op, c in decode["launches"].items()
-        if "paged_decode_kernel" in op)
-    log(f"serve: the profiler recorded {decode['paged_launches_recorded']} "
-        f"paged-attention launches of the {10 * cfg.n_layers} that ran")
+    # in-situ work): host wall per step against device busy time, graph
+    # replay beside the eager step
+    profiles = {}
+    for name, e in (("graph", eng), ("eager", eng_eager)):
+        decode = profiles[name] = device_profile(e.step, 10)
+        decode["wall_ms_unprofiled"] = host_wall_ms(e.step, 10)
+        decode["device_idle_share_unprofiled"] = (
+            1 - decode["device_busy_ms"] / decode["wall_ms_unprofiled"])
+        log(f"serve: decode step ({name}, 8 rows, full width): "
+            f"{decode['wall_ms']:.2f} ms wall under the profiler, "
+            f"{decode['wall_ms_unprofiled']:.3f} without, "
+            f"{decode['host_aten_ops']:.0f} aten ops on the host, device "
+            f"busy {decode['device_busy_ms']} ms, idle share "
+            f"{decode['device_idle_share']} "
+            f"({decode['device_idle_share_unprofiled']} of the wall "
+            f"without the profiler)")
+        for op, ms in decode["top"]:
+            log(f"serve:   {ms * 1e3:9.1f} us/step  {op[:90]}")
+        decode["paged_launches_recorded"] = sum(
+            c for op, c in decode["launches"].items()
+            if "paged_decode_kernel" in op)
+        log(f"serve: the profiler recorded "
+            f"{decode['paged_launches_recorded']} paged-attention launches "
+            f"of the {10 * cfg.n_layers} that ran")
+    decode = profiles["graph"]
     loop = {k: rep[k] for k in ("step_compute_s", "handoff_dispatch_s",
                                 "handoff_materialize_s", "sync_stall_s",
                                 "staging_backpressure_s",
@@ -1219,9 +1310,19 @@ def serve_phase(chain_dir: Path) -> dict:
 
     return {"tok_per_s": out["tok_per_s"], "wall_s": wall,
             "tok_per_s_without_insitu": bare["tok_per_s"],
+            "tok_per_s_by_run": tok_s,
             "step_compute_s_without_insitu":
                 bare["session_report"]["step_compute_s"],
+            "loop_by_run": {
+                f"{'graph' if g else 'eager'}_{k}": {
+                    "wall_s": _serve_wall_s(r),
+                    "admit_s": r["telemetry"].total("serve/admit"),
+                    **{m: r["session_report"][m] for m in (
+                        "step_compute_s", "handoff_dispatch_s",
+                        "sync_stall_s")}}
+                for (k, g), r in runs.items()},
             "loop": loop, "decode_profile": decode,
+            "decode_profile_eager": profiles["eager"],
             "requests": served, "decode_steps": decode_steps,
             "launches": launches, "snapshots": snap["publishes"],
             "snapshot_drops": rep["drops"].get("kv_snapshot", 0),
@@ -1269,6 +1370,38 @@ def train_phase(ckpt_dir: Path) -> dict:
     n_saves = (steps - 1) // every + 1
     _, sizes, rows = moment_rows(cfg)
     n_lossy = len(rows)
+
+    # 0. the bare loop (no in-situ task) from seed 0, 5 steps: eager twice
+    #    and graphed once; the graphed losses are bitwise the eager ones
+    #    where two eager runs are, else within their spread
+    short = {}
+    for name, graph in (("eager", False), ("eager_again", False),
+                        ("graph", True)):
+        run = T.train_loop("smollm-135m", smoke=False, steps=5,
+                           plan={"streams": ["grads", "train_state"]},
+                           device="cuda", seed=0, cuda_graph=graph,
+                           log=lambda m: None)
+        short[name] = run["losses"]
+        assert np.isfinite(run["losses"]).all(), (name, run["losses"])
+        short[f"{name}_step_median_s"] = statistics.median(
+            sp.dt for sp in run["telemetry"].spans("step/compute"))
+    eager_spread = max(abs(a - b) for a, b in zip(short["eager"],
+                                                  short["eager_again"]))
+    graph_off = max(abs(a - b) for a, b in zip(short["eager"],
+                                                short["graph"]))
+    short["eager_bitwise"] = short["eager"] == short["eager_again"]
+    if short["eager_bitwise"]:
+        assert short["graph"] == short["eager"], short
+    else:
+        assert graph_off <= eager_spread, short
+    short.update(eager_spread=eager_spread, graph_off=graph_off)
+    log(f"train: 5 bare steps from seed 0, losses eager {short['eager']}, "
+        f"eager again {short['eager_again']}, graphed {short['graph']}: "
+        f"eager runs {'bitwise equal' if short['eager_bitwise'] else 'apart'}"
+        f" (max |dloss| {eager_spread}), graph vs eager max |dloss| "
+        f"{graph_off}; median step s eager "
+        f"{short['eager_step_median_s']:.4f} / graphed "
+        f"{short['graph_step_median_s']:.4f}")
 
     # 1. the same steps with no checkpoint task bound (analytics only)
     t0 = time.perf_counter()
@@ -1374,22 +1507,42 @@ def train_phase(ckpt_dir: Path) -> dict:
     assert resume_launches["dequant_idct"] == n_lossy, resume_launches
     log(f"train: resumed from step {newest}; losses {res['losses']}")
 
-    # 6. one full-width train step's device profile (no in-situ work)
+    # 6. one full-width train step's device profile (no in-situ work),
+    #    eager and replayed from its CUDA graph, with peak memory
     state = T.init_state(cfg, 0, T.StepConfig().opt, device="cuda")
     step_fn = T.make_train_step(cfg, T.StepConfig())
     spec = batch_spec_for(cfg, T.FULL_SHAPE)
-    batch = {k: torch.from_numpy(v).cuda()
-             for k, v in synth_batch(spec, 0).items()}
+    host_batch = synth_batch(spec, 0)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in host_batch.items()}
     step_fn(state, batch)
     torch.cuda.reset_peak_memory_stats()
     prof = device_profile(lambda: step_fn(state, batch), 2)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    log(f"train: step (4 x 4096 tokens, full width): {prof['wall_ms']:.1f} "
-        f"ms wall, {prof['host_aten_ops']:.0f} aten ops, device busy "
-        f"{prof['device_busy_ms']} ms, idle share "
-        f"{prof['device_idle_share']}, peak memory {peak_gb:.1f} GB")
-    for op, ms in prof["top"]:
-        log(f"train:   {ms:9.2f} ms/step  {op[:90]}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    graph_step = T.graph_train_step(cfg, T.StepConfig(), state, batch)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    graph_step(host_batch)
+    prof_graph = device_profile(lambda: graph_step(host_batch), 2)
+    peak_graph_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()            # keeps only the live graph's pool
+    held_gb = (torch.cuda.memory_reserved() - before) / 1e9
+    for name, pr, peak in (("eager", prof, peak_gb),
+                           ("graph", prof_graph, peak_graph_gb)):
+        log(f"train: step ({name}, 4 x 4096 tokens, full width): "
+            f"{pr['wall_ms']:.1f} ms wall, {pr['host_aten_ops']:.0f} aten "
+            f"ops, device busy {pr['device_busy_ms']} ms, idle share "
+            f"{pr['device_idle_share']}, peak memory {peak:.2f} GB")
+        for op, ms in pr["top"]:
+            log(f"train:   {ms:9.2f} ms/step  {op[:90]}")
+    log(f"train: capture (2 warm-up steps + capture) {capture_s:.2f} s; the "
+        f"graph's pool holds {held_gb:.2f} GB for the loop's life")
+    del graph_step
 
     with_ckpt = _per_step(rep, steps, out["telemetry"])
     without = _per_step(bare_rep, steps, bare["telemetry"])
@@ -1414,7 +1567,10 @@ def train_phase(ckpt_dir: Path) -> dict:
         "save_launches": save_launches, "restore_launches": restore_launches,
         "resume_launches": resume_launches, "restore_s": restore_s,
         "moments_worst_rel_l2": worst, "step_profile": prof,
-        "peak_memory_gb": peak_gb,
+        "peak_memory_gb": peak_gb, "step_profile_graph": prof_graph,
+        "peak_memory_gb_graph": peak_graph_gb,
+        "graph_pool_reserved_gb": held_gb, "graph_capture_s": capture_s,
+        "bare_5_steps": short,
     }
     log(f"train: step {without['step_s'] * 1e3:.1f} ms without the "
         f"checkpoint task, {with_ckpt['step_s'] * 1e3:.1f} ms with it (median "
@@ -1589,6 +1745,55 @@ def placements_phase(ckpt_root: Path, hybrid: dict) -> dict:
                         "predicted_total_s": choice.predicted_total_s,
                         "detail": choice.detail}
     log(f"allocator (p_total {p_total}): {out['allocator']}")
+
+    # the same placements stepping eagerly, 10 steps with a checkpoint
+    # every 5: what the graph changed in each, within this run; the
+    # losses are the graphed runs' (bitwise where two eager runs are,
+    # else within their spread)
+    spread = hybrid["bare_5_steps"]
+    graphed = {"hybrid": hybrid["losses"], "sync": sync["losses"],
+               "async": asyn["losses"]}
+    out["eager"] = {}
+    for mode in ("hybrid", "sync", "async"):
+        ckpt_dir = ckpt_root / f"eager_{mode}"
+        if ckpt_dir.exists():
+            shutil.rmtree(ckpt_dir)
+        t0 = time.perf_counter()
+        run = T.train_loop("smollm-135m", smoke=False, steps=steps,
+                           insitu_mode=mode, ckpt_dir=str(ckpt_dir),
+                           ckpt_every=every, device="cuda", seed=0,
+                           cuda_graph=False, log=lambda m: None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rep = run["session_report"]
+        assert rep["n_errors"] == 0, rep["errors"]
+        assert rep["checkpoint"]["saves"] == n_saves, rep["checkpoint"]
+        want = graphed[mode][:steps]
+        off = max(abs(a - b) for a, b in zip(run["losses"], want))
+        if spread["eager_bitwise"]:
+            assert run["losses"] == want, (mode, run["losses"], want)
+        else:
+            assert off <= spread["eager_spread"], (mode, run["losses"], want)
+        tm = run["telemetry"]
+        loop = _per_step(rep, steps, tm)
+        blocking = _ckpt_blocking_s(tm)
+        out["eager"][mode] = {
+            "losses": run["losses"], "wall_s": wall,
+            "step_median_s": loop["step_median_s"], "loop": loop,
+            "ckpt_blocking_s_per_save": blocking / n_saves,
+            "ckpt_worker_s": tm.total("insitu-async/checkpoint"),
+            "graph_loss_max_abs_diff": off}
+    eager = out["eager"]
+    log(f"train placements, eager (ckpt every {every} of {steps} steps): "
+        f"median step s hybrid {eager['hybrid']['step_median_s']:.4f} / "
+        f"sync {eager['sync']['step_median_s']:.4f} / async "
+        f"{eager['async']['step_median_s']:.4f}; loop-blocking s per save "
+        f"hybrid {eager['hybrid']['ckpt_blocking_s_per_save']:.4f} / sync "
+        f"{eager['sync']['ckpt_blocking_s_per_save']:.4f} / async "
+        f"{eager['async']['ckpt_blocking_s_per_save']:.4f}; worker s async "
+        f"{eager['async']['ckpt_worker_s']:.3f}; losses equal to the "
+        f"graphed runs' (max |dloss| "
+        f"{max(e['graph_loss_max_abs_diff'] for e in eager.values())})")
     return out
 
 

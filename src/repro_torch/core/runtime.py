@@ -220,6 +220,11 @@ def _start_d2h(payload: Any, snapshot: bool = False) -> Any:
     that write. ``record_stream`` on the clone keeps the caching allocator
     from handing its memory out again before the side stream's copy is
     done. For a CPU leaf the clone is the whole transfer.
+
+    Without ``snapshot`` the copy reads the caller's live tensor, so the
+    current stream waits for the copy before its next work: a replayed
+    CUDA graph rewrites its static tensors in place, and no later step may
+    race a copy still reading them (the host never waits).
     """
     def start(x: Any) -> Any:
         if not isinstance(x, torch.Tensor):
@@ -227,11 +232,14 @@ def _start_d2h(payload: Any, snapshot: bool = False) -> Any:
         if x.device.type != "cuda":
             return x.clone() if snapshot else x
         src = x.clone() if snapshot else x
+        loop = torch.cuda.current_stream(x.device)
         side = torch.cuda.Stream(device=x.device)
-        side.wait_stream(torch.cuda.current_stream(x.device))
+        side.wait_stream(loop)
         with torch.cuda.stream(side):
             copy = host.HostCopy(src)
         src.record_stream(side)
+        if not snapshot:
+            loop.wait_stream(side)
         return copy
 
     return pytree.tree_map(start, payload)
@@ -310,9 +318,9 @@ class PipelineTask:
                       kept for benchmark baselines and host-driven sources).
     ``snapshot``      device-side ``clone`` of tensor leaves at dispatch
                       (default): makes the deferred token immune to the
-                      app's in-place updates at its next step. Disable only
-                      when the producer guarantees its tensors are not
-                      written before the token materializes.
+                      app's in-place updates at its next step. Without it
+                      the app's stream waits (on the device) for each copy
+                      of a live CUDA tensor before its next work.
     ``shards``        split each firing into N independent sub-items
                       (models the paper's internally-parallel in-situ tasks).
     ``backpressure``  ring-full policy: 'block' | 'drop' | 'adapt'.

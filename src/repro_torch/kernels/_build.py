@@ -17,9 +17,16 @@ restore workers), so building, loading and counting launches are each
 safe to call from any thread: one process-wide lock serialises builds and
 loads, every compile writes its own temporary file, and
 :func:`count_launch` bumps a wrapper's ``launches`` under a lock.
+
+A wrapper counts on the host, once per call, so a kernel captured in a
+CUDA graph is counted once at its capture and not at all when the graph
+replays. :func:`held_launches` takes the counts of a warm-up and a
+capture off again, and :func:`replay` adds the capture's back once for
+every replay: the counts then say how often each kernel ran.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -61,6 +68,7 @@ def target(name: str) -> Path:
 lock = threading.RLock()
 _libs: dict[str, ctypes.CDLL] = {}
 _count_lock = threading.Lock()
+_held = threading.local()          # .ticks: the open held_launches dict
 
 
 def build(names: list[str]) -> dict[str, float]:
@@ -123,3 +131,38 @@ def count_launch(wrapper) -> None:
     wrapper launches its kernel, and nowhere else)."""
     with _count_lock:
         wrapper.launches += 1
+        ticks = getattr(_held, "ticks", None)
+        if ticks is not None:
+            ticks[wrapper] = ticks.get(wrapper, 0) + 1
+
+
+@contextlib.contextmanager
+def held_launches():
+    """Hold back the launches counted on this thread inside the block.
+
+    Yields a dict ``{wrapper: launches}`` that fills as wrappers count;
+    at the end of the block those launches are taken off the wrappers'
+    counts again. Other threads' launches count as always. A graph's
+    warm-up runs inside one such block (its counts are dropped) and its
+    capture inside another (whose dict :func:`replay` adds back once per
+    replay). Blocks do not nest."""
+    if getattr(_held, "ticks", None) is not None:
+        raise RuntimeError("held_launches blocks do not nest")
+    ticks: dict = {}
+    _held.ticks = ticks
+    try:
+        yield ticks
+    finally:
+        _held.ticks = None
+        with _count_lock:
+            for wrapper, n in ticks.items():
+                wrapper.launches -= n
+
+
+def replay(graph, ticks: dict) -> None:
+    """Replay a captured graph (anything with ``replay()``) and add the
+    launches its capture held back (:func:`held_launches`) once."""
+    graph.replay()
+    with _count_lock:
+        for wrapper, n in ticks.items():
+            wrapper.launches += n

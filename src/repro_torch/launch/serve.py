@@ -66,7 +66,7 @@ def serve_loop(arch: str, *, n_requests: int = 8, max_new: int = 8,
                engine_kind: str = "paged", num_pages: int = 17,
                page_size: int = 16, prefix_len: int = 0, log=print,
                device: str | torch.device = "cuda",
-               smoke: bool = True) -> dict:
+               smoke: bool = True, cuda_graph: bool = True) -> dict:
     """Serve ``n_requests`` with the in-situ plan attached.
 
     ``prefix_len > 0`` gives every request a common ``prefix_len``-token
@@ -74,6 +74,9 @@ def serve_loop(arch: str, *, n_requests: int = 8, max_new: int = 8,
     the shared chain copy-on-write and prefill only their own suffix.
     ``device`` defaults to the card and raises when CUDA is missing;
     ``smoke`` picks the reduced config (True) or the published widths.
+    On CUDA each decode step replays a CUDA graph of the step, captured
+    as the engine is built; ``cuda_graph=False`` steps eagerly (the CPU
+    always does).
     """
     dev = resolve_device(device)
     if engine_kind == "dense":
@@ -94,7 +97,7 @@ def serve_loop(arch: str, *, n_requests: int = 8, max_new: int = 8,
     engine = PagedServingEngine(cfg, params, num_pages=num_pages,
                                 page_size=page_size, max_reqs=2 * slots,
                                 prompt_len=prompt_len, max_len=max_len,
-                                device=dev)
+                                device=dev, cuda_graph=cuda_graph)
     tm = Telemetry()
 
     # serving-side in-situ declared as a plan, same shape as training
@@ -125,8 +128,9 @@ def serve_loop(arch: str, *, n_requests: int = 8, max_new: int = 8,
     t0 = time.perf_counter()
     with Session(plan, telemetry=tm, raise_on_error=True) as session:
         while pending or any(a is not None for a in engine.active):
-            while pending and engine.admit(pending[0]):
-                pending.pop(0)
+            with tm.span("serve/admit", step=step):   # eager prefill
+                while pending and engine.admit(pending[0]):
+                    pending.pop(0)
             if any(a is not None for a in engine.active):
                 with session.step_span(step):
                     engine.step()

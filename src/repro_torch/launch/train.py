@@ -11,6 +11,12 @@ Shapes: ``smoke=True`` is the CPU smoke shape (2 x 64 tokens);
 4096 with the global batch of 256 cut to 4, so that one card and the
 smoke's time limit hold it.
 
+The step: :func:`make_train_step` is the functional step (the eager
+oracle and the CPU path). On CUDA the loop runs :func:`graph_train_step`,
+the counterpart of the JAX package's ``jit_train_step(donate=True)``: the
+same step captured once in a CUDA graph and replayed, writing the new
+state into the old state's tensors.
+
 In-situ placements: ``insitu_mode`` places the plan's tasks SYNC (the
 loop waits for the whole chain), ASYNC (the loop pays only the hand-off
 dispatch; the checkpoint's lossy stage then runs per leaf on the workers,
@@ -34,6 +40,7 @@ import torch
 from repro_torch import optim
 from repro_torch.configs import base as configs
 from repro_torch.core import host
+from repro_torch.core.graphs import CapturedStep
 from repro_torch.core.pytree import flatten_with_path, keystr, leaves, \
     tree_map, unflatten_like
 from repro_torch.models import params as P_lib
@@ -121,6 +128,62 @@ def make_train_step(cfg: configs.ModelConfig, step_cfg: StepConfig
     return train_step
 
 
+def inplace_train_step(cfg: configs.ModelConfig, step_cfg: StepConfig,
+                       state: dict) -> Callable[[dict], dict]:
+    """``step(batch) -> metrics``: one :func:`make_train_step` step whose
+    new state is copied into ``state``'s own tensors, so that every leaf
+    keeps its storage from step to step (what a captured graph needs)."""
+    fn = make_train_step(cfg, step_cfg)
+    dst = {keystr(p): t for p, t in flatten_with_path(state)}
+
+    def step(batch: dict) -> dict:
+        new_state, metrics = fn(state, batch)
+        new = {keystr(p): t for p, t in flatten_with_path(new_state)}
+        with torch.no_grad():
+            for key, t in dst.items():
+                t.copy_(new[key])
+        return metrics
+
+    return step
+
+
+def graph_train_step(cfg: configs.ModelConfig, step_cfg: StepConfig,
+                     state: dict, batch: dict) -> Callable[[dict], dict]:
+    """The counterpart of the JAX package's ``jit_train_step`` with
+    ``donate=True``: returns ``step(batch) -> metrics``, one replay of
+    :func:`inplace_train_step` captured in a CUDA graph, which updates
+    ``state`` (on the card) in place.
+
+    ``batch`` gives the static batch buffers their shapes and dtypes;
+    each ``step(batch)`` copies its batch (host arrays or tensors of the
+    same shapes) into them before the replay. The warm-up runs the
+    functional step on a side stream and drops its outputs, so it
+    advances nothing. ``metrics`` are the graph's static outputs: the
+    next step overwrites them.
+    """
+    dev = host.resolve_device(leaves(state)[0].device)
+    static = {k: torch.as_tensor(v).to(dev, copy=True)
+              for k, v in batch.items()}
+    fn = make_train_step(cfg, step_cfg)
+    body = inplace_train_step(cfg, step_cfg, state)
+    graph = CapturedStep(lambda: body(static),
+                         warmup=lambda: fn(state, static), device=dev)
+
+    def step(batch: dict) -> dict:
+        if batch.keys() != static.keys():
+            raise ValueError(f"batch keys {sorted(batch)} != the captured "
+                             f"step's {sorted(static)}")
+        for k, v in batch.items():
+            v = torch.as_tensor(v)
+            if v.shape != static[k].shape:
+                raise ValueError(f"batch[{k!r}] shape {tuple(v.shape)} != "
+                                 f"the captured {tuple(static[k].shape)}")
+            static[k].copy_(v)
+        return graph.replay()
+
+    return step
+
+
 # ---------------------------------------------------------------------------
 # end-to-end loop
 # ---------------------------------------------------------------------------
@@ -161,7 +224,8 @@ def train_loop(arch: str, *, steps: int = 50, smoke: bool = True,
                sink_faults: Optional[dict] = None,
                on_session: Optional[Callable[[Any], None]] = None,
                log: Callable[[str], None] = print,
-               device: str | torch.device = "cuda") -> dict:
+               device: str | torch.device = "cuda",
+               cuda_graph: bool = True) -> dict:
     """End-to-end training with the in-situ stack declared as a plan.
 
     All in-situ work — analytics and checkpointing — is one
@@ -175,7 +239,10 @@ def train_loop(arch: str, *, steps: int = 50, smoke: bool = True,
     package's loop does, counts its steps from 0 again.
 
     The state is bf16 parameters (f32 norms) with bf16 moments, random
-    from ``seed``; the shapes are in the module docstring.
+    from ``seed``; the shapes are in the module docstring. On CUDA the
+    step is :func:`graph_train_step`, captured at the first step (after a
+    restore, so that the restored state becomes its static buffers);
+    ``cuda_graph=False`` steps eagerly there, and the CPU always does.
     """
     from repro_torch.core.session import InSituPlan, Session
     from repro_torch.core.telemetry import Telemetry
@@ -198,6 +265,8 @@ def train_loop(arch: str, *, steps: int = 50, smoke: bool = True,
 
     state = init_state(cfg, seed, step_cfg.opt, device=dev)
     step_fn = make_train_step(cfg, step_cfg)
+    use_graph = cuda_graph and dev.type == "cuda"
+    graph_step = None
 
     # ONE session: analytics and checkpointing share the staging ring and
     # the p_i worker pool (the paper's single p_o/p_i split)
@@ -217,11 +286,22 @@ def train_loop(arch: str, *, steps: int = 50, smoke: bool = True,
         losses = []
         try:
             for i in range(steps):
-                batch = {k: torch.from_numpy(v).to(dev)
-                         for k, v in next(pf).items()}
+                batch = next(pf)
+                if use_graph and graph_step is None:
+                    t0 = time.perf_counter()
+                    graph_step = graph_train_step(cfg, step_cfg, state,
+                                                  batch)
+                    log(f"captured the train step in "
+                        f"{time.perf_counter() - t0:.2f}s")
+                if not use_graph:
+                    batch = {k: torch.from_numpy(v).to(dev)
+                             for k, v in batch.items()}
                 t0 = time.perf_counter()
                 with session.step_span(i):
-                    state, metrics = step_fn(state, batch)
+                    if use_graph:
+                        metrics = graph_step(batch)
+                    else:
+                        state, metrics = step_fn(state, batch)
                     loss = float(metrics["loss"])
                 step_s = time.perf_counter() - t0
                 mon.observe(0, step_s)
@@ -230,8 +310,11 @@ def train_loop(arch: str, *, steps: int = 50, smoke: bool = True,
                 # streams — offer each payload only where declared
                 if "grads" in session.streams:
                     params_now = state["params"]
+                    # a copy on the loop's stream: under a graph the
+                    # next replay rewrites the parameters in place
                     session.emit("grads", i, lambda p=params_now: {
-                        "params": leaves(p)[0].float()})
+                        "params": leaves(p)[0].to(torch.float32,
+                                                  copy=True)})
                 if "train_state" in session.streams:
                     session.emit("train_state", i, lambda s=state: s)
                 if i % 10 == 0:

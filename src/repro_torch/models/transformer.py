@@ -136,7 +136,10 @@ def forward(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor):
             return dense_block(p_i, x, cfg, positions)
 
         if cfg.remat and torch.is_grad_enabled():
-            h = checkpoint(body, h, use_reentrant=False)
+            # the block draws no random numbers; saving the RNG state
+            # would read the CUDA generator, which a graph capture refuses
+            h = checkpoint(body, h, use_reentrant=False,
+                           preserve_rng_state=False)
         else:
             h = body(h)
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)

@@ -32,6 +32,16 @@ Attention over the pages is ``models.attention.paged_decode_attention``:
 the hand-written Hopper kernel for CUDA tensors, its plain version (gather +
 masked softmax) for CPU tensors.
 
+The step is the JAX engine's jitted ``_step``: decode, the greedy argmax,
+then the next tokens and ``lengths + 1``, written **into** the engine's
+``tokens`` and ``lengths``. Every device buffer of the engine (pool, page
+table, lengths, tokens) keeps its address for the engine's life:
+admission, completion and prefix registration write them in place between
+steps. On CUDA the step is captured once, when the engine is built, in a
+CUDA graph (``core/graphs.py``) and each ``step()`` replays it;
+``cuda_graph=False`` steps eagerly instead. On the CPU the step is always
+eager: that path is the parity oracle.
+
 Snapshots: ``snapshot_payload`` emits the pool plus per-page dirty versions
 and per-leaf ``chunk_hints`` sized to one (layer, page) slab, so the
 serve_snapshot delta chunks align to pages and untouched pages frame as
@@ -47,6 +57,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.graphs import CapturedStep
 from repro_torch.core.host import resolve_device
 from repro_torch.core.pytree import flatten_with_path, keystr, tree_map
 from repro_torch.models import attention as attn_lib
@@ -236,12 +247,20 @@ class PagedServingEngine:
     request's full page budget. Decode proceeds while new requests prefill
     into free pages between steps, and completed chains are reclaimed
     immediately. ``params`` must already live on ``device``.
+
+    On CUDA the decode step is captured in a CUDA graph as the engine is
+    built, with every row inactive (the table all scratch page 0), before
+    any in-situ session exists; ``cuda_graph=False`` keeps the eager step
+    there. On the CPU the step is eager whatever ``cuda_graph`` says.
+    ``logits`` is the last step's (B, 1, V): under a graph its static
+    output, which the next step overwrites.
     """
 
     def __init__(self, cfg: ModelConfig, params, *, num_pages: int = 65,
                  page_size: int = 16, max_reqs: int = 8,
                  prompt_len: int = 64, max_len: int = 256,
-                 device: str | torch.device = "cuda") -> None:
+                 device: str | torch.device = "cuda",
+                 cuda_graph: bool = True) -> None:
         if max_len % page_size:
             raise ValueError(f"max_len={max_len} must be a multiple of "
                              f"page_size={page_size}")
@@ -285,6 +304,10 @@ class PagedServingEngine:
         self._chunk_hints = {
             keystr(path): int(np.prod(leaf.shape[2:])) * leaf.element_size()
             for path, leaf in flatten_with_path({"pool": self.pool})}
+        self.logits: Optional[torch.Tensor] = None
+        self._graph = (CapturedStep(self._step_inplace,
+                                    warmup=self._decode_next, device=dev)
+                       if cuda_graph and dev.type == "cuda" else None)
 
     def _ids(self, ids: list[int]) -> torch.Tensor:
         return torch.tensor(ids, dtype=torch.int64, device=self.device)
@@ -449,12 +472,29 @@ class PagedServingEngine:
         self.lengths[row] = 0
         self._len_host[row] = 0
 
-    def step(self) -> None:
-        logits, self.pool, self.state, self.lengths = self._decode(
+    def _decode_next(self):
+        """The JAX engine's ``_step`` on the engine's buffers: (logits,
+        greedy next tokens, lengths + 1) as new tensors; the pool takes
+        the step's K/V rows in place."""
+        logits, _, _, lengths = self._decode(
             self.params, self.pool, self.state, self.page_table,
             self.tokens, self.lengths)
         nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
-        self.tokens = nxt[:, None].contiguous()
+        return logits, nxt, lengths
+
+    def _step_inplace(self):
+        """:meth:`_decode_next`, then the next tokens and lengths copied
+        into the engine's own buffers (what a replay must rewrite)."""
+        logits, nxt, lengths = self._decode_next()
+        self.tokens.copy_(nxt[:, None])
+        self.lengths.copy_(lengths)
+        return logits, nxt
+
+    def step(self) -> None:
+        if self._graph is not None:
+            self.logits, nxt = self._graph.replay()
+        else:
+            self.logits, nxt = self._step_inplace()
         self._state_version += 1
         nxt_host = nxt.cpu().numpy()             # one device->host transfer
         for r, req in enumerate(self.active):
