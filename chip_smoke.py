@@ -111,7 +111,35 @@ Phases (any failure exits non-zero; none is swallowed):
    profiled: host wall per step, aten ops, device busy time and idle
    share, the busiest device ops.
 
-8. train   — the port's ``train_loop("smollm-135m", smoke=False)``:
+8. stream  — the streamed in-situ path at full width, graphed. (a) A
+   cold replica in a child process (``tools/torch_hydrate_smoke.py
+   --replica --full``, JAX-free) listens on a port the OS picks; the
+   serve phase's traffic runs through ``serve_loop`` with
+   ``default_serve_plan(snapshot_to=...)`` pointed at it. The replica
+   hydrates a graphed engine (``from_snapshot``) from the first
+   restorable chain with in-flight requests, stays attached
+   (``follow``) and decodes its requests to completion. Gates: every
+   replica token equals the producer's at the same position of the same
+   request; no prefill after hydration; the engine's buffers keep their
+   addresses through ``_apply_snapshot``; the replica's paged-attention
+   launches are its steps x 30 and the producer's its decode steps x 30
+   (counts set to 0 before, read after); no failed mirror send. Printed:
+   ``ingest_s``, ``restore_s``, the first replay, and a warm hydrate +
+   step against re-prefilling the same requests + step. (b) 6 graphed
+   ``train_loop`` steps (4 x 4096 tokens) with a HYBRID checkpoint every
+   2 steps mirrored over ``tcp://`` to a ``consume_loop`` thread that
+   steers the task to every=3 after its first frame (a SYNC task at
+   step 1 waits for the message, so the change lands at a known step).
+   Gates: the steering applied, saves at 0 and 3, kernels 2-4 twice (counts
+   set to 0 before, read after), no failed mirror send, every consumed
+   file sha256-equal to the producer's, the consumed step 3 restored on
+   the card with params bitwise as emitted and moments within
+   ``error_bound(eps)``, ``dequant_idct`` once per lossy leaf. (c)
+   ``serve_loop(engine_kind="dense")`` and ``"paged"`` on the same
+   traffic, both graphed: every request served; tok/s and equal tokens
+   printed (no order gated); the first decode step of a dense and a
+   paged engine from the same admissions within atol 0.125.
+9. train   — the port's ``train_loop("smollm-135m", smoke=False)``:
    full published widths, batch 4 x 4096 tokens (``train_4k``'s length,
    its global batch of 256 cut to 4 for one card), bf16 state from seed
    0, each step a replay of the captured train step (the default). First
@@ -128,7 +156,7 @@ Phases (any failure exits non-zero; none is swallowed):
    resumes from it. Also: the device stage alone on the trained state,
    and one train step's device profile, eager and replayed, each with
    its peak memory (and what the graph's pool keeps).
-9. train (sync/async ckpt) — the same graphed loop, 10 steps with a
+10. train (sync/async ckpt) — the same graphed loop, 10 steps with a
    checkpoint every 5 steps (saves at 0 and 5) in SYNC and then in ASYNC
    placement: the lossy stage runs per leaf on the checkpoint's workers
    through the single-tensor kernels. Launch counts are set to 0 just
@@ -1066,7 +1094,10 @@ def roofline_phase(serve_table_width: int) -> dict:
             p_ms = time_ms(lambda: plain(x), warmup=1, samples=3, reps=1)
             l_ms = time_ms(lambda: torch.matmul(x, dt_), warmup=2, samples=5,
                            reps=3)
-            dev_ms, dev_ops = kernel_device_ms(lambda: fn(x), syms)
+            # a 0.04 ms launch at 4096 blocks went unrecorded in a 3-call
+            # window: the short shape gets a window of 20 calls
+            dev_ms, dev_ops = kernel_device_ms(
+                lambda: fn(x), syms, n=20 if label == "4096" else 3)
             timing.setdefault(name, {})[label] = {
                 "blocks": x.shape[0], "ms": k_ms, "device_ms": dev_ms,
                 "device_ops": dev_ops, "plain_ms": p_ms, "library_ms": l_ms,
@@ -1331,6 +1362,291 @@ def serve_phase(chain_dir: Path) -> dict:
             "argmax_agreement": agree.item()}
 
 
+def _check_restored(restored, emitted: dict, what: str) -> float:
+    """A restored training state against the one emitted at its step:
+    params and count bitwise, moments within ``error_bound(EPS)`` relative
+    L2 per leaf. Returns the worst moment error."""
+    import numpy as np
+    import torch
+    from repro_torch.core import pytree
+    from repro_torch.kernels import ref
+
+    worst = 0.0
+    for path, t in pytree.flatten_with_path(restored):
+        key = pytree.keystr(path)
+        want = emitted[key]
+        if key.startswith("['mu']") or key.startswith("['nu']"):
+            w = torch.from_numpy(want.view(np.int16)).view(torch.bfloat16) \
+                if want.dtype.kind == "u" else torch.from_numpy(want)
+            err = ref.rel_l2_error(w.float(), t.float().cpu())
+            worst = max(worst, err)
+            assert err <= ref.error_bound(EPS), (what, key, err)
+        else:
+            got = (t.view(torch.int16) if t.dtype == torch.bfloat16
+                   else t).cpu().numpy()
+            if not np.array_equal(got.reshape(-1).view(np.uint8),
+                                  want.reshape(-1).view(np.uint8)):
+                raise AssertionError(f"{what}: restored {key} differs from "
+                                     f"the state emitted at its step")
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# stream phase
+# ---------------------------------------------------------------------------
+
+def _load_tool(name: str):
+    """A module of ``tools/`` by path (the tools are scripts, not a
+    package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name,
+                                                  ROOT / "tools" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _sha256(path: Path) -> str:
+    import hashlib
+
+    return hashlib.sha256(path.read_bytes()).hexdigest()
+
+
+def stream_phase(build: Path) -> dict:
+    import threading
+
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import serialization as ser
+    from repro_torch.configs import base as configs
+    from repro_torch.core import pytree, transport
+    from repro_torch.core.session import (InSituPlan, Placement, TaskSpec,
+                                          When)
+    from repro_torch.kernels import paged_attention as PK
+    from repro_torch.kernels import spectral_lossy as K
+    from repro_torch.launch import consume
+    from repro_torch.launch import train as T
+    from repro_torch.launch.serve import serve_loop
+    from repro_torch.models import params as P
+    from repro_torch.models import transformer
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.pages import PagedServingEngine
+
+    cfg = configs.get("smollm-135m")
+    result: dict = {}
+
+    # 1. a cold replica in a child process hydrates from the live chain
+    #    the graphed producer mirrors to it, and decodes in lockstep
+    hs = _load_tool("torch_hydrate_smoke")
+    PK.paged_decode_attention.launches = 0
+    t0 = time.perf_counter()
+    out, res = hs.run_pair(device="cuda", full=True, seed=0, serve=SERVE,
+                           log=lambda m: log(f"stream (hydrate): {m}"))
+    pair_s = time.perf_counter() - t0
+    producer_launches = PK.paged_decode_attention.launches
+    failures = hs.check(out, res, device="cuda")
+    assert not failures, failures
+    decode_steps = len(out["telemetry"].spans("step/compute"))
+    assert producer_launches == decode_steps * cfg.n_layers, (
+        producer_launches, decode_steps)
+    snap = out["session_report"]["tasks"]["kv_snapshot"]
+    result["hydrate"] = {
+        **{k: v for k, v in res.items() if k != "records"},
+        "requests_compared": len(res["records"]),
+        "tokens_compared": sum(len(r["tokens"]) for r in res["records"]),
+        "producer_launches": producer_launches,
+        "producer_decode_steps": decode_steps,
+        "producer_tok_per_s": out["tok_per_s"],
+        "mirror_frames": snap["mirror_frames"],
+        "mirror_failures": snap["mirror_failures"],
+        "mirror_mb": snap["transport"]["bytes"] / 1e6,
+        "pair_wall_s": pair_s}
+    h = result["hydrate"]
+    log(f"stream: replica hydrated at step {h['step']} with "
+        f"{h['active_requests']} in-flight requests from "
+        f"{h['frames_ingested']} frames (then followed "
+        f"{h['frames_followed']} more); its {h['steps']} graphed steps "
+        f"decode the producer's {h['tokens_compared']} tokens exactly, no "
+        f"prefill, buffers unmoved, {h['launches']} paged launches "
+        f"(= {h['steps']} x {cfg.n_layers}); producer mirrored "
+        f"{h['mirror_frames']} frames ({h['mirror_mb']:.2f} MB), "
+        f"{h['mirror_failures']} failures")
+    log(f"stream: ingest_s {h['ingest_s']:.4f}, restore_s (replay + "
+        f"rebuild + capture) {h['restore_s']:.4f}, first replay "
+        f"{h['first_replay_s'] * 1e3:.3f} ms, first token "
+        f"{h['first_token_s']:.4f} s; warm: hydrate + step "
+        f"{h['ttft_hydrate_s'] * 1e3:.3f} ms vs re-prefill + step "
+        f"{h['ttft_reprefill_s'] * 1e3:.3f} ms")
+
+    # 2. HYBRID checkpoints of the graphed train loop mirrored over tcp://
+    #    to a consumer that steers the task to every=3 after its first
+    #    frame. A SYNC hold on step 1 waits for that message, so the
+    #    cadence change lands at a known step: saves at 0 (every=2), then
+    #    3 (every=3) instead of 0, 2, 4.
+    ck, consumed = build / "stream_ckpt", build / "stream_consumed"
+    for d in (ck, consumed):
+        if d.exists():
+            shutil.rmtree(d)
+    source = transport.StreamSource(port=0)
+    crep: dict = {}
+    consumer = threading.Thread(target=lambda: crep.update(
+        consume.consume_loop(
+            source, out_dir=str(consumed),
+            steer=[{"task": "checkpoint", "every": 3}], idle_timeout_s=5.0,
+            start_grace_s=600.0,      # the first save follows a capture
+            log=lambda m: log(f"stream (consumer): {m}"))))
+    t0 = time.perf_counter()
+    consumer.start()
+    sess: dict = {}
+    emitted: dict = {}
+
+    def hold(step, payload):
+        deadline = time.monotonic() + 300
+        while not sess["s"]._steering:
+            assert time.monotonic() < deadline, "no steering arrived"
+            sess["s"].poll_steering()
+            time.sleep(0.005)
+
+    def keep(step, payload):
+        emitted["step"] = step
+        emitted["state"] = {pytree.keystr(p): np.array(a) for p, a in
+                            pytree.flatten_with_path(payload)}
+
+    base = T.default_train_plan(insitu_mode="hybrid", ckpt_dir=str(ck),
+                                ckpt_every=2, device="cuda")
+    base["tasks"]["checkpoint"]["options"]["mirror"] = source.address
+    base = InSituPlan.from_dict(base)
+    plan = InSituPlan(
+        streams=base.streams, workers=base.workers,
+        staging_capacity=base.staging_capacity,
+        tasks=[*base.tasks,
+               TaskSpec(name="hold", stream="grads",
+                        trigger=When(lambda st: st == 1),
+                        placement=Placement.SYNC, sink=hold),
+               TaskSpec(name="probe", stream="train_state",
+                        trigger=When(lambda st: st == 3),
+                        placement=Placement.SYNC, sink=keep)])
+    K.reset_launches()
+    run = T.train_loop("smollm-135m", smoke=False, steps=6, plan=plan,
+                       device="cuda", seed=0,
+                       on_session=lambda s: sess.update(s=s),
+                       log=lambda m: log(f"stream (train): {m}"))
+    torch.cuda.synchronize()
+    consumer.join(120)
+    source.close()
+    mirror_wall = time.perf_counter() - t0
+    assert not consumer.is_alive(), "the consumer did not drain"
+    save_launches = {k.__name__: k.launches for k in K.KERNELS}
+    rep = run["session_report"]
+    assert rep["n_errors"] == 0, rep["errors"]
+    assert np.isfinite(run["losses"]).all(), run["losses"]
+    cmds = rep["steering"]["commands"]
+    assert [c["applied"] for c in cmds] == [{"every": 3}], cmds
+    assert rep["checkpoint"]["kept_steps"] == [0, 3], rep["checkpoint"]
+    for name in ("dct_hist_coarse_tiled", "hist_refine_tiled",
+                 "threshold_quant"):
+        assert save_launches[name] == 2, (name, save_launches)
+    mstats = dict(sess["s"].checkpoint.mirror_stats)
+    assert mstats["failures"] == 0 and mstats["steps"] == 2, mstats
+    assert crep["errors"] == [] and crep["steering_sent"][0]["reached"] == 1
+    n_files = 0
+    for step in (0, 3):
+        name = f"step_{step:09d}"
+        mine = sorted(p.name for p in (ck / name).iterdir())
+        assert sorted(p.name for p in (consumed / name).iterdir()) == mine
+        for f in mine:
+            assert _sha256(ck / name / f) == _sha256(consumed / name / f), f
+            n_files += 1
+    assert crep["by_codec"] == {"file": n_files}, crep["by_codec"]
+    # the consumed copy of step 3 restores on the card: params bitwise as
+    # emitted, moments within the codec's bound
+    n_lossy = len(moment_rows(cfg)[2])
+    template = T.init_state(cfg, 1, T.StepConfig().opt, device="cuda")
+    K.reset_launches()
+    t0 = time.perf_counter()
+    restored = ser.read_state(str(consumed / "step_000000003"), template,
+                              "cuda")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    restore_launches = K.dequant_idct.launches
+    assert restore_launches == n_lossy, (restore_launches, n_lossy)
+    assert emitted.get("step") == 3, emitted.get("step")
+    worst = _check_restored(restored, emitted["state"], "consumed step 3")
+    del restored, template, emitted
+    torch.cuda.empty_cache()
+    result["mirror"] = {
+        "losses": run["losses"], "steering": cmds,
+        "kept_steps": rep["checkpoint"]["kept_steps"],
+        "save_launches": save_launches, "restore_launches": restore_launches,
+        "mirror_stats": mstats, "files": n_files,
+        "frames": crep["frames"], "mb": crep["bytes"] / 1e6,
+        "consumer_frames_per_s": crep["frames"] / mirror_wall,
+        "wall_s": mirror_wall, "restore_s": restore_s,
+        "moments_worst_rel_l2": worst}
+    m = result["mirror"]
+    log(f"stream: train loop (6 graphed HYBRID steps) mirrored "
+        f"{m['frames']} checkpoint frames ({m['mb']:.1f} MB, "
+        f"{m['consumer_frames_per_s']:.2f} frames/s over {mirror_wall:.1f} "
+        f"s); steering {cmds[0]['applied']} applied, saves at "
+        f"{m['kept_steps']}; consumed shards sha256-equal ({n_files} files); "
+        f"restore of the consumed step 3 {restore_s:.2f} s, params bitwise, "
+        f"moments worst rel L2 {worst:.4e}, {restore_launches} dequant_idct "
+        f"launches; kernels 2-4 {save_launches['dct_hist_coarse_tiled']}/"
+        f"{save_launches['hist_refine_tiled']}/"
+        f"{save_launches['threshold_quant']}")
+
+    # 3. the dense fixed-slot baseline against the paged engine: the same
+    #    traffic, both graphed; then both engines' first decode step from
+    #    the same admissions (the logit tolerance of the serve phase)
+    runs = {}
+    for kind in ("dense", "paged"):
+        runs[kind] = serve_loop("smollm-135m", smoke=False, device="cuda",
+                                seed=0, engine_kind=kind,
+                                plan={"streams": ["kv_pages"]},
+                                log=lambda _: None, **SERVE)
+        assert all(r.done and len(r.out) == r.max_new
+                   for r in runs[kind]["requests"]), kind
+    pairs = list(zip(runs["dense"]["requests"], runs["paged"]["requests"]))
+    equal = sum(a == b for ra, rb in pairs for a, b in zip(ra.out, rb.out))
+    same_streams = sum(ra.out == rb.out for ra, rb in pairs)
+    params = P.materialize(torch.Generator().manual_seed(0),
+                           transformer.param_spec(cfg), "cuda")
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, cfg.vocab_size, 16) for _ in range(4)]
+    dense = ServingEngine(cfg, params, slots=4, prompt_len=16, max_len=64,
+                          device="cuda")
+    paged = PagedServingEngine(cfg, params, num_pages=17, page_size=16,
+                               max_reqs=4, prompt_len=16, max_len=64,
+                               device="cuda")
+    for e in (dense, paged):
+        for i, pr in enumerate(prompts):
+            assert e.admit(Request(i, pr, max_new=8))
+        e.step()
+    a = dense.logits[:, -1, :cfg.vocab_size].float()
+    b = paged.logits[:, -1, :cfg.vocab_size].float()
+    diff = (a - b).abs().max().item()
+    torch.testing.assert_close(a, b, rtol=0.0, atol=LOGIT_ATOL)
+    result["dense_vs_paged"] = {
+        "tok_per_s": {k: r["tok_per_s"] for k, r in runs.items()},
+        "equal_tokens": equal,
+        "tokens": sum(len(r.out) for r in runs["dense"]["requests"]),
+        "equal_streams": same_streams,
+        "first_step_logit_max_abs_diff": diff,
+        "first_step_argmax_agreement":
+            (a.argmax(-1) == b.argmax(-1)).float().mean().item()}
+    d = result["dense_vs_paged"]
+    log(f"stream: dense vs paged, same traffic, both graphed: tok/s "
+        f"{d['tok_per_s']['dense']:.1f} / {d['tok_per_s']['paged']:.1f}, "
+        f"{d['equal_tokens']}/{d['tokens']} tokens equal "
+        f"({d['equal_streams']}/{SERVE['n_requests']} whole streams); first "
+        f"decode step max |dlogit| {diff:.4e}, argmax agreement "
+        f"{d['first_step_argmax_agreement']:.3f}")
+    del dense, paged, params
+    torch.cuda.empty_cache()
+    return result
+
+
 # ---------------------------------------------------------------------------
 # train phase
 # ---------------------------------------------------------------------------
@@ -1464,23 +1780,7 @@ def train_phase(ckpt_dir: Path) -> dict:
     restore_launches = K.dequant_idct.launches
     assert restore_launches == n_lossy, (restore_launches, n_lossy)
     assert emitted.get("step") == newest, emitted.get("step")
-    worst = 0.0
-    for path, t in pytree.flatten_with_path(restored):
-        key = pytree.keystr(path)
-        want = emitted["state"][key]
-        if key.startswith("['mu']") or key.startswith("['nu']"):
-            w = torch.from_numpy(want.view(np.int16)).view(torch.bfloat16) \
-                if want.dtype.kind == "u" else torch.from_numpy(want)
-            err = ref.rel_l2_error(w.float(), t.float().cpu())
-            worst = max(worst, err)
-            assert err <= ref.error_bound(EPS), (key, err)
-        else:
-            got = (t.view(torch.int16) if t.dtype == torch.bfloat16
-                   else t).cpu().numpy()
-            if not np.array_equal(got.reshape(-1).view(np.uint8),
-                                  want.reshape(-1).view(np.uint8)):
-                raise AssertionError(f"restored {key} differs from step "
-                                     f"{newest}'s state")
+    worst = _check_restored(restored, emitted["state"], f"step {newest}")
     log(f"train: restored step {newest} in {restore_s:.2f}s: params bitwise, "
         f"moments worst rel L2 {worst:.4e} (bound "
         f"{ref.error_bound(EPS):.4e}), {restore_launches} dequant_idct "
@@ -1607,7 +1907,6 @@ def placements_phase(ckpt_root: Path, hybrid: dict) -> dict:
     from repro_torch.core.allocator import Allocator
     from repro_torch.core.session import (InSituPlan, Placement, TaskSpec,
                                           When)
-    from repro_torch.kernels import ref
     from repro_torch.kernels import spectral_lossy as K
     from repro_torch.launch import train as T
 
@@ -1669,22 +1968,8 @@ def placements_phase(ckpt_root: Path, hybrid: dict) -> dict:
         restore_s = time.perf_counter() - t0
         assert K.dequant_idct.launches == n_lossy, K.dequant_idct.launches
         assert emitted.get("step") == newest, emitted.get("step")
-        worst = 0.0
-        for path, t in pytree.flatten_with_path(restored):
-            key = pytree.keystr(path)
-            want = emitted["state"][key]
-            if key.startswith("['mu']") or key.startswith("['nu']"):
-                w = torch.from_numpy(want.view(np.int16)).view(torch.bfloat16)
-                err = ref.rel_l2_error(w.float(), t.float().cpu())
-                worst = max(worst, err)
-                assert err <= ref.error_bound(EPS), (mode, key, err)
-            else:
-                got = (t.view(torch.int16) if t.dtype == torch.bfloat16
-                       else t).cpu().numpy()
-                if not np.array_equal(got.reshape(-1).view(np.uint8),
-                                      want.reshape(-1).view(np.uint8)):
-                    raise AssertionError(f"{mode}: restored {key} differs "
-                                         f"from step {newest}'s state")
+        worst = _check_restored(restored, emitted["state"],
+                                f"{mode} step {newest}")
         del restored, template, emitted
         torch.cuda.empty_cache()
         loop = _per_step(rep, steps, tm)
@@ -1844,6 +2129,9 @@ def main() -> int:
     log(f"serve phase: {time.perf_counter() - t0:.1f}s, "
         f"{serve['tok_per_s']:.1f} tok/s")
     t0 = time.perf_counter()
+    stream = stream_phase(ROOT / "build")
+    log(f"stream phase: {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
     train = train_phase(ROOT / "build" / "smoke_ckpt")
     log(f"train phase: {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
@@ -1871,6 +2159,10 @@ def main() -> int:
         "bound_by": main_path["bound_by"],
         "shape": main_path["shape"],
         "long_context": kern["long"],
+        "launches_by_path": {
+            "serve": serve["launches"],
+            "stream_producer": stream["hydrate"]["producer_launches"],
+            "stream_replica": stream["hydrate"]["launches"]},
     }
     records = [record]
     tpu = "src/repro/kernels/spectral_lossy.py"
@@ -1882,12 +2174,18 @@ def main() -> int:
             ("threshold_quant", 436, train["save_launches"]["threshold_quant"]),
             ("dequant_idct", 488, train["resume_launches"]["dequant_idct"])):
         tm = spec["timing"][name]
+        by_path = ({"train_resume": launches, "stream_consumed_restore":
+                    stream["mirror"]["restore_launches"]}
+                   if name == "dequant_idct" else
+                   {"train_hybrid": launches, "stream_mirrored_train":
+                    stream["mirror"]["save_launches"][name]})
         records.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/spectral_lossy.cu",
             "replaces": f"{tpu}:{line}", "tpu_kernel": f"{tpu}:{line}",
             "launches": launches,
             "launches_per": "restore" if name == "dequant_idct" else "save",
+            "launches_by_path": by_path,
             "max_abs_err": spec["max_abs_err"][name],
             "ms": tm["ms"], "kernel_ms": tm["ms"],
             "device_ms": tm["device_ms"], "plain_ms": tm["plain_ms"],
@@ -1943,6 +2241,7 @@ def main() -> int:
             "flat_over_two_level": roof["ratios"],
         })
     log(json.dumps({"serve": serve}))
+    log(json.dumps({"stream": stream}))
     log(json.dumps({"spectral": {k: v for k, v in spec.items()
                                  if k != "timing"}}))
     log(json.dumps({"train": train}))

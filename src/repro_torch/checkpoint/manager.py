@@ -65,7 +65,7 @@ class CheckpointConfig:
     p_i: int = 2                      # workers for a manager-owned runtime
     staging_capacity: int = 2
     mirror: Optional[str] = None      # transport URL replicating committed
-                                      # steps (file:// | memory://)
+                                      # steps (file:// | memory:// | tcp://)
     # where the lossy stage of the non-hybrid placements runs and where
     # restore decodes (HYBRID compresses where the state lives)
     device: str = "cuda"

@@ -39,9 +39,13 @@ format::
 task results, errors and checkpoint statistics into one
 :meth:`Session.report`.
 
+A task's transport (``options={"to": url}``), a checkpoint mirror and a
+snapshot store's mirror all land in one table; a ``tcp://`` one carries a
+consumer's steering messages back, and :meth:`Session.poll_steering`
+applies them mid-run.
+
 Not ported yet, each refused with :class:`PlanError` naming its ROADMAP
-item: the ``fault`` preset, the tcp:// stream transport (so steering
-messages have no back-channel to arrive on yet), and elastic restore.
+item: the ``fault`` preset and elastic restore.
 """
 from __future__ import annotations
 
@@ -874,10 +878,10 @@ class Session:
 
     def poll_steering(self) -> list[dict]:
         """Drain steering messages from every transport back-channel and
-        apply them to the live run (see :meth:`_apply_steering`). The port's
-        transports (file://, memory://) have no back-channel yet — the
-        tcp:// stream transport is not ported — so this finds nothing
-        until it is."""
+        apply them to the live run (see :meth:`_apply_steering`): an
+        in-situ consumer retunes the producer mid-run. Only ``tcp://``
+        transports have a back-channel; the local ones return nothing.
+        Applied commands accumulate in ``report()["steering"]``."""
         applied = []
         for via, tsink in self._transports.items():
             for msg in tsink.poll_control():

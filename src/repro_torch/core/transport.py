@@ -8,25 +8,30 @@ Every frame carries *step + stream + seq + codec* metadata, and payloads
 ride the v2 chunk-parallel framing from :mod:`repro_torch.core.codecs`
 (arrays are framed leaves; trees keep their structure in a JSON skeleton).
 The wire and frame formats are the JAX package's, byte for byte, so either
-package reads what the other writes. Two backends:
+package reads what the other writes. Three backends:
 
   ``FileSink``    one atomically-published file per frame
                   (write tmp -> fsync -> rename -> fsync dir — the protocol
                   the snapshot writer shares through
                   :func:`atomic_write_bytes`).
   ``MemorySink``  frames in a list (in-process probes, tests).
+  ``StreamSink``  length-prefixed crc-checked frames over a TCP socket —
+                  in-situ across processes. A broken or timed-out send
+                  raises the runtime's ``TransientError``, so the
+                  retry/backoff/degrade path covers the network, and the
+                  bounded staging ring upstream turns a slow consumer into
+                  backpressure instead of a stalled loop. The socket is
+                  bidirectional: the consumer pushes steering frames back.
 
-The consumer side mirrors it: ``MemorySink.frames`` / ``FileSource`` yield
-the same :class:`Frame` objects, and :func:`unpack_payload` decodes them.
+The consumer side mirrors it: ``MemorySink.frames`` / ``FileSource`` /
+``StreamSource`` yield the same :class:`Frame` objects, and
+:func:`unpack_payload` decodes them.
 
 Plan options declare transports as URLs::
 
     "file:///var/run/artifacts"   FileSink rooted at that directory
     "memory://"                   MemorySink
-
-The JAX package's ``tcp://`` stream transport (``StreamSink`` /
-``StreamSource``, with its steering back-channel) is not ported yet
-(ROADMAP.md); :func:`connect` says so.
+    "tcp://10.0.0.7:5555"         StreamSink to a listening StreamSource
 
 Wire format (one frame)::
 
@@ -44,6 +49,8 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import select
+import socket
 import struct
 import threading
 import zlib
@@ -109,6 +116,13 @@ class StreamGapError(TransportError):
         self.step = step
         self.expected = expected
         self.got = got
+
+
+def _transient(msg: str) -> Exception:
+    """A network failure the runtime should retry (lazy import: runtime
+    imports this module at top level, so the reverse edge must be lazy)."""
+    from repro_torch.core.runtime import TransientError
+    return TransientError(msg)
 
 
 # ---------------------------------------------------------------------------
@@ -566,6 +580,366 @@ class FileSource(Source):
 
 
 # ---------------------------------------------------------------------------
+# the streaming backend: TCP, length-prefixed, crc-checked, steerable
+# ---------------------------------------------------------------------------
+
+def _read_exact(sock: socket.socket, n: int) -> bytes:
+    """Read exactly n bytes; b'' on clean EOF at a boundary; raises
+    FrameCorruptError on EOF mid-read (a torn frame)."""
+    buf = bytearray()
+    while len(buf) < n:
+        chunk = sock.recv(n - len(buf))
+        if not chunk:
+            if not buf:
+                return b""
+            raise FrameCorruptError(
+                f"connection dropped mid-frame ({len(buf)} of {n} bytes)")
+        buf.extend(chunk)
+    return bytes(buf)
+
+
+def _recv_wire_frame(sock: socket.socket) -> Optional[Frame]:
+    """One length-prefixed frame off a socket; None on clean EOF."""
+    head = _read_exact(sock, 4)
+    if not head:
+        return None
+    (blen,) = struct.unpack("<I", head)
+    if blen < _HEADER_SIZE or blen > _MAX_FRAME:
+        raise FrameCorruptError(f"implausible frame length {blen}")
+    return parse_body(_read_exact(sock, blen))
+
+
+class StreamSink(Sink):
+    """Length-prefixed crc-checked frames over a TCP socket.
+
+    Failure semantics are what lets the runtime's retry machinery cover the
+    network: a connect/send failure (or timeout — a wedged consumer) closes
+    the socket and raises :class:`~repro_torch.core.runtime.TransientError`, so
+    the task retries with backoff (reconnecting on the next attempt) and
+    degrades to counted drops if the consumer stays gone — the train loop
+    never crashes and, with the ``drop``/``adapt`` backpressure policies,
+    never stalls. Frame seqs are assigned per stream and rolled back on a
+    failed send, so a retry reuses the seq and the reader sees a contiguous
+    stream; frames lost to degradation surface on the consumer as a typed
+    :class:`StreamGapError`.
+
+    The socket is bidirectional: :meth:`poll_control` drains steering
+    frames the consumer pushed back (non-blocking), which
+    ``Session.poll_steering`` applies to live tasks.
+    """
+
+    def __init__(self, host: str, port: int, *, stream: str = "default",
+                 payload_codec: str = "zlib", connect_timeout_s: float = 5.0,
+                 send_timeout_s: float = 10.0) -> None:
+        super().__init__(stream=stream, payload_codec=payload_codec)
+        self.host = host
+        self.port = port
+        self.connect_timeout_s = connect_timeout_s
+        self.send_timeout_s = send_timeout_s
+        self.reconnects = 0
+        self._sock: Optional[socket.socket] = None
+        self._io_lock = threading.Lock()
+
+    @classmethod
+    def over_socket(cls, sock: socket.socket, *, stream: str = "default",
+                    payload_codec: str = "zlib") -> "StreamSink":
+        """Wrap an already-connected socket (tests: socketpair)."""
+        sink = cls("", -1, stream=stream, payload_codec=payload_codec)
+        sink._sock = sock
+        return sink
+
+    # -- connection management ------------------------------------------------
+
+    def _connect_locked(self) -> socket.socket:
+        if self._sock is not None:
+            return self._sock
+        if self.port < 0:
+            raise _transient("stream sink socket was dropped "
+                             "(socket-wrapped sink cannot reconnect)")
+        try:
+            sock = socket.create_connection((self.host, self.port),
+                                            timeout=self.connect_timeout_s)
+        except OSError as e:
+            raise _transient(
+                f"stream sink cannot reach {self.host}:{self.port}: "
+                f"{e}") from e
+        sock.settimeout(self.send_timeout_s)
+        sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        self._sock = sock
+        self.reconnects += 1
+        return sock
+
+    def _drop_locked(self) -> None:
+        if self._sock is not None:
+            try:
+                self._sock.close()
+            except OSError:
+                pass
+            self._sock = None
+
+    def drop_connection(self) -> None:
+        """Sever the connection (fault drills: the next write must
+        reconnect or raise TransientError into the retry path)."""
+        with self._io_lock:
+            self._drop_locked()
+
+    def open(self) -> "StreamSink":
+        with self._io_lock:
+            self._connect_locked()
+        return self
+
+    # -- frame IO -------------------------------------------------------------
+
+    def write_frame(self, frame: Frame) -> None:
+        if self.closed:
+            raise TransportError("stream sink is closed")
+        wire = pack_frame(frame)
+        with self._io_lock:
+            sock = self._connect_locked()
+            try:
+                sock.sendall(wire)
+            except OSError as e:
+                # a torn send poisons the connection; drop it so the retry
+                # reconnects and the reader's parser starts clean
+                self._drop_locked()
+                raise _transient(
+                    f"stream sink send to {self.host}:{self.port} failed "
+                    f"(stream {frame.stream!r}, step {frame.step}): "
+                    f"{e}") from e
+
+    def poll_control(self) -> list[dict]:
+        """Drain steering frames the consumer sent back; non-blocking —
+        an idle or absent back-channel costs one select(0)."""
+        out: list[dict] = []
+        with self._io_lock:
+            sock = self._sock
+            if sock is None:
+                return out
+            while True:
+                try:
+                    r, _, _ = select.select([sock], [], [], 0)
+                except (OSError, ValueError):
+                    break
+                if not r:
+                    break
+                try:
+                    frame = _recv_wire_frame(sock)
+                except (TransportError, OSError):
+                    self._drop_locked()
+                    break
+                if frame is None:         # consumer went away
+                    self._drop_locked()
+                    break
+                if frame.kind == KIND_CONTROL:
+                    try:
+                        out.append(json.loads(frame.payload.decode()))
+                    except ValueError:
+                        continue
+        return out
+
+    def flush(self) -> None:
+        pass                              # sendall already drained userspace
+
+    def close(self) -> None:
+        if self.closed:
+            return
+        self.closed = True
+        with self._io_lock:
+            if self._sock is not None:
+                try:
+                    self._sock.sendall(pack_frame(
+                        Frame(self.stream, -1, 0, CODEC_JSON, b"{}",
+                              kind=KIND_BYE)))
+                except OSError:
+                    pass
+                self._drop_locked()
+
+
+class StreamSource(Source):
+    """The consumer side: accept producer connections, yield frames.
+
+    Listens on ``host:port`` (the producer's ``StreamSink`` connects in);
+    multiple producers — one per transport-declared task — multiplex via
+    ``select``, each connection with its own parser state, so a torn frame
+    on one connection cannot desynchronize another. Per-stream seq
+    continuity is enforced across connections: a reconnecting producer
+    that lost frames surfaces as :class:`StreamGapError` naming the
+    stream/step (pass ``check_gaps=False`` to tail best-effort streams).
+
+    :meth:`send_control` pushes a steering message back up every live
+    connection — the producer's session polls and applies it mid-run.
+    """
+
+    def __init__(self, host: str = "127.0.0.1", port: int = 0, *,
+                 check_gaps: bool = True, listen: bool = True) -> None:
+        self.check_gaps = check_gaps
+        self._listener: Optional[socket.socket] = None
+        self._conns: list[socket.socket] = []
+        self._expect: dict[str, int] = {}
+        self._lock = threading.Lock()
+        self.frames_read = 0
+        self.connections_accepted = 0
+        self.port = port
+        if listen:
+            lst = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+            lst.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+            lst.bind((host, port))
+            lst.listen(16)
+            self._listener = lst
+            self.port = lst.getsockname()[1]
+
+    @classmethod
+    def over_socket(cls, sock: socket.socket, *,
+                    check_gaps: bool = True) -> "StreamSource":
+        """Wrap an already-connected socket (tests: socketpair)."""
+        src = cls(listen=False, check_gaps=check_gaps)
+        src._conns.append(sock)
+        src.connections_accepted = 1
+        return src
+
+    @property
+    def address(self) -> str:
+        return f"tcp://127.0.0.1:{self.port}"
+
+    def _check_seq(self, frame: Frame) -> None:
+        expect = self._expect.get(frame.stream)
+        if expect is not None and frame.seq != expect:
+            self._expect[frame.stream] = frame.seq + 1
+            if self.check_gaps:
+                raise StreamGapError(frame.stream, frame.step, expect,
+                                     frame.seq)
+            return
+        self._expect[frame.stream] = frame.seq + 1
+
+    def recv_frame(self, timeout: Optional[float] = None
+                   ) -> Optional[Frame]:
+        """Next data frame from any connection; None when ``timeout``
+        expires with no data frame. New connections are accepted and
+        BYE/EOF drained *within* the timeout budget — an accept never eats
+        the caller's whole wait."""
+        import time as _time
+        deadline = (None if timeout is None
+                    else _time.monotonic() + timeout)
+        with self._lock:
+            while True:
+                socks = ([self._listener] if self._listener else []) + \
+                    list(self._conns)
+                if not socks:
+                    return None
+                if deadline is None:
+                    remaining = None
+                else:
+                    remaining = deadline - _time.monotonic()
+                    if remaining < 0:
+                        return None
+                try:
+                    r, _, _ = select.select(socks, [], [], remaining)
+                except OSError:
+                    return None
+                if not r:
+                    return None
+                for sock in r:
+                    if sock is self._listener:
+                        conn, _ = sock.accept()
+                        conn.setsockopt(socket.IPPROTO_TCP,
+                                        socket.TCP_NODELAY, 1)
+                        self._conns.append(conn)
+                        self.connections_accepted += 1
+                        continue
+                    try:
+                        frame = _recv_wire_frame(sock)
+                    except TransportError:
+                        self._drop(sock)
+                        raise
+                    except OSError as e:
+                        self._drop(sock)
+                        raise FrameCorruptError(
+                            f"connection read failed: {e}") from e
+                    if frame is None or frame.kind == KIND_BYE:
+                        self._drop(sock)
+                        continue
+                    if frame.kind != KIND_DATA:
+                        continue
+                    self._check_seq(frame)
+                    self.frames_read += 1
+                    return frame
+
+    def frames(self, *, idle_timeout_s: float = 5.0,
+               max_frames: Optional[int] = None,
+               start_grace_s: Optional[float] = None) -> Iterator[Frame]:
+        """Yield frames until ``idle_timeout_s`` passes with no traffic and
+        no live connections (a drained stream), or ``max_frames`` arrive.
+        ``start_grace_s`` extends the wait for the *first* connection
+        (default: ``idle_timeout_s``) — a producer with a long warm-up
+        (a graph capture) connects late, but once it has come and gone the
+        drain exit stays prompt."""
+        n = 0
+        import time as _time
+        started = _time.monotonic()
+        idle_since = started
+        grace = idle_timeout_s if start_grace_s is None else start_grace_s
+        while max_frames is None or n < max_frames:
+            frame = self.recv_frame(timeout=0.2)
+            if frame is None:
+                now = _time.monotonic()
+                if (not self._conns and self.connections_accepted == 0
+                        and now - started <= grace):
+                    continue
+                if (not self._conns
+                        and now - idle_since > idle_timeout_s):
+                    return
+                if self._conns:
+                    idle_since = now
+                continue
+            idle_since = _time.monotonic()
+            n += 1
+            yield frame
+
+    def send_control(self, message: dict) -> int:
+        """Push one steering message up every live connection; returns the
+        number of producers it reached."""
+        wire = pack_frame(Frame("control", -1, 0, CODEC_JSON,
+                                json.dumps(message).encode(),
+                                kind=KIND_CONTROL))
+        sent = 0
+        with self._lock:
+            for sock in list(self._conns):
+                try:
+                    sock.sendall(wire)
+                    sent += 1
+                except OSError:
+                    self._drop(sock)
+        return sent
+
+    def _drop(self, sock: socket.socket) -> None:
+        if sock in self._conns:
+            self._conns.remove(sock)
+        try:
+            sock.close()
+        except OSError:
+            pass
+
+    @property
+    def connections(self) -> int:
+        return len(self._conns)
+
+    def close(self) -> None:
+        with self._lock:
+            for sock in self._conns:
+                try:
+                    sock.close()
+                except OSError:
+                    pass
+            self._conns.clear()
+            if self._listener is not None:
+                try:
+                    self._listener.close()
+                except OSError:
+                    pass
+                self._listener = None
+
+
+# ---------------------------------------------------------------------------
 # URL scheme: how plans declare transports
 # ---------------------------------------------------------------------------
 
@@ -574,7 +948,7 @@ def parse_url(url: str) -> tuple[str, str]:
     if "://" not in url:
         raise ValueError(
             f"transport URL {url!r} needs a scheme "
-            "(file://dir | memory://)")
+            "(file://dir | memory:// | tcp://host:port)")
     scheme, rest = url.split("://", 1)
     return scheme, rest
 
@@ -584,8 +958,7 @@ def connect(url: str, *, stream: str = "default",
     """Build the Sink a transport URL names.
 
     ``file:///path/to/dir`` -> :class:`FileSink`, ``memory://`` ->
-    :class:`MemorySink`. ``tcp://host:port`` raises: the stream transport
-    is not ported yet.
+    :class:`MemorySink`, ``tcp://host:port`` -> :class:`StreamSink`.
     """
     scheme, rest = parse_url(url)
     if scheme == "file":
@@ -595,8 +968,25 @@ def connect(url: str, *, stream: str = "default",
     if scheme == "memory":
         return MemorySink(stream=stream, payload_codec=payload_codec)
     if scheme == "tcp":
-        raise NotImplementedError(
-            f"{url!r}: the tcp:// stream transport is not ported yet "
-            f"(ROADMAP.md, 'left waiting by the serving slice')")
+        host, _, port = rest.rpartition(":")
+        if not host or not port.isdigit():
+            raise ValueError(
+                f"tcp transport needs host:port, got {url!r}")
+        return StreamSink(host, int(port), stream=stream,
+                          payload_codec=payload_codec)
     raise ValueError(f"unknown transport scheme {scheme!r} in {url!r} "
-                     "(known: file, memory)")
+                     "(known: file, memory, tcp)")
+
+
+def materialize_file(frame: Frame, root: str) -> str:
+    """Write one ``CODEC_FILE`` frame under ``root`` (path-sanitized,
+    atomic publish); returns the absolute path written."""
+    rel, data = unpack_file(frame.payload)
+    rel = os.path.normpath(rel)
+    if rel.startswith("..") or os.path.isabs(rel):
+        raise TransportError(
+            f"refusing to materialize path {rel!r} outside {root!r}")
+    path = os.path.join(root, rel)
+    os.makedirs(os.path.dirname(path) or root, exist_ok=True)
+    atomic_write_bytes(path, data)
+    return path

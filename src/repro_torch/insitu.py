@@ -41,6 +41,7 @@ from repro_torch.core.session import (Adaptive, Every, InSituPlan,
 from repro_torch.core.transport import (CallableSink, FileSink, FileSource,
                                         Frame, FrameCorruptError, MemorySink,
                                         Sink, Source, StreamGapError,
+                                        StreamSink, StreamSource,
                                         TransportError, as_sink, connect,
                                         decode_frame_payload, send_directory)
 from repro_torch.distributed.fault import StragglerMonitor
@@ -53,6 +54,7 @@ __all__ = [
     "TaskSpec", "TransientError", "Trigger", "When", "preset_names",
     "register_preset",
     "CallableSink", "FileSink", "FileSource", "Frame", "FrameCorruptError",
-    "MemorySink", "Sink", "Source", "StreamGapError", "TransportError",
-    "as_sink", "connect", "decode_frame_payload",
+    "MemorySink", "Sink", "Source", "StreamGapError", "StreamSink",
+    "StreamSource", "TransportError", "as_sink", "connect",
+    "decode_frame_payload",
 ]

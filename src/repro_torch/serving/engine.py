@@ -1,8 +1,8 @@
-"""Serving building blocks: requests, prefill, and the layer loops.
+"""Serving: requests, prefill, the dense decode step and the fixed-slot
+baseline engine.
 
-``make_prefill`` builds the step that turns a whole prompt into a cache:
-
-  prefill(params, tokens)  -> (logits, cache, lengths)
+  prefill(params, tokens)                  -> (logits, cache, lengths)
+  decode (params, cache, tokens, lengths)  -> (logits, cache, lengths+1)
 
 Cache convention: ``lengths`` counts tokens already *in* the cache. Decode
 inserts the new token at slot ``lengths``, attends over ``lengths+1``
@@ -10,10 +10,14 @@ entries, and returns ``lengths+1``.
 
 Where the JAX package scans one compiled block body over stacked layer
 parameters, the port runs a Python loop over the leading ``layers`` axis
-(PyTorch runs eagerly; the layer views cost no copy). The dense
-``ServingEngine``/``make_decode`` baseline of the JAX package is not
-ported yet; the paged engine in :mod:`repro_torch.serving.pages` is the
-port's engine.
+(the layer views cost no copy), and decode writes each new K/V row into
+the cache **in place** rather than returning a copy of it.
+
+:class:`ServingEngine` is the JAX package's fixed-slot baseline: one
+contiguous ``(layers, slots, max_len, ...)`` cache, every slot decoded by
+one step. On CUDA that step is captured in a CUDA graph when the engine is
+built (``core/graphs.py``), as the paged engine's is; the paged engine in
+:mod:`repro_torch.serving.pages` is the port's main engine.
 """
 from __future__ import annotations
 
@@ -26,10 +30,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.graphs import CapturedStep
+from repro_torch.core.host import resolve_device
 from repro_torch.core.pytree import leaves, tree_map
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.layers import embed, mlp, rmsnorm, unembed
 from repro_torch.models.transformer import project_qkv
+from repro_torch.serving import kvcache
 
 PyTree = Any
 
@@ -61,6 +68,64 @@ def _scan_decode(stacked_params, cache, h, body):
         h, _ = body(h, tree_map(lambda t: t[i], stacked_params),
                     tree_map(lambda t: t[i], cache))
     return h, cache
+
+
+# ---------------------------------------------------------------------------
+# dense decode (x: (B,1,d); kv leaves: (B,S,...))
+# ---------------------------------------------------------------------------
+
+def _insert_at(cache: torch.Tensor, new: torch.Tensor,
+               idx: torch.Tensor) -> torch.Tensor:
+    """cache (B,S,...) <- new (B,...) at per-batch slot idx (B,), in place.
+
+    A slot past the cache's end is dropped, as JAX's out-of-bounds scatter
+    drops it: an idle row's length keeps growing between admissions. The
+    write then rewrites the last slot with its own value, with no host
+    branch, so the step stays capturable."""
+    b, s = cache.shape[:2]
+    rows = torch.arange(b, device=cache.device)
+    slot = torch.clamp(idx, max=s - 1).long()
+    keep = (idx < s).view(b, *([1] * (new.dim() - 1)))
+    cache[rows, slot] = torch.where(keep, new.to(cache.dtype),
+                                    cache[rows, slot])
+    return cache
+
+
+def _gqa_decode_attn(p, xn, cfg: ModelConfig, kv, lengths):
+    """kv: {'k','v'} (B,S,N,hd). Returns (attn_out, kv updated in place)."""
+    pos = lengths[:, None]                       # rope position of new token
+    q, k, v = project_qkv(p, xn, cfg, pos)
+    kc = _insert_at(kv["k"], k[:, 0], lengths)
+    vc = _insert_at(kv["v"], v[:, 0], lengths)
+    o = attn_lib.decode_attention(q, kc, vc, lengths + 1)
+    return torch.einsum("bshk,hkd->bsd", o, p["wo"]), {"k": kc, "v": vc}
+
+
+def _dense_decode_block(p, x, cfg, kv, lengths):
+    xn = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    a, kv = _gqa_decode_attn(p["attn"], xn, cfg, kv, lengths)
+    x = x + a
+    xn = rmsnorm(p["ln2"], x, cfg.norm_eps)
+    return x + mlp(p["mlp"], xn), kv
+
+
+def make_decode(cfg: ModelConfig) -> Callable:
+    """decode(params, cache, tokens (B,1), lengths (B,)) -> (logits, cache,
+    lengths+1); ``cache`` is updated in place and returned."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (ROADMAP.md, queue 1: "
+            f"'Other model families')")
+
+    def decode(params, cache, tokens, lengths):
+        h = embed(params["embed"], tokens)
+        body = lambda x, p, kv: _dense_decode_block(p, x, cfg, kv, lengths)
+        h, kv = _scan_decode(params["blocks"], cache["kv"], h, body)
+        h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
+        logits = unembed(params["embed"], h, cfg.vocab_size)
+        return logits, {"kv": kv}, lengths + 1
+
+    return decode
 
 
 # ---------------------------------------------------------------------------
@@ -147,3 +212,127 @@ def _checked_prompt(req: Request, prompt_len: int) -> np.ndarray:
             f"last {prompt_len} tokens", RuntimeWarning, stacklevel=3)
         prompt = prompt[-prompt_len:]
     return prompt
+
+
+class ServingEngine:
+    """Slot-based batched serving with greedy decode (the baseline).
+
+    All slots share one decode step; prefill runs per request, at the
+    prompt's own length. The cache, ``lengths`` and ``tokens`` keep their
+    addresses for the engine's life: admission and completion write them
+    in place between steps. On CUDA the step is captured in a CUDA graph as
+    the engine is built and each ``step()`` replays it; ``cuda_graph=False``
+    steps eagerly there, and the CPU always does. ``params`` must already
+    live on ``device``.
+    """
+
+    def __init__(self, cfg: ModelConfig, params, *, slots: int = 4,
+                 prompt_len: int = 64, max_len: int = 256,
+                 device: str | torch.device = "cuda",
+                 cuda_graph: bool = True) -> None:
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.params = params
+        self.slots = slots
+        self.prompt_len = prompt_len
+        self.max_len = max_len
+        dev = self.device
+        self.cache = kvcache.init_cache(cfg, slots, max_len, device=dev)
+        self.lengths = torch.zeros((slots,), dtype=torch.int32, device=dev)
+        self.active: list[Optional[Request]] = [None] * slots
+        self.tokens = torch.zeros((slots, 1), dtype=torch.int32, device=dev)
+        self._decode = make_decode(cfg)
+        self._prefill_one = make_prefill(cfg, max_len, last_only=True)
+        # page-dirty hint for the snapshot store: every cache mutation
+        # (admit prefill, decode step) bumps the version, so an idle
+        # engine's unchanged snapshot short-circuits to a no-op frame
+        self._state_version = 0
+        self.logits: Optional[torch.Tensor] = None
+        self._graph = (CapturedStep(self._step_inplace,
+                                    warmup=self._decode_next, device=dev)
+                       if cuda_graph and dev.type == "cuda" else None)
+
+    def admit(self, req: Request) -> bool:
+        for i, a in enumerate(self.active):
+            if a is None:
+                self.active[i] = req
+                prompt = _checked_prompt(req, self.prompt_len)
+                toks = torch.as_tensor(np.asarray(prompt, np.int32),
+                                       device=self.device)[None, :]
+                logits, cache1, _ = self._prefill_one(self.params, toks)
+                # merge slot i of the batch cache from the single-row cache
+                tree_map(lambda full, one: _set_batch_slot(full, one, i),
+                         self.cache, cache1)
+                self.lengths[i] = len(prompt)
+                nxt = torch.argmax(logits[0, -1]).to(torch.int32)
+                self.tokens[i, 0] = nxt
+                req.out.append(int(nxt))
+                self._state_version += 1
+                return True
+        return False
+
+    def _decode_next(self):
+        """The JAX engine's step on the engine's buffers: (logits, greedy
+        next tokens, lengths + 1) as new tensors; the cache takes the
+        step's K/V rows in place."""
+        logits, _, lengths = self._decode(self.params, self.cache,
+                                          self.tokens, self.lengths)
+        nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        return logits, nxt, lengths
+
+    def _step_inplace(self):
+        """:meth:`_decode_next`, then the next tokens and lengths copied
+        into the engine's own buffers (what a replay must rewrite)."""
+        logits, nxt, lengths = self._decode_next()
+        self.tokens.copy_(nxt[:, None])
+        self.lengths.copy_(lengths)
+        return logits, nxt
+
+    def step(self) -> None:
+        if self._graph is not None:
+            self.logits, nxt = self._graph.replay()
+        else:
+            self.logits, nxt = self._step_inplace()
+        self._state_version += 1
+        nxt_host = nxt.cpu().numpy()   # ONE device->host transfer per step
+        for i, req in enumerate(self.active):
+            if req is None:
+                continue
+            req.out.append(int(nxt_host[i]))
+            if len(req.out) >= req.max_new:
+                req.done = True
+                self.active[i] = None
+                self.lengths[i] = 0
+
+    @property
+    def state_version(self) -> int:
+        """Monotonic cache-mutation counter (bumps on admit and decode)."""
+        return self._state_version
+
+    def snapshot_payload(self) -> dict[str, Any]:
+        """The serve_snapshot payload: the KV slab plus its version hint,
+        which lets an unchanged firing short-circuit to a no-op frame."""
+        return {"cache": self.cache, "version": self._state_version}
+
+    def run(self, requests: list[Request], max_steps: int = 512) -> None:
+        pending = list(requests)
+        for _ in range(max_steps):
+            while pending and self.admit(pending[0]):
+                pending.pop(0)
+            if not pending and all(a is None for a in self.active):
+                return
+            if any(a is not None for a in self.active):
+                self.step()
+
+
+def _set_batch_slot(full: torch.Tensor, one: torch.Tensor, i: int) -> None:
+    """Write the batch row of a single-request cache into slot i, in place.
+
+    The batch axis is the first axis where ``one`` has size 1 and ``full``
+    does not (after the leading layer axis); with one slot the shapes are
+    equal and the whole leaf is copied."""
+    for ax in range(full.ndim):
+        if one.shape[ax] == 1 and full.shape[ax] != one.shape[ax]:
+            full.select(ax, i).copy_(one.select(ax, 0))
+            return
+    full.copy_(one)

@@ -45,19 +45,23 @@ eager: that path is the parity oracle.
 Snapshots: ``snapshot_payload`` emits the pool plus per-page dirty versions
 and per-leaf ``chunk_hints`` sized to one (layer, page) slab, so the
 serve_snapshot delta chunks align to pages and untouched pages frame as
-zero-payload COPY ops. Hydrating an engine from a chain (``from_snapshot``)
-is not ported yet.
+zero-payload COPY ops. ``from_snapshot`` hydrates a replica from a restored
+chain (this package's or the JAX package's): it builds the engine at the
+snapshot's geometry, which captures the graph, then writes the snapshot
+into the engine's buffers in place, so the captured step decodes the
+producer's in-flight requests with no prefill.
 """
 from __future__ import annotations
 
 import json
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Mapping, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.graphs import CapturedStep
+from repro_torch.core import host
 from repro_torch.core.host import resolve_device
 from repro_torch.core.pytree import flatten_with_path, keystr, tree_map
 from repro_torch.models import attention as attn_lib
@@ -192,6 +196,15 @@ class PageAllocator:
         return {"num_pages": self.num_pages,
                 "free": list(self._free),
                 "refs": {str(p): c for p, c in sorted(self._refs.items())}}
+
+    def load_state(self, state: Mapping[str, Any]) -> None:
+        """Restore :meth:`state_dict` output bit-exactly."""
+        if int(state["num_pages"]) != self.num_pages:
+            raise ValueError(
+                f"allocator size mismatch: snapshot has "
+                f"{state['num_pages']} pages, this pool has {self.num_pages}")
+        self._free = [int(p) for p in state["free"]]
+        self._refs = {int(p): int(c) for p, c in state["refs"].items()}
 
 
 # ---------------------------------------------------------------------------
@@ -589,3 +602,91 @@ class PagedServingEngine:
         return {"cache": cache, "version": self._state_version,
                 "page_versions": self._page_versions.copy(),
                 "chunk_hints": dict(self._chunk_hints)}
+
+    # -- replica hydration --------------------------------------------------
+
+    @classmethod
+    def from_snapshot(cls, cfg: ModelConfig, params,
+                      leaves: Mapping[str, np.ndarray], *,
+                      device: str | torch.device = "cuda",
+                      cuda_graph: bool = True) -> "PagedServingEngine":
+        """Rebuild an engine from a restored ``kv_pages`` snapshot.
+
+        ``leaves`` is ``SnapshotStore.restore``'s flattened-key mapping
+        (of either package's chain). The ``meta`` leaf fixes the engine
+        geometry and the host state; the array leaves refill the device
+        buffers bit-exactly. The engine is built first — on CUDA that
+        captures its decode step — and the snapshot is then written into
+        the captured buffers in place. The result decodes in lockstep with
+        the producer at snapshot time: same page pool, same tables, same
+        in-flight requests, same registered prefixes — first token without
+        any prefill. ``params`` must already live on ``device``.
+        """
+        try:
+            meta_leaf = leaves["['meta']"]
+        except KeyError:
+            raise KeyError(
+                "snapshot has no 'meta' leaf — it was published by an "
+                "engine without hydration metadata (pre-prefix-sharing "
+                "chain); re-publish from a current engine") from None
+        meta = json.loads(np.asarray(meta_leaf, np.uint8).tobytes())
+        eng = cls(cfg, params, device=device, cuda_graph=cuda_graph,
+                  **{k: int(v) for k, v in meta["engine"].items()})
+        eng._apply_snapshot(leaves, meta)
+        return eng
+
+    def load_snapshot(self, leaves: Mapping[str, np.ndarray]) -> None:
+        """Re-hydrate *this* engine in place from a restored snapshot.
+
+        Same effect as :meth:`from_snapshot` but keeps the engine's
+        captured step — the warm path for repeated catch-up from a newer
+        chain point, and what time-to-first-token benchmarks time so they
+        measure restore work rather than a capture.
+        """
+        meta = json.loads(np.asarray(leaves["['meta']"], np.uint8).tobytes())
+        geo = {k: int(v) for k, v in meta["engine"].items()}
+        mine = {"num_pages": self.num_pages, "page_size": self.page_size,
+                "max_reqs": self.max_reqs, "prompt_len": self.prompt_len,
+                "max_len": self.max_len}
+        if geo != mine:
+            raise ValueError(f"snapshot geometry {geo} does not match "
+                             f"this engine {mine}; use from_snapshot()")
+        self._apply_snapshot(leaves, meta)
+
+    def _apply_snapshot(self, leaves: Mapping[str, np.ndarray],
+                        meta: Mapping[str, Any]) -> None:
+        """Write the snapshot into the engine's buffers with ``copy_``:
+        they keep their addresses, which the captured step reads and
+        writes. bf16 leaves arrive as tagged ``uint16`` (this package's
+        chains) or ``ml_dtypes`` arrays (the JAX package's);
+        ``host.to_tensor`` takes either to ``torch.bfloat16``."""
+        template = {"pool": self.pool, "state": self.state,
+                    "page_table": self.page_table, "lengths": self.lengths,
+                    "tokens": self.tokens}
+        flat = flatten_with_path(template)
+        for path, buf in flat:
+            key = keystr(path)
+            if key not in leaves:
+                raise KeyError(f"snapshot is missing leaf {key} "
+                               f"(engine geometry drifted since publish)")
+            src = host.to_tensor(leaves[key])
+            if tuple(src.shape) != tuple(buf.shape):
+                raise ValueError(
+                    f"snapshot leaf {key} has shape {tuple(src.shape)}, "
+                    f"this engine's buffer {tuple(buf.shape)}")
+            buf.copy_(src.to(buf.dtype))
+        self.allocator.load_state(meta["allocator"])
+        self._chains = [[int(p) for p in c] for c in meta["chains"]]
+        self._len_host = np.asarray(meta["len_host"], np.int64)
+        self.active = [
+            None if a is None else Request(
+                rid=int(a["rid"]),
+                prompt=np.asarray(a["prompt"], np.int32),
+                max_new=int(a["max_new"]),
+                out=[int(t) for t in a["out"]])
+            for a in meta["active"]]
+        self.prefix.load_state(meta["prefix"])
+        self.prefill_tokens = int(meta["counters"]["prefill_tokens"])
+        self.shared_tokens = int(meta["counters"]["shared_tokens"])
+        self._state_version = int(meta["version"])
+        self._page_versions = np.asarray(meta["page_versions"], np.int64)

@@ -38,7 +38,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
-from typing import Any, Optional
+from typing import Any, Mapping, Optional
 
 import numpy as np
 import torch
@@ -183,6 +183,18 @@ class PrefixCache:
                  "pages": list(e.pages), "clock": e.clock}
                 for e in self._entries.values()],
         }
+
+    def load_state(self, state: Mapping[str, Any]) -> None:
+        """Restore :meth:`state_dict` output (replica hydration)."""
+        self._clock = int(state["clock"])
+        self.hits = int(state["hits"])
+        self.misses = int(state["misses"])
+        self.evictions = int(state["evictions"])
+        self._entries = {}
+        for e in state["entries"]:
+            self._entries[e["key"]] = PrefixEntry(
+                key=e["key"], tokens=np.asarray(e["tokens"], np.int32),
+                pages=[int(p) for p in e["pages"]], clock=int(e["clock"]))
 
 
 # ---------------------------------------------------------------------------

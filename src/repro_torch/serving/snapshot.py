@@ -619,6 +619,20 @@ class SnapshotStore:
             template, leaves,
             what="snapshot (tree shape drifted since publish)")
 
+    def restorable(self, stream: str) -> bool:
+        """True when the stream's chain currently replays end to end.
+
+        The replica-hydration loop polls this while frames stream in over
+        a mirror: a chain whose base hasn't arrived yet (the consumer may
+        attach mid-chain) is simply not restorable *yet*, not corrupt.
+        """
+        with self._lock:
+            try:
+                self._replay(stream)
+                return True
+            except (KeyError, SnapshotCorruptError):
+                return False
+
     # -- introspection --------------------------------------------------------
 
     def chain_depth(self, stream: str) -> int:

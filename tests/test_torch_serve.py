@@ -57,8 +57,6 @@ def test_prefix_requests_share_pages():
 
 def test_waiting_parts_say_so():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve_loop("smollm-135m", engine_kind="dense", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         serve_loop("hymba-1.5b", device="cpu")
     plan = default_serve_plan()
     plan["tasks"]["fault"] = {"stream": "kv_pages", "preset": "fault"}
