@@ -138,7 +138,10 @@ Phases (any failure exits non-zero; none is swallowed):
    ``serve_loop(engine_kind="dense")`` and ``"paged"`` on the same
    traffic, both graphed: every request served; tok/s and equal tokens
    printed (no order gated); the first decode step of a dense and a
-   paged engine from the same admissions within atol 0.125.
+   paged engine from the same admissions within atol 0.125 (bf16:
+   information, not a fault gate). (d) The same traffic in f32 (config
+   and weights cast) through the dense 4-slot engine and a 4-row paged
+   engine, both graphed: every stream equal token for token.
 9. train   — the port's ``train_loop("smollm-135m", smoke=False)``:
    full published widths, batch 4 x 4096 tokens (``train_4k``'s length,
    its global batch of 256 cut to 4 for one card), bf16 state from seed
@@ -167,12 +170,38 @@ Phases (any failure exits non-zero; none is swallowed):
    step time, the checkpoint's loop-blocking seconds, its worker seconds,
    raw/stored bytes and the restore time; the p_o/p_i allocator's choice
    from the measured SYNC and ASYNC save costs.
+11. insitu — the legacy in-situ engine path, the checkpoint write layouts
+   and the examples. (a) ``run_pipeline`` drives a ``PipelineRuntime``
+   whose HYBRID task's device stage is ``ops.spectral_compress`` over an
+   ``embed``-sized CUDA tensor (110,592 blocks, 3 firings), and
+   ``run_workflow`` an ``InSituEngine`` with a SYNC and an ASYNC task that
+   compress the hand-off on the card on their own thread's stream. Gates:
+   q and scale of each firing bitwise equal to a ``Session`` run of the
+   equivalent plan on the same inputs (and across the three placements);
+   kernels 6, 7 and 4 once a firing and no other kernel (counts set to 0
+   before each run, read after); SYNC results from the loop thread, ASYNC
+   ones from ``insitu-*`` workers; the engine's report has the session
+   report's keys. (b) The full-width ``smollm-135m`` state (params, AdamW
+   moments filled from seed 1) saved through a HYBRID
+   ``CheckpointManager`` with ``shard_count=4``, again with ``format=1``,
+   and its moments and count once more with ``leaf_parallel=False,
+   chunk_parallel=False``: one dispatch of kernels 2-4 a save; more than
+   one shard; each v1 file byte for byte the bytes at its offset in the
+   shards; the serial save's blobs equal to the fanned-out save's; both
+   layouts restore with every leaf but the moments bitwise and moments
+   within ``error_bound(eps)``, 22 ``dequant_idct`` launches each. Printed:
+   each save's wall, loop-blocking and worker seconds, and each restore's
+   seconds. (c) ``examples/torch_quickstart.py`` and
+   ``examples/torch_compression_demo.py`` as child processes on the card:
+   exit 0, the three placements' lines, "weights bit-exact = True". The
+   phase must take at most 90 s.
 
 The last lines are the card line, one JSON object with every kernel's
 numbers, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -194,6 +223,8 @@ FLAT_EPS = (1e-3, 1e-2, 1e-1, 1.5)  # the flat/two-level threshold gate
 ROOFLINE_ITERS = 10                 # timed calls per kernel_report
 TRAIN = dict(steps=20, ckpt_every=5, resume_steps=5)
 PLACEMENTS = dict(steps=10, ckpt_every=5)     # the SYNC/ASYNC runs
+INSITU = dict(steps=3, shard_count=4)          # the insitu phase
+INSITU_BUDGET_S = 90.0
 
 
 def log(msg: str) -> None:
@@ -1644,7 +1675,67 @@ def stream_phase(build: Path) -> dict:
         f"{d['first_step_argmax_agreement']:.3f}")
     del dense, paged, params
     torch.cuda.empty_cache()
+
+    # 4. the same comparison in f32, gated token for token
+    result["dense_vs_paged_f32"] = dense_vs_paged_f32(cfg)
     return result
+
+
+def dense_vs_paged_f32(cfg) -> dict:
+    """The serve traffic through the dense 4-slot engine and a 4-row paged
+    engine, both graphed, from the same f32 weights: in f32 dense = paged
+    must hold token for token, as the JAX package and the CPU test hold
+    it (bf16 rounding flips near-tied greedy tokens; f32 must not)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import params as P
+    from repro_torch.models import transformer
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.pages import PagedServingEngine
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = P.cast_tree(P.materialize(torch.Generator().manual_seed(0),
+                                         transformer.param_spec(cfg), "cuda"),
+                           torch.float32)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, 16)
+               for _ in range(SERVE["n_requests"])]
+    streams32 = {}
+    t0 = time.perf_counter()
+    for kind in ("dense", "paged"):
+        reqs = [Request(i, pr, max_new=SERVE["max_new"])
+                for i, pr in enumerate(prompts)]
+        if kind == "dense":
+            eng = ServingEngine(cfg32, params32, slots=SERVE["slots"],
+                                prompt_len=16, max_len=64, device="cuda")
+        else:
+            eng = PagedServingEngine(cfg32, params32,
+                                     num_pages=SERVE["num_pages"],
+                                     page_size=SERVE["page_size"],
+                                     max_reqs=SERVE["slots"], prompt_len=16,
+                                     max_len=64, device="cuda")
+        assert eng._graph is not None, kind
+        eng.run(reqs, max_steps=1024)
+        assert all(r.done and len(r.out) == r.max_new for r in reqs), kind
+        streams32[kind] = [r.out for r in reqs]
+        del eng
+    f32_s = time.perf_counter() - t0
+    equal32 = sum(a == b for ra, rb in zip(streams32["dense"],
+                                            streams32["paged"])
+                  for a, b in zip(ra, rb))
+    n32 = sum(len(r) for r in streams32["dense"])
+    out = {
+        "equal_tokens": equal32, "tokens": n32, "wall_s": f32_s,
+        "equal_streams": sum(a == b for a, b in zip(streams32["dense"],
+                                                    streams32["paged"]))}
+    log(f"stream: dense vs paged in f32, both graphed: {equal32}/{n32} "
+        f"tokens equal ({out['equal_streams']}/"
+        f"{SERVE['n_requests']} streams) in {f32_s:.1f} s")
+    assert streams32["dense"] == streams32["paged"], (
+        "f32 dense and paged engines decoded different tokens")
+    del params32
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2082,6 +2173,323 @@ def placements_phase(ckpt_root: Path, hybrid: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# insitu phase
+# ---------------------------------------------------------------------------
+
+def _host_qs(q, scale) -> tuple:
+    """(q, scale) as host numpy, for bitwise comparisons."""
+    import numpy as np
+
+    return tuple(np.asarray(a.cpu().numpy() if hasattr(a, "cpu") else a)
+                 for a in (q, scale))
+
+
+def _same_qs(a: tuple, b: tuple) -> bool:
+    import numpy as np
+
+    return all(x.dtype == y.dtype and np.array_equal(x, y)
+               for x, y in zip(a, b))
+
+
+def _single_launches(K, want: int) -> dict:
+    """Launch counts of the spectral kernels, gated to ``want`` launches
+    of each single-tensor kernel (6, 7 and 4) and none of the others."""
+    launches = {k.__name__: k.launches for k in K.KERNELS}
+    for name, n in launches.items():
+        single = name in ("dct_hist_coarse", "hist_refine", "threshold_quant")
+        assert n == (want if single else 0), (name, launches, want)
+    return launches
+
+
+def legacy_path(embed_shape: tuple) -> dict:
+    """(a) ``run_pipeline`` and ``run_workflow`` on the card, each against
+    a ``Session`` run of the equivalent plan on the same inputs."""
+    import threading
+
+    import numpy as np
+    import torch
+    from repro_torch.core import (Every, InSituEngine, InSituMode,
+                                  InSituPlan, InSituTask, PipelineRuntime,
+                                  PipelineTask, Placement, Session, TaskSpec,
+                                  host, run_pipeline, run_workflow)
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import spectral_lossy as K
+
+    dev = torch.device("cuda")
+    steps = INSITU["steps"]
+    gen = torch.Generator(device=dev).manual_seed(21)
+    xs = [torch.randn(embed_shape, generator=gen, device=dev) * (1 + i)
+          for i in range(steps)]
+    main_thread = threading.main_thread().name
+    out: dict = {"steps": steps, "blocks": math.prod(embed_shape) // 256}
+
+    def app(i):
+        return {"x": lambda: xs[i]}
+
+    # HYBRID: the device stage compresses on the loop's stream; the sink
+    # gets the host Compressed of the hand-off
+    got: dict = {}
+
+    def hybrid_sink(tag):
+        def sink(step, c):
+            got[(tag, step)] = _host_qs(c.q, c.scale)
+            return step
+        return sink
+
+    def device_stage(step, x):
+        return ops.spectral_compress(x, EPS)
+
+    rt = PipelineRuntime([PipelineTask(
+        "hybrid", "x", sink=hybrid_sink("pipeline"),
+        device_stage=device_stage, placement=Placement.HYBRID)],
+        workers=2, staging_capacity=2)
+    K.reset_launches()
+    t0 = time.perf_counter()
+    tm = run_pipeline(steps, app, rt)
+    torch.cuda.synchronize()
+    out["run_pipeline_s"] = time.perf_counter() - t0
+    out["run_pipeline_launches"] = _single_launches(K, steps)
+    assert not rt.errors, rt.errors[:1]
+    assert len(tm.spans("step/compute")) == steps
+    assert len(tm.spans("insitu-device/hybrid")) == steps
+    sess = Session(InSituPlan(
+        streams=["x"], tasks=[TaskSpec(
+            name="hybrid", stream="x", sink=hybrid_sink("session"),
+            device_stage=device_stage, placement=Placement.HYBRID)],
+        workers=2, staging_capacity=2), raise_on_error=True)
+    sess.run(steps, app)
+    for i in range(steps):
+        assert _same_qs(got[("pipeline", i)], got[("session", i)]), i
+
+    # SYNC + ASYNC: the task compresses the host payload on the card, on
+    # its thread's own stream (the loop's for SYNC, a worker's for ASYNC)
+    def compress(step, payload):
+        with host.worker_stream(dev):
+            c = ops.spectral_compress(host.to_device(payload, dev), EPS)
+            return _host_qs(c.q, c.scale)
+
+    tasks = [InSituTask("sync", "x", compress, mode=InSituMode.SYNC),
+             InSituTask("async", "x", compress, mode=InSituMode.ASYNC)]
+    eng = InSituEngine(tasks, p_i=2, staging_capacity=2)
+    K.reset_launches()
+    t0 = time.perf_counter()
+    run_workflow(steps, app, eng)
+    torch.cuda.synchronize()
+    out["run_workflow_s"] = time.perf_counter() - t0
+    out["run_workflow_launches"] = _single_launches(K, 2 * steps)
+    assert not eng.errors, eng.errors[:1]
+    assert len(eng.results) == 2 * steps
+    for r in eng.results:
+        if r.task == "sync":
+            assert r.worker == main_thread, r.worker
+        else:
+            assert r.worker.startswith("insitu-"), r.worker
+    sess2 = Session(InSituPlan(
+        streams=["x"], tasks=[
+            TaskSpec(name=t.name, stream="x", sink=compress,
+                     trigger=Every(1), placement=t.mode) for t in tasks],
+        workers=2, staging_capacity=2), raise_on_error=True)
+    sess2.run(steps, app)
+    want = {(r.task, r.step): r.result for r in sess2.results}
+    assert len(want) == 2 * steps
+    for r in eng.results:
+        assert _same_qs(r.result, want[(r.task, r.step)]), (r.task, r.step)
+        # every placement compresses the same input to the same bits
+        assert _same_qs(r.result, got[("pipeline", r.step)]), (r.task,
+                                                                r.step)
+    rep, srep = eng.report(), sess2.report()
+    assert set(rep) == set(srep), sorted(set(rep) ^ set(srep))
+    assert rep["tasks"] == srep["tasks"], (rep["tasks"], srep["tasks"])
+    out["report"] = {k: rep[k] for k in (
+        "step_compute_s", "handoff_s", "sync_stall_s", "async_overlapped_s",
+        "n_results", "n_errors")}
+    del xs, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def _leaf_bytes(d: Path) -> dict:
+    """keystr -> the stored bytes of each leaf of a checkpoint directory."""
+    from repro_torch.checkpoint import serialization as ser
+
+    files: dict = {}
+    out = {}
+    for key, e in ser.read_manifest(str(d))["leaves"].items():
+        if e["file"] not in files:
+            files[e["file"]] = (d / e["file"]).read_bytes()
+        off = e.get("offset", 0)
+        out[key] = files[e["file"]][off:off + e["bytes"]]
+    return out
+
+
+def checkpoint_writes(ckpt_root: Path, n_lossy: int) -> dict:
+    """(b) HYBRID saves of the full-width state in both layouts, and the
+    serial encode, each restored or compared byte for byte. The serial
+    save (no leaf or chunk fan-out: one zlib thread) takes the moments and
+    the step count only: the same 22 lossy leaves and one dispatch of
+    kernels 2-4, without the 270 MB of bf16 params whose single-threaded
+    encode would not fit the phase's budget."""
+    import torch
+    from repro_torch.checkpoint import (CheckpointConfig, CheckpointManager,
+                                        serialization as ser)
+    from repro_torch.configs import base as configs
+    from repro_torch.core import host, pytree
+    from repro_torch.core.runtime import Placement
+    from repro_torch.kernels import spectral_lossy as K
+    from repro_torch.launch import train as T
+
+    cfg = configs.get("smollm-135m")
+    state = T.init_state(cfg, 0, T.StepConfig().opt, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for grp, scale in (("mu", 1e-3), ("nu", 1e-6)):   # moments of a run
+        for t in pytree.leaves(state[grp]):
+            r = torch.randn(t.shape, generator=gen, device="cuda") * scale
+            t.copy_(r.abs() if grp == "nu" else r)
+    torch.cuda.synchronize()
+    if ckpt_root.exists():
+        shutil.rmtree(ckpt_root)
+    out: dict = {}
+    mgrs = {}
+    moments = {k: state[k] for k in ("mu", "nu", "count")}
+    for name, kw, tree in (
+            ("v2", {"shard_count": INSITU["shard_count"]}, state),
+            ("v1", {"format": 1}, state),
+            ("v2_serial", {"shard_count": INSITU["shard_count"],
+                           "leaf_parallel": False, "chunk_parallel": False},
+             moments)):
+        mgr = CheckpointManager(CheckpointConfig(
+            str(ckpt_root / name), mode=Placement.HYBRID, every=1, **kw))
+        K.reset_launches()
+        t0 = time.perf_counter()
+        mgr.save(0, tree)
+        mgr.wait_idle()
+        wall = time.perf_counter() - t0
+        launches = {k.__name__: k.launches for k in K.KERNELS}
+        mgr.finish()
+        assert not mgr.runtime.errors, mgr.runtime.errors[:1]
+        for k, n in launches.items():
+            tiled = k in ("dct_hist_coarse_tiled", "hist_refine_tiled",
+                          "threshold_quant")
+            assert n == (1 if tiled else 0), (name, launches)
+        rep = mgr.reports[-1]
+        tm = mgr.telemetry
+        out[name] = {"wall_s": wall, "blocking_s": _ckpt_blocking_s(tm),
+                     "worker_s": tm.total("insitu-async/checkpoint"),
+                     "raw_bytes": rep.raw_bytes,
+                     "stored_bytes": rep.stored_bytes, "launches": launches}
+        mgrs[name] = mgr
+    d2, d1, ds = (ckpt_root / n / "step_000000000"
+                  for n in ("v2", "v1", "v2_serial"))
+    man2, man1 = ser.read_manifest(str(d2)), ser.read_manifest(str(d1))
+    files = sorted({e["file"] for e in man2["leaves"].values()})
+    assert len(files) > 1, files
+    assert man1["format"] == 1 and man2["format"] == 2
+    shards = {f: (d2 / f).read_bytes() for f in files}
+    for key, e in man2["leaves"].items():
+        e1 = man1["leaves"][key]
+        assert e1["file"] == ser._fname(key), key
+        blob = (d1 / e1["file"]).read_bytes()
+        assert blob == shards[e["file"]][e["offset"]:e["offset"] + e["bytes"]
+                                         ], key
+    serial, fanned = _leaf_bytes(ds), _leaf_bytes(d2)
+    assert len(serial) == n_lossy + 1, len(serial)
+    for key, blob in serial.items():
+        assert blob == fanned[key], key
+    out["shard_files"] = len(files)
+    out["shard_mb"] = [len(shards[f]) / 1e6 for f in files]
+    out["leaves"] = len(man2["leaves"])
+    emitted = {pytree.keystr(p): host.to_numpy(t.cpu())
+               for p, t in pytree.flatten_with_path(state)}
+    for name in ("v2", "v1"):
+        K.reset_launches()
+        t0 = time.perf_counter()
+        step, restored = mgrs[name].restore(state)
+        torch.cuda.synchronize()
+        out[name]["restore_s"] = time.perf_counter() - t0
+        assert step == 0
+        assert K.dequant_idct.launches == n_lossy, K.dequant_idct.launches
+        out[name]["restore_launches"] = K.dequant_idct.launches
+        out[name]["moments_worst_rel_l2"] = _check_restored(restored,
+                                                            emitted, name)
+        del restored
+    del state, emitted
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_examples() -> dict:
+    """(c) The port's quickstart and compression demo as child processes on
+    the card (their default device)."""
+    out = {}
+    for script, gate in (
+            ("torch_quickstart.py",
+             lambda ls: [ln.split(":")[0].strip() for ln in ls
+                         if ": wall=" in ln and ln.endswith("results=5")]
+             == ["sync", "async", "hybrid"]),
+            ("torch_compression_demo.py",
+             lambda ls: "  restored step 100: weights bit-exact = True"
+             in ls)):
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, str(ROOT / "examples" / script)],
+                             capture_output=True, text=True, timeout=300,
+                             cwd=ROOT)
+        wall = time.perf_counter() - t0
+        lines = run.stdout.splitlines()
+        for ln in lines:
+            log(f"insitu (example {script}): {ln}")
+        assert run.returncode == 0, (script, run.returncode,
+                                     run.stderr[-3000:])
+        assert gate(lines), (script, lines)
+        out[script] = {"wall_s": wall, "lines": lines}
+    return out
+
+
+def insitu_phase(ckpt_root: Path) -> dict:
+    """The legacy in-situ engine path, the checkpoint write layouts and the
+    examples on the card (see the module docstring, phase 11)."""
+    from repro_torch.configs import base as configs
+    from repro_torch.models import transformer
+
+    cfg = configs.get("smollm-135m")
+    embed = tuple(transformer.param_spec(cfg)["embed"]["embedding"].shape)
+    n_lossy = len(moment_rows(cfg)[2])
+    t0 = time.perf_counter()
+    legacy = legacy_path(embed)
+    legacy["wall_s"] = time.perf_counter() - t0
+    log(f"insitu (legacy): run_pipeline HYBRID {legacy['steps']} firings "
+        f"over {embed} ({legacy['blocks']} blocks) in "
+        f"{legacy['run_pipeline_s']:.3f} s, run_workflow SYNC + ASYNC "
+        f"{2 * legacy['steps']} firings in {legacy['run_workflow_s']:.3f} s; "
+        f"q and scale bitwise the Session runs' and equal across "
+        f"placements; kernels 6/7/4 once a firing "
+        f"({legacy['run_workflow_launches']['dct_hist_coarse']} in the "
+        f"workflow); SYNC on the loop thread, ASYNC on insitu-* workers")
+    t0 = time.perf_counter()
+    ck = checkpoint_writes(ckpt_root, n_lossy)
+    ck["wall_s"] = time.perf_counter() - t0
+    for name in ("v2", "v1", "v2_serial"):
+        c = ck[name]
+        restore = (f", restore {c['restore_s']:.3f} s ({c['restore_launches']}"
+                   f" dequant_idct, moments worst rel L2 "
+                   f"{c['moments_worst_rel_l2']:.4e})"
+                   if "restore_s" in c else "")
+        log(f"insitu (checkpoint {name}): save wall {c['wall_s']:.3f} s, "
+            f"loop-blocking {c['blocking_s']:.4f} s, worker "
+            f"{c['worker_s']:.3f} s, {c['raw_bytes']} -> "
+            f"{c['stored_bytes']} bytes{restore}")
+    log(f"insitu (checkpoint): {ck['shard_files']} shards "
+        f"({', '.join(f'{mb:.1f}' for mb in ck['shard_mb'])} MB) of "
+        f"{ck['leaves']} leaves; every v1 file equals its v2 bytes; the "
+        f"serial encode of the moments wrote the same blobs")
+    t0 = time.perf_counter()
+    examples = run_examples()
+    walls = {k: round(v["wall_s"], 3) for k, v in examples.items()}
+    log(f"insitu (examples): exit 0, walls {walls} s")
+    return {"legacy": legacy, "checkpoint": ck, "examples": examples,
+            "examples_s": time.perf_counter() - t0}
+
+
 def main() -> int:
     import torch
 
@@ -2138,6 +2546,11 @@ def main() -> int:
     placements = placements_phase(ROOT / "build" / "smoke_ckpt_placements",
                                   train)
     log(f"train (sync/async ckpt) phase: {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    insitu = insitu_phase(ROOT / "build" / "smoke_insitu")
+    insitu["phase_s"] = time.perf_counter() - t0
+    log(f"insitu phase: {insitu['phase_s']:.1f}s")
+    assert insitu["phase_s"] <= INSITU_BUDGET_S, insitu["phase_s"]
 
     main_path = kern["serve"]
     record = {
@@ -2174,11 +2587,20 @@ def main() -> int:
             ("threshold_quant", 436, train["save_launches"]["threshold_quant"]),
             ("dequant_idct", 488, train["resume_launches"]["dequant_idct"])):
         tm = spec["timing"][name]
+        ick = insitu["checkpoint"]
         by_path = ({"train_resume": launches, "stream_consumed_restore":
-                    stream["mirror"]["restore_launches"]}
+                    stream["mirror"]["restore_launches"],
+                    "insitu_restores": sum(ick[n]["restore_launches"]
+                                           for n in ("v2", "v1"))}
                    if name == "dequant_idct" else
                    {"train_hybrid": launches, "stream_mirrored_train":
-                    stream["mirror"]["save_launches"][name]})
+                    stream["mirror"]["save_launches"][name],
+                    "insitu_saves": sum(ick[n]["launches"][name]
+                                        for n in ("v2", "v1", "v2_serial"))})
+        if name == "threshold_quant":
+            by_path["insitu_legacy"] = sum(
+                insitu["legacy"][k][name]
+                for k in ("run_pipeline_launches", "run_workflow_launches"))
         records.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/spectral_lossy.cu",
@@ -2206,6 +2628,11 @@ def main() -> int:
             "launches_per": "ASYNC training run with 2 saves (22 per save)",
             "launches_by_run": {m: placements[m]["launches"][name]
                                 for m in ("sync", "async")},
+            "launches_by_path": {
+                "insitu_run_pipeline":
+                    insitu["legacy"]["run_pipeline_launches"][name],
+                "insitu_run_workflow":
+                    insitu["legacy"]["run_workflow_launches"][name]},
             "max_abs_err": single["max_abs_err"][name],
             "ms": tm["ms"], "kernel_ms": tm["ms"],
             "device_ms": tm["device_ms"], "plain_ms": tm["plain_ms"],
@@ -2248,6 +2675,7 @@ def main() -> int:
     log(json.dumps({"single_tensor": {k: v for k, v in single.items()
                                       if k != "timing"}}))
     log(json.dumps({"train_placements": placements}))
+    log(json.dumps({"insitu": insitu}))
     log(json.dumps({"roofline": {k: v for k, v in roof.items()
                                  if k != "reports"}}))
     log(card)

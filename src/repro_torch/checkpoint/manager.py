@@ -15,9 +15,17 @@ single declarative pipeline into a
     HostStage    'encode': lossless framing of every leaf — a FanoutStage
                  whose per-leaf items are stolen by idle runtime workers,
                  each additionally chunk-parallel on the shared codec pool
-    Sink         'write': one packed shard file (v2 offset-table layout) ->
-                 manifest -> crash-safe directory publish, then
-                 lock-guarded retention, then the optional mirror
+    Sink         'write': packed shard files (v2 offset-table layout;
+                 ``shard_count`` byte-balanced ``shard_NNN.bin``) or, with
+                 ``format=1``, one file per leaf -> manifest -> crash-safe
+                 directory publish, then lock-guarded retention, then the
+                 optional mirror
+
+``leaf_parallel=False`` replaces the fan-out with one serial 'encode'
+stage that walks every leaf on the worker running the chain (each lossy
+leaf still on that worker's own CUDA stream); ``chunk_parallel=False``
+keeps the chunks of a large leaf off the shared codec pool, on save and
+on restore. Neither changes a stored byte.
 
 SYNC / ASYNC / HYBRID are scheduling policies of the shared runtime, not
 manager code paths. Durability: blobs -> manifest -> atomic directory
@@ -38,7 +46,7 @@ import torch
 from repro_torch.checkpoint import serialization as ser
 from repro_torch.core import codecs, transport
 from repro_torch.core.runtime import (FanoutStage, PipelineRuntime,
-                                      PipelineTask, Placement,
+                                      PipelineTask, Placement, Stage,
                                       default_handoff)
 from repro_torch.core.telemetry import Telemetry
 
@@ -64,6 +72,10 @@ class CheckpointConfig:
     lossy_moments: bool = True
     p_i: int = 2                      # workers for a manager-owned runtime
     staging_capacity: int = 2
+    chunk_parallel: bool = True       # fan leaf chunks out on the codec pool
+    format: int = ser.CHECKPOINT_FORMAT  # 2: packed shards; 1: file per leaf
+    shard_count: int = 1              # v2: number of shard_NNN.bin files
+    leaf_parallel: bool = True        # fan encode out per leaf on the pool
     mirror: Optional[str] = None      # transport URL replicating committed
                                       # steps (file:// | memory:// | tcp://)
     # where the lossy stage of the non-hybrid placements runs and where
@@ -79,6 +91,14 @@ class CheckpointConfig:
         if self.keep < 0:
             raise ValueError(
                 f"CheckpointConfig.keep must be >= 0, got {self.keep}")
+        if self.format not in (1, ser.CHECKPOINT_FORMAT):
+            raise ValueError(
+                f"CheckpointConfig.format must be 1 (per-leaf files) or "
+                f"{ser.CHECKPOINT_FORMAT} (packed shards), got {self.format}")
+        if self.shard_count < 1:
+            raise ValueError(
+                f"CheckpointConfig.shard_count must be >= 1, "
+                f"got {self.shard_count}")
 
 
 class CheckpointManager:
@@ -111,9 +131,11 @@ class CheckpointManager:
         device_stage = (self._device_lossy
                         if cfg.mode is Placement.HYBRID and cfg.lossy_moments
                         else None)
-        encode = FanoutStage("encode", split=self._encode_split,
-                             fn=self._encode_leaf_item,
-                             gather=self._encode_gather)
+        encode = (FanoutStage("encode", split=self._encode_split,
+                              fn=self._encode_leaf_item,
+                              gather=self._encode_gather)
+                  if cfg.leaf_parallel
+                  else Stage("encode", self._encode_stage))
         self._task = self.runtime.register(PipelineTask(
             name="checkpoint",
             source="ckpt_state",
@@ -145,10 +167,20 @@ class CheckpointManager:
         return {"state": ser.state_to_host(state),
                 "bf16_keys": ser.bf16_keys(state), "meta": meta or {}}
 
+    def _codec_pool(self):
+        return codecs.codec_pool() if self.cfg.chunk_parallel else None
+
     def _encode_kw(self) -> dict:
         return dict(lossless=self.cfg.lossless, eps=self.cfg.lossy_eps,
                     lossy_policy=self._lossy_policy(),
-                    pool=codecs.codec_pool(), device=self.cfg.device)
+                    pool=self._codec_pool(), device=self.cfg.device)
+
+    def _encode_stage(self, step: int, payload: dict) -> dict:
+        """Serial host stage (``leaf_parallel=False``): walk every leaf."""
+        encoded = ser.encode_blobs(payload["state"],
+                                   bf16_keys=payload["bf16_keys"],
+                                   **self._encode_kw())
+        return {"encoded": encoded, "meta": payload["meta"]}
 
     # leaf-parallel encode: one work item per leaf, stolen by idle runtime
     # workers (FanoutStage), gathered before the sink so the commit protocol
@@ -172,7 +204,11 @@ class CheckpointManager:
         final = os.path.join(self.cfg.directory, f"step_{step:09d}")
         if os.path.exists(tmp):
             shutil.rmtree(tmp)
-        entries = ser.write_encoded_shard(tmp, payload["encoded"])
+        if self.cfg.format >= ser.CHECKPOINT_FORMAT:
+            entries = ser.write_encoded_shards(tmp, payload["encoded"],
+                                               self.cfg.shard_count)
+        else:
+            entries = ser.write_encoded(tmp, payload["encoded"])
         ser.write_manifest(tmp, step, entries, payload["meta"])
         ser.commit(tmp, final)
         self._mirror_committed(step, final)
@@ -253,7 +289,7 @@ class CheckpointManager:
             state = ser.read_state(d, template,
                                    device if device is not None
                                    else self.cfg.device,
-                                   pool=codecs.codec_pool())
+                                   pool=self._codec_pool())
         return step, state
 
     def read_meta(self, step: Optional[int] = None) -> dict:

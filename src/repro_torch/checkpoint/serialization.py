@@ -8,20 +8,26 @@ moments by default). A JSON manifest binds the tree structure
 JAX package's: a checkpoint written by either package restores in the
 other.
 
-Layout v2 (packed shards — the one the port writes):
+Layout v2 (packed shards — the default):
     <dir>/step_000123/
         manifest.json        {step, format: 2, leaves: {key: {file, offset,
                               bytes, raw_bytes, lossy, bf16}}, meta}
         shard_000.bin        concatenated framed blobs, offset-addressed
-The port writes one shard; a v2 checkpoint of several ``shard_NNN.bin``
-files (the JAX package's ``shard_count > 1``) and layout v1 (one
-``<key-hash>.bin`` file per leaf, entries without an ``offset``) are read.
+        [shard_NNN.bin ...]  byte-balanced when shard_count > 1
+All leaf blobs are packed into few large files bound by the manifest's
+offset table, so save cost is IO bandwidth, not per-leaf open/write/fsync
+metadata pressure, and restore can readahead each shard sequentially.
+
+Layout v1 (legacy, one file per leaf) is still written by format=1 configs
+and always restored: entries without an ``offset`` name a per-leaf
+``<key-hash>.bin`` file. Both layouts, shard boundaries and file names
+included, are the JAX package's byte for byte.
 
 bf16 leaves are stored as their raw 16-bit pattern (a plain uint16 frame)
 with ``bf16: true`` in the manifest, as the JAX package stores them.
 
-Commit/durability protocol:
-  1. blobs written and **fsynced** (the shard file),
+Commit/durability protocol (both layouts):
+  1. blobs written and **fsynced** (per shard file / per leaf file),
   2. manifest written to a tmp name, fsynced, renamed into the tmp dir,
   3. the tmp dir is atomically published by ``commit``: any existing final
      dir is first moved *aside* (sibling rename — never deleted while it is
@@ -34,6 +40,7 @@ Commit/durability protocol:
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import mmap
 import os
@@ -60,6 +67,12 @@ _OLD_RE = re.compile(r"^\.old_(step_\d{9})$")
 
 class CheckpointCorruptError(RuntimeError):
     """A stored blob does not match its manifest entry (truncation/corruption)."""
+
+
+def _fname(key: str) -> str:
+    """A v1 leaf file's name: the JAX package's, so a v1 directory of
+    either package has the same files."""
+    return hashlib.sha1(key.encode()).hexdigest()[:16] + ".bin"
 
 
 def _fsync_dir(path: str) -> None:
@@ -161,28 +174,91 @@ def encode_leaf(key: str, arr, *, lossless: str = "zlib", eps: float = 1e-2,
                   "raw_bytes": raw_bytes, "bf16": is_bf16}
 
 
-def write_encoded_shard(directory: str,
-                        encoded: dict[str, tuple[bytes, dict]]
-                        ) -> dict[str, dict]:
-    """v2 write stage: pack every blob into one fsynced shard file.
+def encode_blobs(host_state: dict[str, np.ndarray | Compressed], *,
+                 lossless: str = "zlib", eps: float = 1e-2,
+                 lossy_policy: Optional[Callable[[str], bool]] = None,
+                 bf16_keys: Optional[set] = None, pool=None,
+                 device: str | torch.device = "cuda"
+                 ) -> dict[str, tuple[bytes, dict]]:
+    """Serial leaf walk over ``encode_leaf`` (the pipeline fans leaves out)."""
+    return {key: encode_leaf(key, arr, lossless=lossless, eps=eps,
+                             lossy_policy=lossy_policy, bf16_keys=bf16_keys,
+                             pool=pool, device=device)
+            for key, arr in host_state.items()}
 
-    One open/write/fsync, with the manifest's offset table binding each
-    leaf to (file, offset, bytes). Leaves pack sequentially in dict order.
-    """
+
+def write_encoded(directory: str,
+                  encoded: dict[str, tuple[bytes, dict]]) -> dict[str, dict]:
+    """v1 write stage: one fsynced file per leaf; returns manifest entries."""
     os.makedirs(directory, exist_ok=True)
     entries: dict[str, dict] = {}
-    if not encoded:
+    for key, (blob, ent) in encoded.items():
+        fn = _fname(key)
+        with open(os.path.join(directory, fn), "wb") as f:
+            f.write(blob)
+            f.flush()
+            # a published manifest must never point at unwritten blob bytes
+            os.fsync(f.fileno())
+        entries[key] = {"file": fn, **ent}
+    return entries
+
+
+def write_encoded_shards(directory: str,
+                         encoded: dict[str, tuple[bytes, dict]],
+                         shard_count: int = 1) -> dict[str, dict]:
+    """v2 write stage: pack every blob into ``shard_count`` fsynced files.
+
+    One open/write/fsync per *shard* — independent of leaf count — with the
+    manifest's offset table binding each leaf to (file, offset, bytes).
+    Leaves pack sequentially in dict order; when ``shard_count > 1`` the
+    stream rolls over at byte-balanced boundaries: a shard closes once it
+    holds ``ceil(total / shard_count)`` bytes (``shard_count`` is an upper
+    bound, clamped to the number of leaves: a few large leaves may fill
+    the budget in fewer files).
+    """
+    os.makedirs(directory, exist_ok=True)
+    items = list(encoded.items())
+    entries: dict[str, dict] = {}
+    if not items:
         return entries
-    fn = _SHARD_FMT.format(0)
-    offset = 0
-    with open(os.path.join(directory, fn), "wb") as f:
-        for key, (blob, ent) in encoded.items():
+    total = sum(len(blob) for _, (blob, _) in items)
+    shard_count = max(1, min(int(shard_count), len(items)))
+    target = max(1, -(-total // shard_count))          # ceil(total/shards)
+    si, offset, f = 0, 0, None
+    try:
+        for key, (blob, ent) in items:
+            if f is None:
+                fn = _SHARD_FMT.format(si)
+                f = open(os.path.join(directory, fn), "wb")
+                offset = 0
             entries[key] = {"file": fn, "offset": offset, **ent}
             f.write(blob)
             offset += len(blob)
-        f.flush()
-        os.fsync(f.fileno())
+            if offset >= target and si < shard_count - 1:
+                f.flush()
+                os.fsync(f.fileno())
+                f.close()
+                f, si = None, si + 1
+        if f is not None:
+            f.flush()
+            os.fsync(f.fileno())
+            f.close()
+            f = None
+    finally:
+        if f is not None:
+            f.close()
     return entries
+
+
+def write_blobs(host_state: dict[str, np.ndarray | Compressed],
+                directory: str, *, lossless: str = "zlib", eps: float = 1e-2,
+                lossy_policy: Optional[Callable[[str], bool]] = None,
+                bf16_keys: Optional[set] = None, shard_count: int = 1,
+                device: str | torch.device = "cuda") -> dict[str, dict]:
+    """Encode + write in one call (the pipeline splits the two stages)."""
+    return write_encoded_shards(directory, encode_blobs(
+        host_state, lossless=lossless, eps=eps, lossy_policy=lossy_policy,
+        bf16_keys=bf16_keys, device=device), shard_count)
 
 
 def write_manifest(directory: str, step: int, entries: dict[str, dict],

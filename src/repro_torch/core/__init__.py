@@ -1,12 +1,15 @@
 """The in-situ runtime (the paper's contribution), ported to PyTorch.
 
 New code uses the declarative API (``repro_torch.insitu``, implemented in
-``repro_torch.core.session``).
+``repro_torch.core.session``); ``InSituEngine``/``run_workflow``/
+``run_pipeline`` are deprecation shims over it.
 """
+from repro_torch.core.insitu import (InSituEngine, InSituMode, InSituTask,
+                                     run_workflow)
 from repro_torch.core.runtime import (FanoutStage, PipelineRuntime,
                                       PipelineTask, Placement, Stage,
                                       TaskResult, TransientError,
-                                      split_payload)
+                                      run_pipeline, split_payload)
 from repro_torch.core.session import (Adaptive, Every, InSituPlan,
                                       InSituTaskError, Interval, PlanError,
                                       Session, StreamSpec, TaskSpec, When,
@@ -16,14 +19,18 @@ from repro_torch.core.telemetry import Telemetry
 from repro_torch.core.transport import (CallableSink, FileSink, FileSource,
                                         Frame, FrameCorruptError, MemorySink,
                                         Sink, Source, StreamGapError,
+                                        StreamSink, StreamSource,
                                         TransportError, as_sink, connect)
 
-__all__ = ["FanoutStage", "PipelineRuntime", "PipelineTask", "Placement",
-           "Stage", "TaskResult", "TransientError", "split_payload",
+__all__ = ["InSituEngine", "InSituMode", "InSituTask", "run_workflow",
+           "FanoutStage", "PipelineRuntime", "PipelineTask", "Placement",
+           "Stage", "TaskResult", "TransientError", "run_pipeline",
+           "split_payload",
            "Adaptive", "Every", "InSituPlan", "InSituTaskError", "Interval",
            "PlanError", "Session", "StreamSpec", "TaskSpec", "When",
            "preset_names", "register_preset",
            "PendingHandoff", "StagedItem", "StagingBuffer", "Telemetry",
            "CallableSink", "FileSink", "FileSource", "Frame",
            "FrameCorruptError", "MemorySink", "Sink", "Source",
-           "StreamGapError", "TransportError", "as_sink", "connect"]
+           "StreamGapError", "StreamSink", "StreamSource", "TransportError",
+           "as_sink", "connect"]

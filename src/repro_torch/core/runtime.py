@@ -813,3 +813,25 @@ class PipelineRuntime:
         rep["retries"] = dict(self.retry_counts)
         rep["degraded"] = {n: dict(d) for n, d in self.degraded.items()}
         return rep
+
+
+# ---------------------------------------------------------------------------
+# Workflow loop: deprecation shim over repro_torch.core.session.Session.
+# ---------------------------------------------------------------------------
+
+def run_pipeline(n_steps: int,
+                 app_step: Callable[[int], dict[str, Callable[[], Any]]],
+                 runtime: PipelineRuntime) -> Telemetry:
+    """Run ``n_steps`` of the application with the pipeline runtime attached.
+
+    ``app_step(step)`` dispatches one device step and returns the providers
+    dict (lazy payload getters); the loop runs it inside a ``step/compute``
+    span so device/in-situ attribution is exact.
+
+    Deprecation shim: wraps the runtime in a
+    :class:`~repro_torch.core.session.Session` (which takes it over and
+    drains it at the end) and drives ``Session.run`` — new code should
+    declare an ``InSituPlan`` and own the Session directly.
+    """
+    from repro_torch.core.session import Session
+    return Session.over_runtime(runtime).run(n_steps, app_step)

@@ -740,6 +740,7 @@ class Session:
         self.checkpoint = None            # CheckpointManager, if declared
         self._raise_on_error = raise_on_error
         self._finished = False
+        self._strict_streams = True       # legacy wrappers relax this
         self._steering: list[dict] = []   # applied steering commands
         self._steering_rejected = 0       # invalid commands refused
         self._ckpt_meta: Optional[dict] = None
@@ -844,6 +845,11 @@ class Session:
         provider = (_memoized(payload) if callable(payload)
                     else (lambda: payload))
         if bindings is None:
+            if not self._strict_streams:
+                # legacy providers-dict contract: the loop offers every
+                # source, tasks pick; an unmatched source is a no-op
+                self.runtime.submit(step, {stream: provider})
+                return
             raise PlanError(
                 f"emit on unknown stream {stream!r} (declared: "
                 f"{sorted(self._by_stream)})")
@@ -1131,6 +1137,8 @@ class Session:
             stats = {"sink": type(tsink).__name__,
                      "frames": tsink.frames_written,
                      "bytes": tsink.bytes_written}
+            if isinstance(tsink, transport.StreamSink):
+                stats["reconnects"] = tsink.reconnects
             rep["tasks"].setdefault(name, {})["transport"] = stats
         if self._steering or self._steering_rejected:
             rep["steering"] = {
@@ -1152,3 +1160,25 @@ class Session:
                 "kept_steps": self.checkpoint.list_steps(),
             }
         return rep
+
+    # -- legacy adapter --------------------------------------------------------
+
+    @classmethod
+    def over_runtime(cls, runtime: PipelineRuntime) -> "Session":
+        """Wrap an already-wired :class:`PipelineRuntime` (legacy path).
+
+        Streams mirror the registered tasks' ``source`` keys and gating is
+        purely runtime-side; ``emit``/``run``/``report``/``finish`` behave
+        identically. The session takes the runtime over: its ``finish``
+        drains it (joins the workers) once. This is how the deprecation
+        shims (``run_pipeline``/``InSituEngine``) ride on a Session.
+        """
+        sess = cls(InSituPlan(), runtime=runtime)
+        sess._owns_runtime = True        # the shim transfers ownership
+        sess._strict_streams = False
+        for t in runtime.tasks:
+            sess._task_stream.setdefault(t.name, t.source)
+            sess._by_stream.setdefault(t.source, []).append(
+                _Binding(TaskSpec(name=t.name, stream=t.source,
+                                  sink=t.sink), t.source, False))
+        return sess

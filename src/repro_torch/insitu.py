@@ -27,7 +27,9 @@ Serving declares ``kv_pages`` with the ``serve_snapshot`` preset the
 same way.
 
 See ``repro_torch/core/session.py`` for the full semantics and for what is
-not ported yet.
+not ported yet. The legacy entry points (``InSituEngine``,
+``run_workflow``, ``run_pipeline``) remain as deprecation shims in
+``repro_torch.core``.
 """
 from repro_torch.checkpoint import (CheckpointConfig,
                                     CheckpointCorruptError,

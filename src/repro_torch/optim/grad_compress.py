@@ -7,7 +7,7 @@ int8 ``ppermute`` payloads and error feedback), and this codec — the same
 global-amax scale and int8 quantization that ride the ring, framed for
 storage (gradient snapshots, wire-byte accounting). The codec is host-only
 numpy and lands here; the ring waits for the port's distributed slice
-(ROADMAP.md, queue 1 item 9).
+(ROADMAP.md, queue 1: 'Distribution and faults').
 
 Frames are the JAX package's byte for byte: an f64 scale, then a zlib v2
 codec frame of the int8 array.

@@ -9,7 +9,7 @@ measurement placed against them names the card and its limit
 
 The three-term roofline of a compiled dry run (``parse_collectives``,
 ``RooflineReport``, ``analyze``) reads XLA's HLO and waits for the dry
-run's port (ROADMAP.md, queue 1 item 9).
+run's port (ROADMAP.md, queue 1: 'Distribution and faults').
 """
 from __future__ import annotations
 

@@ -5,7 +5,13 @@ port's crash consistency.
   lossless leaves bitwise, lossy moment leaves within ``error_bound(eps)``
   relative L2 of what was saved (the int8 spectral codec's guarantee).
 * The stored leaf blobs are byte-identical between the packages for the
-  same state (the manifest differs only in the meta each run records).
+  same state (the manifest differs only in the meta each run records),
+  and so are the files of both layouts: v2 shards at the same
+  byte-balanced boundaries for any ``shard_count``, v1 per-leaf files
+  under the same names. Checkpoints cross both ways in both layouts.
+* The write options of the JAX package's config (``shard_count``,
+  ``format``, ``leaf_parallel``, ``chunk_parallel``) with its validation;
+  a plan that sets them builds in the port; none changes a stored byte.
 * The kill points of ``tests/test_checkpoint_crash.py``, for the v2 layout
   the port writes: a crash at any stage of the commit protocol leaves the
   previous step restorable, and a restarted manager clears the debris.
@@ -328,3 +334,185 @@ def test_config_validation_and_card_default(tmp_path):
     with pytest.raises(ValueError, match="keep"):
         CheckpointConfig(str(tmp_path), keep=-1)
     assert CheckpointConfig(str(tmp_path)).device == "cuda"
+
+
+
+# ---------------------------------------------------------------------------
+# write layouts and options: v1, multi-shard v2, serial encode
+# ---------------------------------------------------------------------------
+
+def _files(d):
+    return {n: open(os.path.join(d, n), "rb").read()
+            for n in sorted(os.listdir(d)) if n != "manifest.json"}
+
+
+@pytest.mark.parametrize("layout", [{"shard_count": 3}, {"format": 1}])
+def test_port_checkpoint_layouts_restore_in_jax(tmp_path, layout):
+    jstate = _jax_state(7)
+    d = _port_save(tmp_path, _port(jstate), **layout)
+    man = JS.read_manifest(d)
+    ents = man["leaves"].values()
+    if "format" in layout:
+        assert man["format"] == 1 and all("offset" not in e for e in ents)
+        assert {e["file"] for e in ents} == {JS._fname(k)
+                                             for k in man["leaves"]}
+    else:
+        assert man["format"] == 2
+        assert {e["file"] for e in ents} == {"shard_000.bin",
+                                             "shard_001.bin", "shard_002.bin"}
+    _check_restored(JS.read_state(d, jstate), jstate)
+
+
+def test_jax_v1_and_multi_shard_restore_in_port_from_a_manager(tmp_path):
+    """The port's manager (not only ``read_state``) restores both layouts
+    the JAX package writes, whatever its own config's layout."""
+    jstate = _jax_state(8)
+    for name, kw in (("v1", {"format": 1}), ("shards", {"shard_count": 3})):
+        _jax_save(tmp_path / name, jstate, **kw)
+        mgr = CheckpointManager(CheckpointConfig(
+            str(tmp_path / name), every=1, device="cpu", mode=Placement.SYNC))
+        step, restored = mgr.restore(_port(jstate))
+        mgr.finish()
+        assert step == 3
+        _check_restored(restored, jstate)
+
+
+@pytest.mark.parametrize("layout", [{"shard_count": 3}, {"shard_count": 50},
+                                    {"format": 1}])
+def test_layout_files_byte_identical_between_packages(tmp_path, layout):
+    """HYBRID saves of the same state: every file but the manifest is the
+    same bytes under the same name (shard boundaries follow the same
+    leaf order and byte budget; ``shard_count`` is clamped to the number
+    of leaves), and the manifests' leaf tables are equal."""
+    jstate = _jax_state(9)
+    jd = _jax_save(tmp_path / "jax", jstate, **layout)
+    td = _port_save(tmp_path / "port", _port(jstate), **layout)
+    jfiles, tfiles = _files(jd), _files(td)
+    assert list(tfiles) == list(jfiles)
+    if layout.get("shard_count") == 3:
+        assert len(tfiles) == 3
+    for name in jfiles:
+        assert tfiles[name] == jfiles[name], name
+    assert JS.read_manifest(td)["leaves"] == JS.read_manifest(jd)["leaves"]
+
+
+def test_write_encoded_shards_rule_matches_jax(tmp_path):
+    """The rollover rule on hand-made blobs: a shard closes once it holds
+    ceil(total / shard_count) bytes; shard_count is an upper bound."""
+    sizes = [5, 1, 9, 2, 2, 7, 1]
+    enc = {f"k{i}": (bytes([i]) * n, {"bytes": n}) for i, n in
+           enumerate(sizes)}
+    for count in (1, 2, 3, 4, 7, 9):
+        a = JS.write_encoded_shards(str(tmp_path / f"j{count}"), enc, count)
+        b = TS.write_encoded_shards(str(tmp_path / f"t{count}"), enc, count)
+        assert a == b, count
+        assert _files(str(tmp_path / f"j{count}")) == \
+            _files(str(tmp_path / f"t{count}"))
+    assert TS.write_encoded_shards(str(tmp_path / "empty"), {}, 3) == {}
+    v1 = TS.write_encoded(str(tmp_path / "v1"), enc)
+    assert v1 == JS.write_encoded(str(tmp_path / "v1j"), enc)
+
+
+def test_write_blobs_matches_jax(tmp_path):
+    rng = np.random.default_rng(3)
+    # a lossy leaf of 64 blocks: frames are byte-identical from 56 blocks
+    # up (below, XLA's CPU DCT sums in another order; ROADMAP)
+    host = {"['a']": rng.standard_normal((64, 40)).astype(np.float32),
+            "['mu']": rng.standard_normal((64, 256)).astype(np.float32)}
+    kw = dict(lossy_policy=lambda k: "mu" in k, shard_count=2)
+    a = JS.write_blobs(host, str(tmp_path / "j"), **kw)
+    b = TS.write_blobs(host, str(tmp_path / "t"), device="cpu", **kw)
+    assert a == b
+    assert _files(str(tmp_path / "j")) == _files(str(tmp_path / "t"))
+    enc = TS.encode_blobs(host, device="cpu", **{"lossy_policy":
+                                                 kw["lossy_policy"]})
+    assert list(enc) == list(host)
+    assert {k: e for k, (_, e) in enc.items()} == {
+        k: {f: v for f, v in a[k].items() if f not in ("file", "offset")}
+        for k in a}
+
+
+@pytest.mark.parametrize("mode", ["sync", "async", "hybrid"])
+def test_serial_encode_matches_leaf_parallel(tmp_path, mode):
+    """leaf_parallel (and chunk_parallel) only change scheduling: stored
+    bytes are identical, as in the JAX package."""
+    state = _port(_jax_state(10))
+    outs = {}
+    for name, kw in (("fan", {}),
+                     ("serial", {"leaf_parallel": False}),
+                     ("serial_nochunk", {"leaf_parallel": False,
+                                         "chunk_parallel": False})):
+        d = _port_save(tmp_path / name, state, mode=Placement(mode), **kw)
+        outs[name] = _files(d)
+    assert outs["fan"] == outs["serial"] == outs["serial_nochunk"]
+
+
+def test_serial_encode_stage_is_a_plain_stage(tmp_path):
+    from repro_torch.core.runtime import FanoutStage, Stage
+
+    fan = CheckpointManager(CheckpointConfig(str(tmp_path / "a"),
+                                             device="cpu"))
+    ser = CheckpointManager(CheckpointConfig(str(tmp_path / "b"),
+                                             device="cpu",
+                                             leaf_parallel=False))
+    assert isinstance(fan._task.host_stages[0], FanoutStage)
+    assert isinstance(ser._task.host_stages[0], Stage)
+    assert ser._codec_pool() is not None
+    nochunk = CheckpointConfig(str(tmp_path / "c"), device="cpu",
+                               chunk_parallel=False)
+    assert CheckpointManager(nochunk)._codec_pool() is None
+    for m in (fan, ser):
+        m.finish()
+
+
+def test_config_validation_rejects_bad_values(tmp_path):
+    """The JAX package's checks, with its wording, and the port's
+    defaults equal to its defaults."""
+    for Cfg in (JConfig, CheckpointConfig):
+        with pytest.raises(ValueError, match="every") as a:
+            Cfg(str(tmp_path), every=0)
+        with pytest.raises(ValueError, match="keep"):
+            Cfg(str(tmp_path), keep=-1)
+        with pytest.raises(ValueError, match="format") as b:
+            Cfg(str(tmp_path), format=3)
+        with pytest.raises(ValueError, match="shard_count") as c:
+            Cfg(str(tmp_path), shard_count=0)
+        if Cfg is JConfig:
+            want = (str(b.value), str(c.value))
+        else:
+            assert (str(b.value), str(c.value)) == want
+    j, t = JConfig(str(tmp_path)), CheckpointConfig(str(tmp_path))
+    for f in ("chunk_parallel", "format", "shard_count", "leaf_parallel",
+              "every", "keep", "lossless", "lossy_eps", "lossy_moments",
+              "p_i", "staging_capacity", "mirror"):
+        assert getattr(t, f) == getattr(j, f), f
+
+
+def test_jax_plan_with_write_options_builds_in_port(tmp_path):
+    """A plan of the JAX package that sets the four write options builds
+    and saves in the port (it used to be refused as a bad checkpoint
+    option); an option neither package has is still refused."""
+    from repro.core import session as JSess
+    from repro_torch.core import session as TSess
+
+    opts = {"directory": str(tmp_path / "ck"), "shard_count": 2,
+            "format": 2, "leaf_parallel": False, "chunk_parallel": False}
+    d = {"streams": ["train_state"],
+         "tasks": {"ckpt": {"stream": "train_state", "preset": "checkpoint",
+                            "every": 1, "placement": "sync",
+                            "options": opts}}}
+    JSess.InSituPlan.from_dict(d)
+    plan = TSess.InSituPlan.from_dict(d)
+    assert plan.to_dict() == JSess.InSituPlan.from_dict(d).to_dict()
+    d["tasks"]["ckpt"]["options"] = {**opts, "device": "cpu"}
+    state = _port(_jax_state(11))
+    with TSess.Session(d, raise_on_error=True) as s:
+        cfg = s.checkpoint.cfg
+        assert (cfg.shard_count, cfg.format, cfg.leaf_parallel,
+                cfg.chunk_parallel) == (2, 2, False, False)
+        s.emit("train_state", 0, state)
+    files = _files(str(tmp_path / "ck" / "step_000000000"))
+    assert list(files) == ["shard_000.bin", "shard_001.bin"]
+    d["tasks"]["ckpt"]["options"] = {**opts, "typo": 1}
+    with pytest.raises(TSess.PlanError, match="bad checkpoint option"):
+        TSess.Session(d)

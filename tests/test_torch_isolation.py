@@ -30,8 +30,38 @@ def test_every_module_imports_without_jax_or_repro():
                          env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"},
                          check=True).stdout.split(maxsplit=1)
     n_modules, bad = int(out[0]), out[1].strip()
-    assert n_modules >= 55          # every module of the port imported
+    assert n_modules >= 59          # every module (core.insitu included)
     assert bad == "[]", f"port pulled in {bad}"
+
+
+_EXAMPLE_PROBE = r"""
+import runpy, sys
+sys.argv = [sys.argv[1], "--help"]
+try:
+    runpy.run_path(sys.argv[0], run_name="__main__")
+except SystemExit as e:
+    assert e.code in (0, None), e.code
+import repro_torch.core.insitu
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "repro"
+             or m.startswith("repro."))
+print("usage" if "repro_torch" in sys.modules else "no port", bad)
+"""
+
+
+@pytest.mark.parametrize("example", ["torch_quickstart.py",
+                                     "torch_compression_demo.py",
+                                     "torch_serve_insitu.py",
+                                     "torch_train_insitu.py"])
+def test_examples_load_without_jax_or_repro(example):
+    """``--help`` of each port example loads its imports (the port, the
+    legacy in-situ engine included) and neither JAX nor the JAX package."""
+    path = Path(__file__).resolve().parents[1] / "examples" / example
+    run = subprocess.run([sys.executable, "-c", _EXAMPLE_PROBE, str(path)],
+                         capture_output=True, text=True, timeout=120,
+                         env={"PATH": "/usr/bin:/bin"}, check=True)
+    assert "--device" in run.stdout
+    assert run.stdout.strip().splitlines()[-1] == "usage []", run.stdout
 
 
 def test_entry_points_default_to_the_card(tmp_path):
