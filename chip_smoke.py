@@ -195,6 +195,42 @@ Phases (any failure exits non-zero; none is swallowed):
    ``examples/torch_compression_demo.py`` as child processes on the card:
    exit 0, the three placements' lines, "weights bit-exact = True". The
    phase must take at most 90 s.
+12. moe — the MoE family. (b) The paged decode-attention kernel at
+   ``moonshot-v1-16b-a3b``'s heads (16 kv heads of 128, one query head
+   each; B = 8, the serving table of 4 pages and a 256-page one) against
+   its plain version: bf16 at page 16 (atol 3.2e-2) and f32 at pages 16
+   and 8 (1e-5), the split kernel taking the heads in groups
+   (``head_group``; its shared-memory bytes equal to the source's); timed
+   per call and on the device beside the plain version, SDPA on the
+   gathered cache and the bound. At smollm's shapes the plan keeps one
+   group, and forcing three groups of one (the same pages a round) gives
+   the same output bits. (c)
+   Both MoE archs at smoke size in f32: the dense 4-slot engine and a
+   4-row paged engine decode the serve traffic token for token, and 8
+   replayed paged decode steps equal the eager ones bitwise. (a)
+   ``serve_loop("moonshot-v1-16b-a3b", smoke=False)``: 48 layers at the
+   published widths (28.3 G parameters, 56.6 GB in bf16, drawn on the
+   card's generator from seed 0) on the serve traffic (16 requests x 32
+   new tokens, page 16, a 17-page pool), without and with the default
+   async ``serve_snapshot`` plan, each eager and graphed: the four runs
+   decode the same streams, every request is served and the pool empty
+   at exit, the graphed run's chain (persisted under ``build/``, beside
+   a probe of what was emitted) restores bit-identically, and that run
+   launches the kernel 48 times a replayed decode step. Then a graphed and an eager engine step 8 times
+   from one state (logits the same bits) while the graphed one publishes
+   a SYNC chain; a replica built in process with
+   ``PagedServingEngine.from_snapshot`` from that chain decodes the 8
+   in-flight requests token for token over 6 steps with no prefill; one
+   decode step driven by the plain attention with the kernel held against
+   it at each of the 48 layers on that layer's inputs (atol 3.2e-2), and
+   the logits of a kernel step beside those of the plain step and of the
+   attention computed with f32 internals (printed: at 48 MoE layers the
+   plain version's own bf16 rounding moves logits by up to 0.25, so no
+   logit bound is gated); and the graphed decode step profiled, the
+   eager one's host wall beside it. Printed: tok/s of the
+   four runs, peak memory, the weights' draw seconds, the decode step's
+   host wall, device busy time and idle share. The phase must take at
+   most 150 s.
 
 The last lines are the card line, one JSON object with every kernel's
 numbers, and ``{"ok": true, "device": {...}}``.
@@ -225,6 +261,7 @@ TRAIN = dict(steps=20, ckpt_every=5, resume_steps=5)
 PLACEMENTS = dict(steps=10, ckpt_every=5)     # the SYNC/ASYNC runs
 INSITU = dict(steps=3, shard_count=4)          # the insitu phase
 INSITU_BUDGET_S = 90.0
+MOE_BUDGET_S = 150.0
 
 
 def log(msg: str) -> None:
@@ -341,13 +378,16 @@ def time_ms(fn, *, warmup: int = 5, samples: int = 25, reps: int = 10):
 # ---------------------------------------------------------------------------
 
 def _paged_case(gen, *, b, hq, n_kv, d, ps, pps, lengths, dtype, dev):
+    """Random q, pages, a permuted table and ``lengths``, drawn on the
+    generator's device."""
     import torch
 
     num_pages = b * pps + 1
-    k = torch.randn((num_pages, ps, n_kv, d), generator=gen)
-    v = torch.randn((num_pages, ps, n_kv, d), generator=gen)
-    q = torch.randn((b, 1, hq, d), generator=gen)
-    table = (1 + torch.randperm(b * pps, generator=gen)).reshape(b, pps)
+    on = dict(generator=gen, device=gen.device)
+    k = torch.randn((num_pages, ps, n_kv, d), **on)
+    v = torch.randn((num_pages, ps, n_kv, d), **on)
+    q = torch.randn((b, 1, hq, d), **on)
+    table = (1 + torch.randperm(b * pps, **on)).reshape(b, pps)
     return (q.to(dev, dtype), k.to(dev, dtype), v.to(dev, dtype),
             table.to(dev, torch.int32),
             torch.tensor(lengths, dtype=torch.int32, device=dev))
@@ -2490,6 +2530,461 @@ def insitu_phase(ckpt_root: Path) -> dict:
             "examples_s": time.perf_counter() - t0}
 
 
+# ---------------------------------------------------------------------------
+# moe phase
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "moonshot-v1-16b-a3b"
+
+
+def _free_cuda(empty: bool = True) -> None:
+    """Drop what the last run left: an engine and its captured step hold
+    each other (the graph's body is a bound method), so their 56.6 GB of
+    weights go only with a collection. ``empty=False`` keeps the freed
+    blocks cached for the next run's weights, which have the same
+    sizes."""
+    import gc
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    if empty:
+        torch.cuda.empty_cache()
+
+
+def _moe_engines(cfg, params, chain: Path) -> dict:
+    """A graphed and an eager full-width engine from one state (8 rows
+    admitted): 8 steps whose logits must be the same bits, the graphed
+    one publishing a SYNC snapshot chain; a replica built in process from
+    that chain decodes the in-flight requests token for token with no
+    prefill; one decode step through the kernel against the plain
+    attention; and where a decode step's time goes."""
+    import numpy as np
+    import torch
+    from repro_torch.core.pytree import tree_map
+    from repro_torch.core.session import InSituPlan, Session
+    from repro_torch.kernels import paged_attention as PK
+    from repro_torch.serving import snapshot as S
+    from repro_torch.serving.engine import Request
+    from repro_torch.serving.pages import PagedServingEngine, make_paged_decode
+
+    if chain.exists():
+        shutil.rmtree(chain)
+    geo = dict(num_pages=33, page_size=16, max_reqs=8, prompt_len=16,
+               max_len=64)
+    engines = {}
+    for graph in (True, False):
+        e = engines[graph] = PagedServingEngine(cfg, params, device="cuda",
+                                                cuda_graph=graph, **geo)
+        rng = np.random.default_rng(5)
+        for i in range(8):
+            assert e.admit(Request(i, rng.integers(0, cfg.vocab_size, 16),
+                                   max_new=48))
+    eng, eng_eager = engines[True], engines[False]
+    plan = InSituPlan.from_dict({
+        "streams": ["kv_pages"],
+        "tasks": {"kv_snapshot": {
+            "stream": "kv_pages", "preset": "serve_snapshot", "every": 4,
+            "placement": "sync",
+            "options": {"base_every": 8, "codec": "none",
+                        "directory": str(chain)}}}})
+    with Session(plan, raise_on_error=True) as session:
+        for step in range(8):
+            eng.step()
+            eng_eager.step()
+            if not torch.equal(eng.logits, eng_eager.logits):
+                raise AssertionError(f"moe: graphed and eager decode logits "
+                                     f"differ at step {step}")
+            session.emit("kv_pages", step + 1, eng.snapshot_payload)
+    log("moe: 8 full-width decode steps (8 rows), graph replay and eager "
+        "step: logits bitwise equal")
+
+    t0 = time.perf_counter()
+    step, leaves = S.SnapshotStore(str(chain)).restore("kv_pages")
+    replica = PagedServingEngine.from_snapshot(cfg, params, leaves,
+                                               device="cuda")
+    hydrate_s = time.perf_counter() - t0
+    assert step == 8, step         # the state after the 8th step
+    live = [a for a in replica.active if a is not None]
+    assert [r.out for r in live] == [r.out for r in eng.active], \
+        "replica restored other requests"
+    pre = replica.prefill_tokens
+    for _ in range(6):
+        eng.step()
+        replica.step()
+    for a, b in zip(eng.active, live):
+        assert a.out == b.out, f"replica diverged on request {a.rid}"
+    assert replica.prefill_tokens == pre, "replica prefilled"
+    log(f"moe: replica from_snapshot of the chain's step {step} "
+        f"({hydrate_s:.2f} s, graph captured) decodes the 8 in-flight "
+        f"requests token for token over 6 steps, no prefill")
+    del replica, live
+    _free_cuda()
+
+    def one_step(attend):
+        pool = tree_map(lambda t: t.clone(), eng.pool)
+        logits, *_ = make_paged_decode(cfg, 16, attend=attend)(
+            eng.params, pool, eng.state, eng.page_table.clone(),
+            eng.tokens.clone(), eng.lengths.clone())
+        return logits[:, -1, :cfg.vocab_size].float()
+
+    # one full-width step driven by the plain attention, the kernel held
+    # against it at every layer on that layer's own inputs
+    layer_err = []
+
+    def plain_and_kernel(q, k, v, table, length):
+        ref = PK.paged_decode_attention_plain(q, k, v, table, length)
+        got = PK.paged_decode_attention(q, k, v, table, length)
+        layer_err.append((got.float() - ref.float()).abs().max().item())
+        return ref
+
+    def plain_f32(q, k, v, table, length):
+        return PK.paged_decode_attention_plain(
+            q.float(), k.float(), v.float(), table, length).to(q.dtype)
+
+    with_plain = one_step(plain_and_kernel)
+    assert len(layer_err) == cfg.n_layers, len(layer_err)
+    assert max(layer_err) <= BF16_ATOL, layer_err
+    with_kernel = one_step(PK.paged_decode_attention)
+    with_f32 = one_step(plain_f32)
+    spread = {name: {"max_abs": (x - y).abs().max().item(),
+                     "argmax_agreement":
+                         (x.argmax(-1) == y.argmax(-1)).float().mean().item()}
+              for name, x, y in (("kernel_plain", with_kernel, with_plain),
+                                 ("kernel_plain_f32", with_kernel, with_f32),
+                                 ("plain_plain_f32", with_plain, with_f32))}
+    log(f"moe: one full-width decode step: the kernel against the plain "
+        f"attention at each of the {cfg.n_layers} layers, max "
+        f"{max(layer_err):.3e} (<= {BF16_ATOL}); the step's logits "
+        f"(range {with_plain.min().item():.2f}..{with_plain.max().item():.2f}"
+        f"), max |dlogit| and argmax agreement: {spread}")
+
+    # the graphed step profiled; the eager one's host wall beside it (its
+    # device work is the same kernels)
+    prof = device_profile(eng.step, 5)
+    prof["wall_ms_unprofiled"] = host_wall_ms(eng.step, 5)
+    prof["device_idle_share_unprofiled"] = (
+        1 - prof["device_busy_ms"] / prof["wall_ms_unprofiled"])
+    prof["paged_launches_recorded"] = sum(
+        c for op, c in prof["launches"].items()
+        if "paged_decode_kernel" in op)
+    prof["eager_wall_ms"] = host_wall_ms(eng_eager.step, 5)
+    log(f"moe: decode step (graph, 8 rows, full width): "
+        f"{prof['wall_ms_unprofiled']:.3f} ms host wall (eager "
+        f"{prof['eager_wall_ms']:.3f}), device busy {prof['device_busy_ms']} "
+        f"ms, idle share {prof['device_idle_share_unprofiled']}, "
+        f"{prof['host_aten_ops']:.0f} aten ops")
+    for op, ms in prof["top"][:5]:
+        log(f"moe:   {ms * 1e3:9.1f} us/step  {op[:90]}")
+    prof.pop("launches")
+    prof.pop("per_launch_ms")
+    return {"layer_attention_max_abs_err": max(layer_err),
+            "logit_spread": spread, "replica_hydrate_s": hydrate_s,
+            "decode_profile": prof}
+
+
+def _moe_serve(build: Path) -> dict:
+    """(a): full-width serving of moonshot-v1-16b-a3b on SERVE's traffic,
+    four runs, the chain restored, then the engine checks."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import base as configs
+    from repro_torch.core.session import Every, InSituPlan, Placement, \
+        TaskSpec
+    from repro_torch.kernels import paged_attention as PK
+    from repro_torch.launch.serve import (default_serve_plan, serve_loop,
+                                          weight_generator)
+    from repro_torch.core.pytree import leaves as tree_leaves
+    from repro_torch.models import params as P
+    from repro_torch.models import transformer
+    from repro_torch.serving import snapshot as S
+
+    cfg = configs.get(MOE_ARCH)
+    chain = build / "smoke_moe_chain"
+
+    def snapshot_plan(directory: Path, emitted: dict) -> InSituPlan:
+        if directory.exists():
+            shutil.rmtree(directory)
+        base = InSituPlan.from_dict(
+            default_serve_plan(snapshot_dir=str(directory)))
+        probe = TaskSpec(name="probe", stream="kv_pages", trigger=Every(4),
+                         placement=Placement.SYNC,
+                         sink=lambda step, p: emitted.__setitem__(
+                             step, S._flatten(p["cache"])))
+        return InSituPlan(streams=base.streams, tasks=[*base.tasks, probe],
+                          workers=base.workers,
+                          staging_capacity=base.staging_capacity)
+
+    runs, emitted, lines, peak = {}, {}, [], {}
+    launches = decode_steps = None
+    for snap in (False, True):
+        for graph in (False, True):
+            key = ("plan" if snap else "bare", graph)
+            name = f"{'graph' if graph else 'eager'}_{key[0]}"
+            if snap and graph:      # the chain on disk, checked below
+                plan = snapshot_plan(chain, emitted)
+            elif snap:              # the default plan as a user runs it
+                plan = default_serve_plan()
+            else:
+                plan = {"streams": ["kv_pages"]}
+            torch.cuda.reset_peak_memory_stats()
+            PK.paged_decode_attention.launches = 0
+            runs[key] = serve_loop(
+                MOE_ARCH, smoke=False, device="cuda", seed=0, plan=plan,
+                cuda_graph=graph, log=lines.append, **SERVE)
+            torch.cuda.synchronize()
+            peak[name] = torch.cuda.max_memory_allocated() / 2**30
+            if key == ("plan", True):
+                launches = PK.paged_decode_attention.launches
+                decode_steps = len(runs[key]["telemetry"].spans(
+                    "step/compute"))
+            r = runs[key]
+            rep = r["session_report"]
+            log(f"moe: serve {name}: {r['tok_per_s']:.1f} tok/s, wall "
+                f"{_serve_wall_s(r):.2f} s = admissions "
+                f"{r['telemetry'].total('serve/admit'):.2f} + decode steps "
+                f"{rep['step_compute_s']:.2f} + hand-off dispatch "
+                f"{rep['handoff_dispatch_s']:.2f} + sync stall "
+                f"{rep['sync_stall_s']:.2f} + the rest; peak "
+                f"{peak[name]:.1f} GiB")
+            _free_cuda(empty=False)
+    streams = {k: [r.out for r in run["requests"]] for k, run in runs.items()}
+    for key, got in streams.items():
+        assert got == streams["plan", True], (
+            f"moe serve run {key} decoded other tokens than the graphed run "
+            f"with snapshots")
+    out = runs["plan", True]
+    for r in out["requests"]:
+        assert r.done and len(r.out) == r.max_new, r.rid
+        assert all(0 <= t < cfg.vocab_size for t in r.out), r.rid
+    pools = [m for m in (re.match(r"page pool: (\d+)/", ln) for ln in lines)
+             if m]
+    assert len(pools) == 4 and all(int(m.group(1)) == 0 for m in pools), \
+        "page pool not empty at exit"
+    rep = out["session_report"]
+    assert rep["n_errors"] == 0, rep["errors"]
+    assert rep["tasks"]["kv_snapshot"]["publishes"] > 0, "no snapshot"
+    assert launches == decode_steps * cfg.n_layers, (
+        f"kernel launches {launches} != {decode_steps} decode steps x "
+        f"{cfg.n_layers} layers")
+    log(f"moe: the four runs decode the same {SERVE['n_requests']} streams; "
+        f"{launches} kernel launches = {decode_steps} replayed decode steps "
+        f"x {cfg.n_layers} layers")
+    step, leaves = S.SnapshotStore(str(chain)).restore("kv_pages")
+    want = emitted[step]
+    assert list(leaves) == list(want), "restored leaf keys differ"
+    for key, arr in leaves.items():
+        if not np.array_equal(arr.reshape(-1).view(np.uint8),
+                              want[key].reshape(-1).view(np.uint8)):
+            raise AssertionError(f"{chain.name}: restored leaf {key} "
+                                 f"differs at step {step}")
+    restored = {"step": step,
+                "bytes": sum(a.nbytes for a in leaves.values())}
+    emitted.clear()
+    del leaves, want
+    log(f"moe: the graphed run's chain restores bit-identically to what was "
+        f"emitted at step {step} ({restored['bytes']} bytes)")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = P.materialize(weight_generator(cfg, 0, torch.device("cuda"),
+                                            False),
+                           transformer.param_spec(cfg), "cuda")
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    log(f"moe: drew {n_bytes / 1e9:.1f} GB of weights on the card's "
+        f"generator in {draw_s:.2f} s")
+    checks = _moe_engines(cfg, params, build / "smoke_moe_replica")
+    del params
+    _free_cuda()
+    tok_s = {f"{'graph' if g else 'eager'}_{k}": r["tok_per_s"]
+             for (k, g), r in runs.items()}
+    log(f"moe: tok/s {tok_s}")
+    return {"tok_per_s_by_run": tok_s, "peak_gib_by_run": peak,
+            "wall_s_by_run": {f"{'graph' if g else 'eager'}_{k}":
+                              _serve_wall_s(r) for (k, g), r in runs.items()},
+            "step_compute_s_by_run": {
+                f"{'graph' if g else 'eager'}_{k}":
+                    r["session_report"]["step_compute_s"]
+                for (k, g), r in runs.items()},
+            "decode_steps": decode_steps, "launches": launches,
+            "snapshots": rep["tasks"]["kv_snapshot"]["publishes"],
+            "snapshot_drops": rep["drops"].get("kv_snapshot", 0),
+            "restored": restored, "weight_draw_s": draw_s,
+            "weight_bytes": n_bytes, **checks}
+
+
+def _moe_kernel() -> dict:
+    """(b): kernel 1 at moonshot's heads (16 kv heads of 128, one query
+    head each), and head groups changing no bit at smollm's."""
+    import torch
+    from repro_torch.kernels import paged_attention as PK
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(4321)   # the cases drawn on the
+    out: dict = {}                                  # card: 0.5 GB at 256 pages
+    shapes = {"serve": dict(b=8, hq=16, n_kv=16, d=128, ps=16, pps=4),
+              "long": dict(b=8, hq=16, n_kv=16, d=128, ps=16, pps=256)}
+    _, c_bytes = PK._entry()
+    for name, shp in shapes.items():
+        full = shp["ps"] * shp["pps"]
+        lengths = [0, 1, 16, 17, full, full, full // 2 + 3, full - 1]
+        for dtype, ps in ((torch.bfloat16, 16), (torch.float32, 16),
+                          (torch.float32, 8))[:3 if name == "serve" else 2]:
+            case = dict(shp, ps=ps)
+            args = _paged_case(gen, lengths=[min(n, ps * shp["pps"])
+                                             for n in lengths],
+                               dtype=dtype, dev=dev, **case)
+            got = PK.paged_decode_attention(*args)
+            torch.cuda.synchronize()
+            ref = PK.paged_decode_attention_plain(*args)
+            tol = (F32_TOL if dtype == torch.float32
+                   else dict(rtol=0.0, atol=BF16_ATOL))
+            torch.testing.assert_close(got.float(), ref.float(), **tol)
+            err = (got.float() - ref.float()).abs().max().item()
+            splits, per = PK.split_plan(shp["pps"], ps, shp["b"], 16)
+            n_h = PK.head_group(16, 1, 128, 128, ps, args[0].element_size(),
+                                per)
+            assert c_bytes(n_h, 1, 128, 128, ps, args[0].element_size(),
+                           per) == PK.smem_bytes(
+                n_h, 1, 128, 128, ps, args[0].element_size(), per)
+            out[f"{name}_{str(dtype)[6:]}_ps{ps}"] = {
+                "max_abs_err": err, "splits": splits, "per": per,
+                "heads_per_cta": n_h}
+            log(f"moe kernel {name} {str(dtype)[6:]} page {ps}: {splits} "
+                f"splits of {per} pages x {16 // n_h} groups of {n_h} kv "
+                f"heads, max |kernel - plain| = {err:.3e}")
+        args = _paged_case(gen, lengths=[full] * shp["b"],
+                           dtype=torch.bfloat16, dev=dev, **shp)
+        ref = PK.paged_decode_attention_plain(*args)
+        err = (PK.paged_decode_attention(*args).float()
+               - ref.float()).abs().max().item()
+        k_ms = time_ms(lambda: PK.paged_decode_attention(*args))
+        p_ms = time_ms(lambda: PK.paged_decode_attention_plain(*args))
+        lib_ms = time_ms(_sdpa_call(*args))
+        b_ms, b_by = bound_ms("paged_decode_attention", *args)
+        dev_ms, dev_ops = kernel_device_ms(
+            lambda: PK.paged_decode_attention(*args),
+            ("paged_decode_kernel", "paged_combine_kernel"), 10)
+        out[name] = {"shape": dict(shp, len=full, dtype="bfloat16"),
+                     "max_abs_err": err, "ms": k_ms, "device_ms": dev_ms,
+                     "device_ops": dev_ops, "plain_ms": p_ms,
+                     "library_ms": lib_ms, "bound_ms": b_ms,
+                     "bound_by": b_by,
+                     "heads_per_cta": out[f"{name}_bfloat16_ps16"][
+                         "heads_per_cta"]}
+        log(f"moe kernel {name} timing (bf16, B=8, len={full}): kernel "
+            f"{k_ms:.4f} ms per call (device {dev_ms} ms), plain "
+            f"{p_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.6f} ms "
+            f"({b_by})")
+    # smollm's heads: one group by the plan; every group that fits gives
+    # the same bits
+    for width in (4, 256):
+        shp = _serve_shape(width)
+        full = shp["ps"] * width
+        for dtype in (torch.bfloat16, torch.float32):
+            args = _paged_case(gen, lengths=[0, 1, 17, full // 2, full - 1,
+                                             full, full, 3],
+                               dtype=dtype, dev=dev, **shp)
+            _, per = PK.split_plan(width, shp["ps"], shp["b"], 3)
+            elem = args[0].element_size()
+            assert PK.head_group(3, 3, 64, 64, shp["ps"], elem, per) == 3
+            assert (PK.staging(1, 3, 64, 64, shp["ps"], elem, per)[0]
+                    == PK.staging(3, 3, 64, 64, shp["ps"], elem, per)[0])
+            bits = lambda t: t.view(torch.int16 if t.dtype == torch.bfloat16
+                                    else torch.int32)
+            first = bits(PK.paged_decode_attention(*args)).clone()
+            assert torch.equal(bits(PK.paged_decode_attention(*args, n_h=1)),
+                               first), ("head groups changed bits", width)
+    log("moe kernel: smollm's shapes keep one group of 3 kv heads; three "
+        "groups of one (the same pages a round) give the same output bits "
+        "(bf16, f32, 4 and 256 pages)")
+    return out
+
+
+def _moe_smoke() -> dict:
+    """(c): both archs at smoke size in f32: the dense engine and a paged
+    engine decode SERVE's traffic token for token, and the paged decode
+    step replayed equals the eager step bitwise."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import base as configs
+    from repro_torch.models import params as P
+    from repro_torch.models import transformer
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.pages import PagedServingEngine
+
+    out = {}
+    for arch in (MOE_ARCH, "deepseek-v3-671b"):
+        cfg = dataclasses.replace(configs.get(arch, smoke=True),
+                                  dtype="float32")
+        params = P.cast_tree(P.materialize(torch.Generator().manual_seed(0),
+                                           transformer.param_spec(cfg),
+                                           "cuda"), torch.float32)
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, cfg.vocab_size, 16)
+                   for _ in range(SERVE["n_requests"])]
+        streams = {}
+        for kind in ("dense", "paged"):
+            reqs = [Request(i, pr, max_new=SERVE["max_new"])
+                    for i, pr in enumerate(prompts)]
+            if kind == "dense":
+                eng = ServingEngine(cfg, params, slots=SERVE["slots"],
+                                    prompt_len=16, max_len=64, device="cuda")
+            else:
+                eng = PagedServingEngine(
+                    cfg, params, num_pages=SERVE["num_pages"],
+                    page_size=SERVE["page_size"], max_reqs=SERVE["slots"],
+                    prompt_len=16, max_len=64, device="cuda")
+            assert eng._graph is not None, kind
+            eng.run(reqs, max_steps=1024)
+            assert all(r.done and len(r.out) == r.max_new for r in reqs)
+            streams[kind] = [r.out for r in reqs]
+        assert streams["dense"] == streams["paged"], (
+            f"{arch}: f32 dense and paged engines decoded different tokens")
+        engines = {}
+        for graph in (True, False):
+            e = engines[graph] = PagedServingEngine(
+                cfg, params, num_pages=33, page_size=16, max_reqs=8,
+                prompt_len=16, max_len=64, device="cuda", cuda_graph=graph)
+            rng = np.random.default_rng(5)
+            for i in range(8):
+                assert e.admit(Request(i, rng.integers(0, cfg.vocab_size,
+                                                       16), max_new=32))
+        for _ in range(8):
+            engines[True].step()
+            engines[False].step()
+            assert torch.equal(engines[True].logits, engines[False].logits), (
+                f"{arch}: replayed and eager decode steps differ")
+        out[arch] = {"tokens": sum(map(len, streams["dense"]))}
+        log(f"moe smoke {arch} (f32): dense and paged engines decode "
+            f"{out[arch]['tokens']} tokens token for token; 8 replayed "
+            f"decode steps bitwise the eager ones")
+        del engines, eng, params
+        _free_cuda()
+    return out
+
+
+def moe_phase(build: Path) -> dict:
+    """The MoE family on the card (see the module docstring, phase 12)."""
+    _free_cuda()
+    t0 = time.perf_counter()
+    kern = _moe_kernel()
+    kernel_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    smoke = _moe_smoke()
+    smoke_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serve = _moe_serve(build)
+    serve_s = time.perf_counter() - t0
+    log(f"moe phase parts: kernel {kernel_s:.1f} s, smoke {smoke_s:.1f} s, "
+        f"full-width serve {serve_s:.1f} s")
+    return {"kernel": kern, "smoke": smoke, "serve": serve,
+            "part_s": {"kernel": kernel_s, "smoke": smoke_s,
+                       "serve": serve_s}}
+
+
 def main() -> int:
     import torch
 
@@ -2519,7 +3014,7 @@ def main() -> int:
             if "registers" in ln or "spill" in ln or "smem" in ln:
                 log(f"build {name}: {ln.strip()}")
 
-    t0 = time.perf_counter()
+    t_phases = t0 = time.perf_counter()
     kern = kernel_phase(serve_table_width=4)
     log(f"kernel phase: {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
@@ -2551,6 +3046,12 @@ def main() -> int:
     insitu["phase_s"] = time.perf_counter() - t0
     log(f"insitu phase: {insitu['phase_s']:.1f}s")
     assert insitu["phase_s"] <= INSITU_BUDGET_S, insitu["phase_s"]
+    t0 = time.perf_counter()
+    moe = moe_phase(ROOT / "build")
+    moe["phase_s"] = time.perf_counter() - t0
+    log(f"moe phase: {moe['phase_s']:.1f}s")
+    assert moe["phase_s"] <= MOE_BUDGET_S, moe["phase_s"]
+    log(f"all phases: {time.perf_counter() - t_phases:.1f}s")
 
     main_path = kern["serve"]
     record = {
@@ -2572,10 +3073,12 @@ def main() -> int:
         "bound_by": main_path["bound_by"],
         "shape": main_path["shape"],
         "long_context": kern["long"],
+        "at_moonshot": {k: moe["kernel"][k] for k in ("serve", "long")},
         "launches_by_path": {
             "serve": serve["launches"],
             "stream_producer": stream["hydrate"]["producer_launches"],
-            "stream_replica": stream["hydrate"]["launches"]},
+            "stream_replica": stream["hydrate"]["launches"],
+            "moe_serve": moe["serve"]["launches"]},
     }
     records = [record]
     tpu = "src/repro/kernels/spectral_lossy.py"
@@ -2676,6 +3179,7 @@ def main() -> int:
                                       if k != "timing"}}))
     log(json.dumps({"train_placements": placements}))
     log(json.dumps({"insitu": insitu}))
+    log(json.dumps({"moe": moe}))
     log(json.dumps({"roofline": {k: v for k, v in roof.items()
                                  if k != "reports"}}))
     log(card)

@@ -3,13 +3,13 @@
 Each architecture the port runs gets one module in this package defining
 ``CONFIG`` (the exact published numbers) and ``smoke()`` (a reduced config
 of the same family for CPU tests). ``get(name)`` resolves either. The port
-carries the dense family only; the other families of the JAX package are
-listed so that asking for one names the ROADMAP item that brings it.
+carries the dense and MoE families; the other families of the JAX package
+are listed so that asking for one names the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Optional, Sequence
 
 
 def _round_up(x: int, m: int) -> int:
@@ -17,9 +17,36 @@ def _round_up(x: int, m: int) -> int:
 
 
 @dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_expert: int                 # per-expert ffn hidden
+    n_shared_experts: int = 0
+    first_dense: int = 0          # leading dense layers (deepseek: 3)
+    dense_d_ff: int = 0           # d_ff of those dense layers
+    capacity_factor: float = 1.25
+    token_chunk: int = 32768      # GShard dispatch group
+    router_aux_weight: float = 0.001
+    router_z_weight: float = 0.0001
+    # split each chunk into n_groups dispatch groups, each routed and
+    # dispatched on its own (the JAX package's DP-local variant)
+    grouped_dispatch: bool = False
+    n_groups: int = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    q_lora: int = 1536
+    kv_lora: int = 512
+    qk_nope: int = 128
+    qk_rope: int = 64
+    v_head: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                   # dense (the only family ported so far)
+    family: str                   # dense | moe (the families ported so far)
     n_layers: int
     d_model: int
     n_heads: int
@@ -33,6 +60,9 @@ class ModelConfig:
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     dtype: str = "bfloat16"
+    moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
+    mtp_weight: float = 0.0       # deepseek multi-token-prediction loss weight
     # attention chunking (flash) — bounds prefill's live score memory
     q_chunk: int = 512
     kv_chunk: int = 1024
@@ -57,8 +87,15 @@ class ModelConfig:
         return P.param_count(transformer.param_spec(self))
 
     def n_active_params(self) -> int:
-        """Params touched per token: all of them in the dense family."""
-        return self.n_params()
+        """Params touched per token (MoE: shared + top_k experts only)."""
+        total = self.n_params()
+        if self.moe is None:
+            return total
+        m = self.moe
+        per_expert = 3 * self.d_model * m.d_expert
+        n_moe_layers = self.n_layers - m.first_dense
+        inactive = (m.n_experts - m.top_k) * per_expert * n_moe_layers
+        return total - inactive
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,13 +135,13 @@ _MODULES = {
     "qwen3-4b": "qwen3_4b",
     "smollm-135m": "smollm_135m",
     "qwen1.5-110b": "qwen1_5_110b",
+    "deepseek-v3-671b": "deepseek_v3_671b",
+    "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
 }
 
 # archs whose family the port does not carry yet -> that family
 _NOT_PORTED = {
     "musicgen-medium": "audio",
-    "deepseek-v3-671b": "moe",
-    "moonshot-v1-16b-a3b": "moe",
     "internvl2-26b": "vlm",
     "hymba-1.5b": "hybrid",
     "xlstm-1.3b": "ssm",

@@ -20,17 +20,27 @@
 // over from the 3.35 TB/s of HBM. So the design keeps as many page bytes
 // in flight as the card can take, and little else on the way:
 //
-//   * Split-K over the page table. CTA (b, s) takes the contiguous page
-//     range [s * per, (s + 1) * per) of row b for all N kv heads, so that a
-//     page's K and V are each one contiguous run. The split count comes from
+//   * Split-K over the page table. CTA (b, s, g) takes the contiguous page
+//     range [s * per, (s + 1) * per) of row b for the g-th group of Nh kv
+//     heads. With one group (Nh = N) a page's K and V are each one
+//     contiguous run; with Nh < N they are page_size runs of Nh * D
+//     elements, one a token. The split count comes from
 //     shapes alone (kernels/paged_attention.py::split_plan: the table width,
 //     the page size, B and N), never from length, which lives on the card:
 //     the call needs no host sync and stays capturable in a CUDA graph. At
 //     B = 8 and a 256-page table that is 32 splits of 8 pages, 256 CTAs for
-//     132 SMs (one CTA per (row, kv head) would be 24).
+//     132 SMs (one CTA per (row, kv head) would be 24). The head group
+//     comes from shapes alone too (paged_attention.py::head_group): all N
+//     heads when two round buffers of them fit shared memory, else the
+//     largest divisor of N whose staging fits, one that lets two CTAs share
+//     an SM first. At 16 kv heads of 128 in bf16 and page 16 (one page of
+//     all heads is 128 KB) that is 4 heads a CTA. A group changes which
+//     bytes a CTA stages; a head's arithmetic depends only on the pages of
+//     a round (one online-softmax step), which the staging picks. Shapes
+//     whose heads all fit keep one group and their plan as before.
 //   * Copies in flight. A CTA loads its split's page ids once, then keeps
 //     NBUF - 1 rounds of R pages in flight with cp.async (16 bytes a thread,
-//     a plain linear walk of each page's run: no per-element division), K
+//     a linear walk of the page's runs, one division a 16-byte piece), K
 //     and V in their own dtype in shared memory, widened in registers. One
 //     barrier per round of R pages: it makes the round's copies visible and
 //     frees the buffer the next copy overwrites. Everything else a round
@@ -151,9 +161,9 @@ __host__ __device__ constexpr size_t pad16(size_t bytes) {
 }
 
 // Shared memory of one CTA, byte offsets: nbuf round buffers of R pages
-// (K of the round's tokens [R*ps][N][Dk], then V [R*ps][N][Dv], in T),
-// q [Hq][Dk], acc [Hq][Dv], p [Hq][R*ps], m and l [Hq] in f32, the split's
-// page ids.
+// (K of the round's tokens [R*ps][Nh][Dk], then V [R*ps][Nh][Dv], in T),
+// for the CTA's Nh kv heads and Hc = Nh * G query heads q [Hc][Dk],
+// acc [Hc][Dv], p [Hc][R*ps], m and l [Hc] in f32, the split's page ids.
 struct Layout {
   int rp, nbuf;               // pages per round, round buffers
   size_t k_round, buf;        // bytes of a round's K, of a round buffer
@@ -161,15 +171,15 @@ struct Layout {
   int p_stride;               // floats per head in p
 };
 
-__host__ __device__ inline Layout layout(int rp, int nbuf, int n_kv,
+__host__ __device__ inline Layout layout(int rp, int nbuf, int n_h,
                                          int group, int d_k, int d_v,
                                          int page_size, int elem, int per) {
   Layout L;
-  const int hq = n_kv * group;
+  const int hq = n_h * group;
   L.rp = rp;
   L.nbuf = nbuf;
-  L.k_round = (size_t)rp * page_size * n_kv * d_k * elem;
-  L.buf = L.k_round + (size_t)rp * page_size * n_kv * d_v * elem;
+  L.k_round = (size_t)rp * page_size * n_h * d_k * elem;
+  L.buf = L.k_round + (size_t)rp * page_size * n_h * d_v * elem;
   L.p_stride = (rp * page_size + 3) & ~3;
   L.q = (size_t)nbuf * L.buf;
   L.acc = L.q + pad16((size_t)hq * d_k * 4);
@@ -185,8 +195,9 @@ __host__ __device__ inline Layout layout(int rp, int nbuf, int n_kv,
 // else one CTA's 227 KB, trying rounds of up to kRoundTokens tokens (then
 // half as many pages, down to one) and for each as many round buffers as
 // the split's rounds can use (4 down to 2). Its total exceeds kSmemLimit
-// only when two buffers of one page do not fit.
-inline Layout plan(int n_kv, int group, int d_k, int d_v, int page_size,
+// only when two buffers of one page do not fit. n_h: the kv heads a CTA
+// stages (paged_attention.py::smem_bytes repeats this choice).
+inline Layout plan(int n_h, int group, int d_k, int d_v, int page_size,
                    int elem, int per) {
   int rp = page_size >= kRoundTokens ? 1 : kRoundTokens / page_size;
   if (rp > per) rp = per;
@@ -197,13 +208,13 @@ inline Layout plan(int n_kv, int group, int d_k, int d_v, int page_size,
       int nb = rounds + 1 < 4 ? rounds + 1 : 4;
       if (nb < 2) nb = 2;
       for (; nb >= 2; --nb) {
-        const Layout L = layout(r, nb, n_kv, group, d_k, d_v, page_size,
+        const Layout L = layout(r, nb, n_h, group, d_k, d_v, page_size,
                                 elem, per);
         if (L.total <= cap) return L;
       }
     }
   }
-  return layout(1, 2, n_kv, group, d_k, d_v, page_size, elem, per);
+  return layout(1, 2, n_h, group, d_k, d_v, page_size, elem, per);
 }
 
 template <typename T>
@@ -215,38 +226,56 @@ struct Args {
   const int32_t* length;
   T* out;
   float* part;      // (B, splits, Hq, 2 + Dv) f32: m, l per head, then acc
-  int n_kv, group, d_k, d_v, page_size, width, n_splits, per;
+  int n_kv, n_h, group, d_k, d_v, page_size, width, n_splits, per;
   float scale;
 };
 
-// Pages [j0, j0 + np) of the split (ids in shared memory) into a round
-// buffer, 16 bytes a thread; the caller commits the group.
+// The CTA's share of one pool page: runs of run_bytes, src_stride apart in
+// the pool, packed in dst; 16 bytes a thread. One run of the whole page
+// with one head group, else one run a token.
+__device__ __forceinline__ void copy_runs(unsigned char* dst,
+                                          const unsigned char* src,
+                                          int chunks, int run_chunks,
+                                          size_t src_stride) {
+#pragma unroll 4
+  for (int c = threadIdx.x; c < chunks; c += blockDim.x) {
+    const int r = c / run_chunks;
+    cp_async16(dst + (size_t)c * 16,
+               src + r * src_stride + (size_t)(c - r * run_chunks) * 16);
+  }
+}
+
+// Pages [j0, j0 + np) of the split (ids in shared memory), the kv heads of
+// head group g, into a round buffer; the caller commits the group.
 template <typename T>
 __device__ __forceinline__ void issue_round(const Args<T>& a, const Layout& L,
                                             unsigned char* buf,
-                                            const int* ids, int j0, int np) {
-  const size_t k_page = (size_t)a.page_size * a.n_kv * a.d_k * sizeof(T);
-  const size_t v_page = (size_t)a.page_size * a.n_kv * a.d_v * sizeof(T);
-  const int k_chunks = (int)(k_page / 16), v_chunks = (int)(v_page / 16);
+                                            const int* ids, int j0, int np,
+                                            int g) {
+  const size_t k_tok = (size_t)a.n_kv * a.d_k * sizeof(T);   // in the pool
+  const size_t v_tok = (size_t)a.n_kv * a.d_v * sizeof(T);
+  const size_t k_page = a.page_size * k_tok, v_page = a.page_size * v_tok;
+  const size_t k_run = (size_t)a.n_h * a.d_k * sizeof(T);    // a token's
+  const size_t v_run = (size_t)a.n_h * a.d_v * sizeof(T);    // share
+  const int runs = a.n_h == a.n_kv ? 1 : a.page_size;
+  const int k_chunks = (int)(a.page_size * k_run / 16);
+  const int v_chunks = (int)(a.page_size * v_run / 16);
   for (int j = 0; j < np; ++j) {
     const int64_t page = ids[j0 + j];
-    const unsigned char* ks =
-        reinterpret_cast<const unsigned char*>(a.k_pages) + page * k_page;
-    const unsigned char* vs =
-        reinterpret_cast<const unsigned char*>(a.v_pages) + page * v_page;
-    unsigned char* kd = buf + j * k_page;
-    unsigned char* vd = buf + L.k_round + j * v_page;
-#pragma unroll 4
-    for (int c = threadIdx.x; c < k_chunks; c += blockDim.x)
-      cp_async16(kd + (size_t)c * 16, ks + (size_t)c * 16);
-#pragma unroll 4
-    for (int c = threadIdx.x; c < v_chunks; c += blockDim.x)
-      cp_async16(vd + (size_t)c * 16, vs + (size_t)c * 16);
+    copy_runs(buf + j * (k_chunks * (size_t)16),
+              reinterpret_cast<const unsigned char*>(a.k_pages) +
+                  page * k_page + g * k_run,
+              k_chunks, k_chunks / runs, k_tok);
+    copy_runs(buf + L.k_round + j * (v_chunks * (size_t)16),
+              reinterpret_cast<const unsigned char*>(a.v_pages) +
+                  page * v_page + g * v_run,
+              v_chunks, v_chunks / runs, v_tok);
   }
 }
 
 // One round (tokens of the buffer, the first at position pos0) for the
-// warp's query heads: scores, online softmax, acc = acc * corr + p . V.
+// warp's query heads of the CTA's group: scores, online softmax,
+// acc = acc * corr + p . V.
 template <typename T>
 __device__ __forceinline__ void consume(const Args<T>& a, const Layout& L,
                                         const unsigned char* buf, int tokens,
@@ -255,12 +284,12 @@ __device__ __forceinline__ void consume(const Args<T>& a, const Layout& L,
                                         float* l_s, int c_rot) {
   constexpr int kVec = Vec16<T>::n;
   const int lane = threadIdx.x & 31;
-  const int hq = a.n_kv * a.group;
+  const int hq = a.n_h * a.group;                // the CTA's query heads
   const int n_chunks = a.d_k / kVec;
   const T* kb = reinterpret_cast<const T*>(buf);
   const T* vb = reinterpret_cast<const T*>(buf + L.k_round);
-  const size_t k_tok = (size_t)a.n_kv * a.d_k;   // elements between tokens
-  const size_t v_tok = (size_t)a.n_kv * a.d_v;
+  const size_t k_tok = (size_t)a.n_h * a.d_k;    // elements between tokens
+  const size_t v_tok = (size_t)a.n_h * a.d_v;
   for (int h = threadIdx.x >> 5; h < hq; h += blockDim.x >> 5) {
     const int n = h / a.group;
     const float* qh = q_s + (size_t)h * a.d_k;
@@ -333,18 +362,21 @@ paged_decode_kernel(const Args<T> a, const Layout L) {
   const int tid = threadIdx.x, lane = tid & 31, nt = blockDim.x;
   const int b = blockIdx.x / a.n_splits;   // request row
   const int s = blockIdx.x - b * a.n_splits;  // split of the row
-  const int hq = a.n_kv * a.group;
+  const int g = blockIdx.y;                // kv head group
+  const int hq = a.n_kv * a.group;         // the row's query heads
+  const int hc = a.n_h * a.group;          // this CTA's: [h0, h0 + hc)
+  const int h0 = g * hc;
   const int first = s * a.per;
 
   // length, q and the ids of the split's range are independent loads
   const int len = a.length[b];
-  const T* qb = a.q + (size_t)b * hq * a.d_k;
-  for (int i = tid; i < hq * a.d_k; i += nt) q_s[i] = to_f32(qb[i]);
+  const T* qb = a.q + ((size_t)b * hq + h0) * a.d_k;
+  for (int i = tid; i < hc * a.d_k; i += nt) q_s[i] = to_f32(qb[i]);
   const int32_t* tb = a.table + (size_t)b * a.width + first;
   const int in_table = min(a.per, a.width - first);
   for (int i = tid; i < in_table; i += nt) ids[i] = tb[i];
-  for (int i = tid; i < hq * a.d_v; i += nt) acc_s[i] = 0.f;
-  for (int i = tid; i < hq; i += nt) {
+  for (int i = tid; i < hc * a.d_v; i += nt) acc_s[i] = 0.f;
+  for (int i = tid; i < hc; i += nt) {
     m_s[i] = kNegInf;
     l_s[i] = 0.f;
   }
@@ -353,8 +385,10 @@ paged_decode_kernel(const Args<T> a, const Layout L) {
   const int count = min(a.per, n_pages - first);   // pages this split reads
   if (count <= 0) {   // wholly past the length: weight 0 in the combine
     float* part = a.part + ((size_t)b * a.n_splits + s) * hq * (2 + a.d_v);
-    for (int i = tid; i < hq * (2 + a.d_v); i += nt)
-      part[i] = i < 2 * hq && !(i & 1) ? kNegInf : 0.f;
+    for (int i = tid; i < 2 * hc; i += nt)
+      part[2 * h0 + i] = i & 1 ? 0.f : kNegInf;
+    for (int i = tid; i < hc * a.d_v; i += nt)
+      part[2 * hq + (size_t)h0 * a.d_v + i] = 0.f;
     return;
   }
   __syncthreads();
@@ -365,7 +399,7 @@ paged_decode_kernel(const Args<T> a, const Layout L) {
   for (int r = 0; r < NBUF - 1; ++r) {
     if (r < rounds)
       issue_round(a, L, smem + r * L.buf, ids, r * L.rp,
-                  min(L.rp, count - r * L.rp));
+                  min(L.rp, count - r * L.rp), g);
     cp_async_commit();
   }
   for (int r = 0; r < rounds; ++r) {
@@ -376,7 +410,7 @@ paged_decode_kernel(const Args<T> a, const Layout L) {
     const int nr = r + NBUF - 1;
     if (nr < rounds)
       issue_round(a, L, smem + (nr % NBUF) * L.buf, ids, nr * L.rp,
-                  min(L.rp, count - nr * L.rp));
+                  min(L.rp, count - nr * L.rp), g);
     cp_async_commit();
     const int np = min(L.rp, count - r * L.rp);
     consume(a, L, smem + (r % NBUF) * L.buf, np * a.page_size,
@@ -387,19 +421,20 @@ paged_decode_kernel(const Args<T> a, const Layout L) {
 
   // each warp's heads are its own: no block barrier before the epilogue
   __syncwarp();
-  for (int h = tid >> 5; h < hq; h += nt >> 5) {
+  for (int h = tid >> 5; h < hc; h += nt >> 5) {
     const float* ah = acc_s + (size_t)h * a.d_v;
+    const int hg = h0 + h;                 // the head's index in the row
     if (a.n_splits == 1) {
       const float l = fmaxf(l_s[h], 1e-37f);
-      T* o = a.out + ((size_t)b * hq + h) * a.d_v;
+      T* o = a.out + ((size_t)b * hq + hg) * a.d_v;
       for (int d = lane; d < a.d_v; d += 32) o[d] = from_f32<T>(ah[d] / l);
     } else {
       float* part = a.part + ((size_t)b * a.n_splits + s) * hq * (2 + a.d_v);
       if (lane == 0) {
-        part[2 * h] = m_s[h];
-        part[2 * h + 1] = l_s[h];
+        part[2 * hg] = m_s[h];
+        part[2 * hg + 1] = l_s[h];
       }
-      float* pa = part + 2 * hq + (size_t)h * a.d_v;
+      float* pa = part + 2 * hq + (size_t)hg * a.d_v;
       for (int d = lane; d < a.d_v; d += 32) pa[d] = ah[d];
     }
   }
@@ -451,18 +486,20 @@ int launch_split(const Args<T>& a, const Layout& L, int batch,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
     if (e != cudaSuccess) return (int)e;
   }
-  int warps = a.n_kv * a.group;
+  int warps = a.n_h * a.group;
   warps = warps < kMinWarps ? kMinWarps : warps > kMaxWarps ? kMaxWarps : warps;
   paged_decode_kernel<T, NBUF>
-      <<<batch * a.n_splits, warps * 32, L.total, stream>>>(a, L);
+      <<<dim3(batch * a.n_splits, a.n_kv / a.n_h), warps * 32, L.total,
+         stream>>>(a, L);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const Args<T>& a, int batch, cudaStream_t stream) {
-  const Layout L = plan(a.n_kv, a.group, a.d_k, a.d_v, a.page_size,
+  const Layout L = plan(a.n_h, a.group, a.d_k, a.d_v, a.page_size,
                         (int)sizeof(T), a.per);
-  if (L.total > kSmemLimit || batch < 1 || batch > 65535 ||
+  if (L.total > kSmemLimit || batch < 1 || batch > 65535 || a.n_h < 1 ||
+      a.n_kv % a.n_h || a.n_kv / a.n_h > 65535 ||
       (long long)batch * a.n_splits > 0x7fffffffLL ||
       (a.n_splits > 1 && a.part == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -481,25 +518,27 @@ int launch(const Args<T>& a, int batch, cudaStream_t stream) {
 
 extern "C" {
 
-// Shared memory one CTA needs, in bytes, for elements of elem bytes and
-// splits of per pages (the wrapper refuses shapes above the card's 227 KB:
-// those where two pages of all kv heads do not fit).
-size_t paged_decode_attention_smem_bytes(int n_kv, int group, int d_k,
+// Shared memory one CTA needs, in bytes, staging n_h kv heads, for
+// elements of elem bytes and splits of per pages (the wrapper picks n_h so
+// that this fits the card's 227 KB, and refuses shapes where no head
+// group's two pages fit).
+size_t paged_decode_attention_smem_bytes(int n_h, int group, int d_k,
                                          int d_v, int page_size, int elem,
                                          int per) {
-  return plan(n_kv, group, d_k, d_v, page_size, elem, per).total;
+  return plan(n_h, group, d_k, d_v, page_size, elem, per).total;
 }
 
-// dtype: 0 = float32, 1 = bfloat16. part: n_splits > 1 only, (batch,
-// n_splits, Hq, 2 + d_v) f32 scratch. Launches the split kernel (and, for
-// more than one split, the combine) on `stream` without synchronising;
-// returns cudaGetLastError() after the launches (0 = success).
+// dtype: 0 = float32, 1 = bfloat16. n_h: kv heads a CTA takes (divides
+// n_kv). part: n_splits > 1 only, (batch, n_splits, Hq, 2 + d_v) f32
+// scratch. Launches the split kernel (and, for more than one split, the
+// combine) on `stream` without synchronising; returns cudaGetLastError()
+// after the launches (0 = success).
 int paged_decode_attention(int dtype, const void* q, const void* k_pages,
                            const void* v_pages, const void* table,
                            const void* length, void* out, void* part,
-                           int batch, int n_kv, int group, int d_k, int d_v,
-                           int page_size, int width, int n_splits, int per,
-                           float scale, void* stream) {
+                           int batch, int n_kv, int n_h, int group, int d_k,
+                           int d_v, int page_size, int width, int n_splits,
+                           int per, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch<float>(
@@ -509,7 +548,8 @@ int paged_decode_attention(int dtype, const void* q, const void* k_pages,
                     static_cast<const int32_t*>(table),
                     static_cast<const int32_t*>(length),
                     static_cast<float*>(out), static_cast<float*>(part), n_kv,
-                    group, d_k, d_v, page_size, width, n_splits, per, scale},
+                    n_h, group, d_k, d_v, page_size, width, n_splits, per,
+                    scale},
         batch, st);
   if (dtype == 1)
     return launch<__nv_bfloat16>(
@@ -519,8 +559,8 @@ int paged_decode_attention(int dtype, const void* q, const void* k_pages,
                             static_cast<const int32_t*>(table),
                             static_cast<const int32_t*>(length),
                             static_cast<__nv_bfloat16*>(out),
-                            static_cast<float*>(part), n_kv, group, d_k, d_v,
-                            page_size, width, n_splits, per, scale},
+                            static_cast<float*>(part), n_kv, n_h, group, d_k,
+                            d_v, page_size, width, n_splits, per, scale},
         batch, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -70,6 +70,16 @@ def default_serve_plan(*, insitu_mode: str = "async",
     }
 
 
+def weight_generator(cfg, seed: int, device: torch.device,
+                     smoke: bool) -> torch.Generator:
+    """The generator ``serve_loop`` draws its random weights from: the
+    card's for a full-width MoE model on the card (tens of GB, drawn in
+    seconds there and in minutes on the host), the CPU's for every other
+    config (whose bits the port's other callers draw the same way)."""
+    on_card = cfg.moe is not None and not smoke and device.type == "cuda"
+    return torch.Generator(device if on_card else "cpu").manual_seed(seed)
+
+
 def serve_loop(arch: str, *, n_requests: int = 8, max_new: int = 8,
                slots: int = 4, insitu_mode: str = "async",
                seed: int = 0, plan: Optional[Any] = None,
@@ -89,15 +99,16 @@ def serve_loop(arch: str, *, n_requests: int = 8, max_new: int = 8,
     prefixes, in-flight requests — and keeps serving from there.
     ``engine_kind="dense"`` serves on the fixed-slot baseline instead.
     ``device`` defaults to the card and raises when CUDA is missing;
-    ``smoke`` picks the reduced config (True) or the published widths.
+    ``smoke`` picks the reduced config (True) or the published widths;
+    the weights come from ``seed`` through :func:`weight_generator`.
     On CUDA each decode step replays a CUDA graph of the step, captured
     as the engine is built; ``cuda_graph=False`` steps eagerly (the CPU
     always does).
     """
     dev = resolve_device(device)
     cfg = configs.get(arch, smoke=smoke)
-    gen = torch.Generator().manual_seed(seed)
-    params = P_lib.materialize(gen, transformer.param_spec(cfg), dev)
+    params = P_lib.materialize(weight_generator(cfg, seed, dev, smoke),
+                               transformer.param_spec(cfg), dev)
     hydrate_info = None
     prompt_len = max(16, prefix_len + 8)
     max_len = max(64, ((prompt_len + max_new + page_size - 1)

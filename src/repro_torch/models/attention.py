@@ -13,6 +13,7 @@ with like.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -137,9 +138,26 @@ def gather_pages(pages: torch.Tensor, page_table: torch.Tensor
     return g.reshape(b, p * pages.shape[1], *pages.shape[2:])
 
 
+def token_slots(page_table: torch.Tensor, lengths: torch.Tensor,
+                page_size: int) -> tuple:
+    """Where :func:`scatter_token` writes each row's token: (page, slot,
+    the row whose values land there). One decode step computes them once
+    for every layer and leaf."""
+    b, p = page_table.shape
+    rows = torch.arange(b, device=page_table.device)
+    idx = torch.clamp(lengths // page_size, max=p - 1).long()
+    page = page_table[rows, idx].long()
+    slot = (lengths % page_size).long()
+    target = page * page_size + slot
+    same = target[:, None] == target[None, :]                # (B, B)
+    last = torch.amax(torch.where(same, rows[None, :], -1), dim=1)
+    return page, slot, last
+
+
 def scatter_token(pages: torch.Tensor, new: torch.Tensor,
                   page_table: torch.Tensor, lengths: torch.Tensor,
-                  page_size: int) -> torch.Tensor:
+                  page_size: int, slots: Optional[tuple] = None
+                  ) -> torch.Tensor:
     """Write one new token per row into its page: position ``lengths[b]``.
 
     Updates ``pages`` **in place** (and returns it): the pool is the
@@ -149,14 +167,18 @@ def scatter_token(pages: torch.Tensor, new: torch.Tensor,
     ``new``: (B, ...) — the freshly projected k/v rows. Rows whose length
     exceeds the table (inactive/finished requests) clamp to their last
     table entry, which the engine keeps pointed at the scratch page 0.
-    Every inactive row writes the same scratch slot, so this ``index_put_``
-    has duplicate indices and which row's bytes land there is not
-    deterministic — harmless, because no reader ever attends to page 0.
+    Inactive rows can write the same scratch slot; the last such row wins,
+    as in the JAX package's scatter on the CPU. Every row of a duplicate
+    writes the last one's values, so the result does not depend on the
+    order in which the card's threads land. It matters: an inactive row
+    attends over page 0, and in the MoE family its routing competes with
+    the active rows' for expert capacity. ``slots`` is
+    :func:`token_slots` of the same table and lengths, when the caller
+    has it.
     """
-    b, p = page_table.shape
-    idx = torch.clamp(lengths // page_size, max=p - 1).long()
-    page = page_table[torch.arange(b, device=page_table.device), idx]
-    pages[page.long(), (lengths % page_size).long()] = new.to(pages.dtype)
+    page, slot, last = (slots if slots is not None
+                        else token_slots(page_table, lengths, page_size))
+    pages[page, slot] = new[last].to(pages.dtype)
     return pages
 
 

@@ -90,14 +90,24 @@ def rope_frequencies(head_dim: int, theta: float,
     return 1.0 / (theta ** exps)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
-    """x: (..., seq, heads, head_dim); positions: (..., seq)."""
-    half = x.shape[-1] // 2
-    freqs = rope_frequencies(x.shape[-1], theta, x.device)  # (half,)
+def rope_table(positions: torch.Tensor, head_dim: int,
+               theta: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """(cos, sin) of the rotation angles at ``positions`` (..., seq), each
+    (..., seq, 1, head_dim // 2). A decode step computes them once and
+    every layer's q and k reuse them (the same bits as computing them per
+    call)."""
+    freqs = rope_frequencies(head_dim, theta, positions.device)  # (half,)
     angles = positions[..., :, None].float() * freqs   # (..., seq, half)
-    cos = torch.cos(angles)[..., :, None, :]
-    sin = torch.sin(angles)[..., :, None, :]
+    return torch.cos(angles)[..., :, None, :], torch.sin(angles)[..., :, None, :]
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               table: Optional[tuple] = None) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: (..., seq). ``table`` is
+    :func:`rope_table` of the same positions, when the caller has it."""
+    half = x.shape[-1] // 2
+    cos, sin = (table if table is not None
+                else rope_table(positions, x.shape[-1], theta))
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)

@@ -6,7 +6,8 @@ package builds. From one spec tree:
 
   * ``materialize(generator, spec, device)`` -> real tensors from an
     explicit ``torch.Generator`` (the same initializer *families* as the JAX
-    package; ``jax.random`` bits cannot be reproduced, so numbers differ);
+    package; ``jax.random`` bits cannot be reproduced, so numbers differ),
+    stacked leaves one layer slice at a time;
   * ``from_numpy_tree(tree, device)`` -> the port's tensors for a parameter
     tree the JAX package materialized, handed over as numpy arrays — same
     keys, shapes, dtypes and bits. This is how parity tests start both
@@ -51,13 +52,11 @@ def _fan_in(shape: tuple, axes: tuple) -> int:
     return max(int(np.prod(dims[:-1])), 1)
 
 
-def _init_leaf(gen: torch.Generator, spec: ParamSpec) -> torch.Tensor:
-    dev = gen.device
-    if spec.init == "zeros":
-        return torch.zeros(spec.shape, dtype=spec.dtype, device=dev)
-    if spec.init == "ones":
-        return torch.ones(spec.shape, dtype=spec.dtype, device=dev)
-    x = torch.empty(spec.shape, dtype=torch.float32, device=dev)
+def _draw(gen: torch.Generator, spec: ParamSpec, shape: tuple
+          ) -> torch.Tensor:
+    """One f32 draw of ``shape`` for ``spec``'s initializer on the
+    generator's device, cast to the spec's dtype."""
+    x = torch.empty(shape, dtype=torch.float32, device=gen.device)
     if spec.init == "embed":
         scale = spec.scale if spec.scale is not None else 1.0
         x.normal_(generator=gen)
@@ -70,16 +69,38 @@ def _init_leaf(gen: torch.Generator, spec: ParamSpec) -> torch.Tensor:
     return (x * scale).to(spec.dtype)
 
 
+def _init_leaf(gen: torch.Generator, spec: ParamSpec,
+               device: torch.device) -> torch.Tensor:
+    """The leaf on ``device``. A leaf stacked on a leading ``layers`` axis
+    is drawn one layer slice at a time into its place, so no f32
+    temporary is larger than one layer's slice (full-width MoE expert
+    stacks hold tens of GB). On a CPU generator the slices draw the same
+    bits as one draw of the whole leaf: its uniform draws are serial and
+    the rest of the initializer is elementwise."""
+    if spec.init == "zeros":
+        return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
+    if spec.init == "ones":
+        return torch.ones(spec.shape, dtype=spec.dtype, device=device)
+    if len(spec.shape) < 2 or spec.axes[0] != "layers":
+        return _draw(gen, spec, spec.shape).to(device)
+    out = torch.empty(spec.shape, dtype=spec.dtype, device=device)
+    for i in range(spec.shape[0]):
+        out[i].copy_(_draw(gen, spec, spec.shape[1:]))
+    return out
+
+
 def materialize(generator: torch.Generator, spec_tree: PyTree,
                 device: str | torch.device = "cuda") -> PyTree:
     """Initialize real parameters from a spec tree.
 
     Leaves are drawn on the generator's device in a fixed (tree) order, so
-    one seed gives one set of weights wherever they are placed, then moved
-    to ``device``.
+    one seed on one generator device gives one set of weights wherever
+    they are placed, and written to ``device``. A CUDA generator draws a
+    full-width MoE model in seconds where the CPU's takes minutes; the two
+    give different numbers from the same seed.
     """
     dev = host.resolve_device(device)
-    return tree_map(lambda s: _init_leaf(generator, s).to(dev), spec_tree)
+    return tree_map(lambda s: _init_leaf(generator, s, dev), spec_tree)
 
 
 def from_numpy_tree(tree: PyTree, device: str | torch.device = "cuda"

@@ -1,4 +1,8 @@
-"""Decoder-LM assembly, dense family: [GQA attn + SwiGLU] x N.
+"""Decoder-LM assembly, dense and MoE families.
+
+  dense : [GQA attn + SwiGLU] x N
+  moe   : [attn (MLA or GQA) + (dense | MoE) ffn], the leading
+          ``first_dense`` layers dense; deepseek's MTP head in the loss
 
 Layer parameters are stacked on a leading ``layers`` axis, as in the JAX
 package, so a parameter tree crosses between the two packages unchanged.
@@ -16,8 +20,10 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.pytree import tree_map
+from repro_torch.core.pytree import leaves, tree_map
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import mla as mla_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (apply_rope, cross_entropy, embed,
                                        embed_spec, mlp, mlp_spec, rmsnorm,
                                        rmsnorm_spec, unembed)
@@ -57,7 +63,10 @@ def attn_spec(cfg: ModelConfig, layers: Optional[int] = None) -> dict:
     return spec
 
 
-def project_qkv(p, x: torch.Tensor, cfg: ModelConfig, positions):
+def project_qkv(p, x: torch.Tensor, cfg: ModelConfig, positions,
+                rope: Optional[tuple] = None):
+    """q, k, v of ``x`` with rotary positions; ``rope`` is
+    ``layers.rope_table`` of ``positions`` when the caller has it."""
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dnk->bsnk", x, p["wk"])
     v = torch.einsum("bsd,dnk->bsnk", x, p["wv"])
@@ -66,8 +75,8 @@ def project_qkv(p, x: torch.Tensor, cfg: ModelConfig, positions):
     if cfg.qk_norm:
         q = rmsnorm({"scale": p["q_norm"]}, q, cfg.norm_eps)
         k = rmsnorm({"scale": p["k_norm"]}, k, cfg.norm_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    q = apply_rope(q, positions, cfg.rope_theta, rope)
+    k = apply_rope(k, positions, cfg.rope_theta, rope)
     return q, k, v
 
 
@@ -83,68 +92,131 @@ def gqa_attention(p, x: torch.Tensor, cfg: ModelConfig,
 # Param spec for the whole model
 # ---------------------------------------------------------------------------
 
+def _attn_spec(cfg: ModelConfig, layers: int) -> dict:
+    if cfg.mla is not None:
+        return mla_lib.mla_spec(cfg, layers)
+    return attn_spec(cfg, layers)
+
+
 def _dense_block_spec(cfg: ModelConfig, layers: int, d_ff: int) -> dict:
     return {
         "ln1": rmsnorm_spec(cfg.d_model, layers),
         "ln2": rmsnorm_spec(cfg.d_model, layers),
         "mlp": mlp_spec(cfg.d_model, d_ff, layers),
-        "attn": attn_spec(cfg, layers),
+        "attn": _attn_spec(cfg, layers),
     }
 
 
-def param_spec(cfg: ModelConfig) -> dict:
-    if cfg.family != "dense":
+def _moe_block_spec(cfg: ModelConfig, layers: int) -> dict:
+    return {
+        "ln1": rmsnorm_spec(cfg.d_model, layers),
+        "ln2": rmsnorm_spec(cfg.d_model, layers),
+        "moe": moe_lib.moe_spec(cfg, layers),
+        "attn": _attn_spec(cfg, layers),
+    }
+
+
+def check_family(cfg: ModelConfig) -> None:
+    """Raise for a family the port does not carry yet, naming the ROADMAP
+    item that brings it."""
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP.md, queue 1: "
             f"'Other model families')")
-    return {
-        "embed": embed_spec(cfg.padded_vocab, cfg.d_model,
-                            cfg.tie_embeddings),
-        "blocks": _dense_block_spec(cfg, cfg.n_layers, cfg.d_ff),
-        "final_norm": rmsnorm_spec(cfg.d_model),
-    }
+
+
+def param_spec(cfg: ModelConfig) -> dict:
+    check_family(cfg)
+    spec: dict = {"embed": embed_spec(cfg.padded_vocab, cfg.d_model,
+                                      cfg.tie_embeddings)}
+    if cfg.family == "dense":
+        spec["blocks"] = _dense_block_spec(cfg, cfg.n_layers, cfg.d_ff)
+    else:
+        m = cfg.moe
+        if m.first_dense:
+            spec["dense_blocks"] = _dense_block_spec(
+                cfg, m.first_dense, m.dense_d_ff or cfg.d_ff)
+        spec["moe_blocks"] = _moe_block_spec(cfg, cfg.n_layers - m.first_dense)
+        if cfg.mtp_weight > 0:
+            spec["mtp"] = {
+                "proj": ParamSpec((2 * cfg.d_model, cfg.d_model),
+                                  ("embed", "embed")),
+                "block": _dense_block_spec(
+                    cfg, 1, m.dense_d_ff or 4 * cfg.d_model),
+                "ln": rmsnorm_spec(cfg.d_model),
+            }
+    spec["final_norm"] = rmsnorm_spec(cfg.d_model)
+    return spec
 
 
 # ---------------------------------------------------------------------------
 # Forward and train loss
 # ---------------------------------------------------------------------------
 
+def _attn_branch(p, xn: torch.Tensor, cfg: ModelConfig,
+                 positions) -> torch.Tensor:
+    if cfg.mla is not None:
+        return mla_lib.mla_attention(p, xn, cfg, positions)
+    return gqa_attention(p, xn, cfg, positions)
+
+
 def dense_block(p, x: torch.Tensor, cfg: ModelConfig,
                 positions) -> torch.Tensor:
     xn = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    x = x + gqa_attention(p["attn"], xn, cfg, positions)
+    x = x + _attn_branch(p["attn"], xn, cfg, positions)
     xn = rmsnorm(p["ln2"], x, cfg.norm_eps)
     return x + mlp(p["mlp"], xn)
 
 
+def moe_block(p, x: torch.Tensor, cfg: ModelConfig, positions):
+    xn = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    x = x + _attn_branch(p["attn"], xn, cfg, positions)
+    xn = rmsnorm(p["ln2"], x, cfg.norm_eps)
+    y, aux = moe_lib.moe_ffn(p["moe"], xn, cfg)
+    return x + y, aux
+
+
+def _run_blocks(stacked, h: torch.Tensor, cfg: ModelConfig, body, aux):
+    """One block per layer of a stacked tree; ``body(x, p) -> (x, aux)``,
+    ``aux`` None for a block that has none. Under grad with ``cfg.remat`` each block is recomputed in the backward
+    pass (the JAX package's ``jax.checkpoint`` per block)."""
+    n = leaves(stacked)[0].shape[0]
+    for i in range(n):
+        p_i = tree_map(lambda t: t[i], stacked)
+        fn = lambda x, p_i=p_i: body(x, p_i)
+        if cfg.remat and torch.is_grad_enabled():
+            # the block draws no random numbers; saving the RNG state
+            # would read the CUDA generator, which a graph capture refuses
+            h, a = checkpoint(fn, h, use_reentrant=False,
+                              preserve_rng_state=False)
+        else:
+            h, a = fn(h)
+        if a is not None:
+            aux = aux + a
+    return h, aux
+
+
 def forward(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor):
     """tokens: (B, S) int. Returns (logits, aux_loss, loss_mask)."""
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP.md, queue 1: "
-            f"'Other model families')")
+    check_family(cfg)
     h = embed(params["embed"], tokens.long())
     loss_mask = torch.ones(tokens.shape, dtype=torch.float32,
                            device=tokens.device)
     b, s, _ = h.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device).expand(b, s)
-    for i in range(cfg.n_layers):
-        p_i = tree_map(lambda t: t[i], params["blocks"])
-
-        def body(x, p_i=p_i):
-            return dense_block(p_i, x, cfg, positions)
-
-        if cfg.remat and torch.is_grad_enabled():
-            # the block draws no random numbers; saving the RNG state
-            # would read the CUDA generator, which a graph capture refuses
-            h = checkpoint(body, h, use_reentrant=False,
-                           preserve_rng_state=False)
-        else:
-            h = body(h)
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    dense = lambda x, p: (dense_block(p, x, cfg, positions), None)
+    if cfg.family == "dense":
+        h, _ = _run_blocks(params["blocks"], h, cfg, dense, aux)
+    else:
+        if cfg.moe.first_dense:
+            h, _ = _run_blocks(params["dense_blocks"], h, cfg, dense, aux)
+        h, aux = _run_blocks(params["moe_blocks"], h, cfg,
+                             lambda x, p: moe_block(p, x, cfg, positions),
+                             aux)
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
     logits = unembed(params["embed"], h, cfg.vocab_size)
-    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     return logits, aux, loss_mask
 
 
@@ -153,4 +225,34 @@ def train_loss(params: PyTree, cfg: ModelConfig,
     logits, aux, mask = forward(params, cfg, batch["tokens"])
     if "mask" in batch:
         mask = mask * batch["mask"]
-    return cross_entropy(logits, batch["labels"], mask) + aux
+    loss = cross_entropy(logits, batch["labels"], mask)
+    if cfg.family == "moe" and cfg.mtp_weight > 0:
+        loss = loss + cfg.mtp_weight * _mtp_loss(params, cfg, batch)
+    return loss + aux
+
+
+def _mtp_loss(params: PyTree, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """DeepSeek-style multi-token prediction: one extra block predicts t+2.
+
+    The JAX package's simplified MTP module: concat(embedding of the
+    current tokens, embedding of the labels) -> projection -> one dense
+    block -> the shared unembed, against the labels shifted by one (the
+    last position masked).
+    """
+    emb = embed(params["embed"], batch["labels"].long())
+    cur = embed(params["embed"], batch["tokens"].long())
+    h = torch.cat([cur, emb], dim=-1)
+    h = torch.einsum("bse,ed->bsd", h, params["mtp"]["proj"])
+    b, s, _ = h.shape
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=h.device).expand(b, s)
+    blk = tree_map(lambda t: t[0], params["mtp"]["block"])
+    h = dense_block(blk, h, cfg, positions)
+    h = rmsnorm(params["mtp"]["ln"], h, cfg.norm_eps)
+    logits2 = unembed(params["embed"], h, cfg.vocab_size)
+    labels2 = torch.roll(batch["labels"], -1, dims=1)
+    mask2 = torch.ones(labels2.shape, dtype=torch.float32, device=h.device)
+    mask2[:, -1] = 0.0
+    if "mask" in batch:
+        mask2 = mask2 * batch["mask"]
+    return cross_entropy(logits2, labels2, mask2)

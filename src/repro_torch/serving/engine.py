@@ -1,5 +1,5 @@
-"""Serving: requests, prefill, the dense decode step and the fixed-slot
-baseline engine.
+"""Serving: requests, prefill, the decode step (dense and MoE families)
+and the fixed-slot baseline engine.
 
   prefill(params, tokens)                  -> (logits, cache, lengths)
   decode (params, cache, tokens, lengths)  -> (logits, cache, lengths+1)
@@ -34,8 +34,11 @@ from repro_torch.core.graphs import CapturedStep
 from repro_torch.core.host import resolve_device
 from repro_torch.core.pytree import leaves, tree_map
 from repro_torch.models import attention as attn_lib
-from repro_torch.models.layers import embed, mlp, rmsnorm, unembed
-from repro_torch.models.transformer import project_qkv
+from repro_torch.models import mla as mla_lib
+from repro_torch.models import moe as moe_lib
+from repro_torch.models.layers import (embed, mlp, rmsnorm, rope_table,
+                                       unembed)
+from repro_torch.models.transformer import check_family, project_qkv
 from repro_torch.serving import kvcache
 
 PyTree = Any
@@ -91,39 +94,93 @@ def _insert_at(cache: torch.Tensor, new: torch.Tensor,
     return cache
 
 
-def _gqa_decode_attn(p, xn, cfg: ModelConfig, kv, lengths):
+class StepAt:
+    """What every layer of one decode step shares, computed once a step:
+    the new token's rotary table (GQA) and, on the paged engine, where
+    each row's token lands (``attention.token_slots``)."""
+
+    def __init__(self, cfg: ModelConfig, lengths: torch.Tensor,
+                 slots: Optional[tuple] = None) -> None:
+        self.rope = (rope_table(lengths[:, None], cfg.resolved_head_dim,
+                                cfg.rope_theta)
+                     if cfg.mla is None else None)
+        self.slots = slots
+
+
+def _gqa_decode_attn(p, xn, cfg: ModelConfig, kv, lengths, at: StepAt):
     """kv: {'k','v'} (B,S,N,hd). Returns (attn_out, kv updated in place)."""
     pos = lengths[:, None]                       # rope position of new token
-    q, k, v = project_qkv(p, xn, cfg, pos)
+    q, k, v = project_qkv(p, xn, cfg, pos, at.rope)
     kc = _insert_at(kv["k"], k[:, 0], lengths)
     vc = _insert_at(kv["v"], v[:, 0], lengths)
     o = attn_lib.decode_attention(q, kc, vc, lengths + 1)
     return torch.einsum("bshk,hkd->bsd", o, p["wo"]), {"k": kc, "v": vc}
 
 
-def _dense_decode_block(p, x, cfg, kv, lengths):
+def _mla_decode_attn(p, xn, cfg: ModelConfig, kv, lengths):
+    pos = lengths[:, None]
+    ckv_new, krope_new = mla_lib.mla_new_cache_entry(p, xn, cfg, pos)
+    ckv = _insert_at(kv["ckv"], ckv_new[:, 0], lengths)
+    krope = _insert_at(kv["krope"], krope_new[:, 0], lengths)
+    o = mla_lib.mla_decode(p, xn, cfg, ckv, krope, lengths + 1)
+    return o, {"ckv": ckv, "krope": krope}
+
+
+def _decode_attn(p, xn, cfg: ModelConfig, kv, lengths, at: StepAt):
+    if cfg.mla is not None:
+        return _mla_decode_attn(p, xn, cfg, kv, lengths)
+    return _gqa_decode_attn(p, xn, cfg, kv, lengths, at)
+
+
+def _dense_decode_block(p, x, cfg, kv, lengths, at: StepAt):
     xn = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    a, kv = _gqa_decode_attn(p["attn"], xn, cfg, kv, lengths)
+    a, kv = _decode_attn(p["attn"], xn, cfg, kv, lengths, at)
     x = x + a
     xn = rmsnorm(p["ln2"], x, cfg.norm_eps)
     return x + mlp(p["mlp"], xn), kv
 
 
+def _moe_decode_block(p, x, cfg, kv, lengths, at: StepAt):
+    xn = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    a, kv = _decode_attn(p["attn"], xn, cfg, kv, lengths, at)
+    x = x + a
+    xn = rmsnorm(p["ln2"], x, cfg.norm_eps)
+    y, _ = moe_lib.moe_ffn(p["moe"], xn, cfg, with_aux=False)
+    return x + y, kv
+
+
+def split_layers(cfg: ModelConfig, kv: PyTree) -> tuple[PyTree, PyTree]:
+    """An MoE model's cache stack as (leading dense layers, MoE layers):
+    views, so in-place writes land in the one stack."""
+    fd = cfg.moe.first_dense
+    return tree_map(lambda a: a[:fd], kv), tree_map(lambda a: a[fd:], kv)
+
+
 def make_decode(cfg: ModelConfig) -> Callable:
     """decode(params, cache, tokens (B,1), lengths (B,)) -> (logits, cache,
-    lengths+1); ``cache`` is updated in place and returned."""
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP.md, queue 1: "
-            f"'Other model families')")
+    lengths+1); ``cache`` is updated in place and returned. An MoE model
+    decodes its ``first_dense`` dense layers, then its MoE layers, over
+    the two parts of its one cache stack."""
+    check_family(cfg)
 
     def decode(params, cache, tokens, lengths):
         h = embed(params["embed"], tokens)
-        body = lambda x, p, kv: _dense_decode_block(p, x, cfg, kv, lengths)
-        h, kv = _scan_decode(params["blocks"], cache["kv"], h, body)
+        at = StepAt(cfg, lengths)
+        dense = lambda x, p, kv: _dense_decode_block(p, x, cfg, kv, lengths,
+                                                     at)
+        if cfg.family == "dense":
+            h, _ = _scan_decode(params["blocks"], cache["kv"], h, dense)
+        else:
+            kv_d, kv_m = split_layers(cfg, cache["kv"])
+            if cfg.moe.first_dense:
+                h, _ = _scan_decode(params["dense_blocks"], kv_d, h, dense)
+            h, _ = _scan_decode(
+                params["moe_blocks"], kv_m, h,
+                lambda x, p, kv: _moe_decode_block(p, x, cfg, kv, lengths,
+                                                   at))
         h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
         logits = unembed(params["embed"], h, cfg.vocab_size)
-        return logits, {"kv": kv}, lengths + 1
+        return logits, cache, lengths + 1
 
     return decode
 
@@ -144,6 +201,24 @@ def _gqa_prefill_attn(p, xn, cfg, positions, *, max_len):
     return out, {"k": k, "v": v}
 
 
+def _mla_prefill_attn(p, xn, cfg, positions, *, max_len):
+    out = mla_lib.mla_attention(p, xn, cfg, positions)
+    ckv, krope = mla_lib.mla_new_cache_entry(p, xn, cfg, positions)
+    pad = max_len - xn.shape[1]
+    if pad > 0:
+        ckv = F.pad(ckv, (0, 0, 0, pad))
+        krope = F.pad(krope, (0, 0, 0, pad))
+    return out, {"ckv": ckv, "krope": krope}
+
+
+def stacks(cfg: ModelConfig, params) -> list:
+    """The model's stacked block trees in layer order."""
+    if cfg.family == "dense":
+        return [params["blocks"]]
+    return ([params["dense_blocks"]] if cfg.moe.first_dense else []) \
+        + [params["moe_blocks"]]
+
+
 def make_prefill(cfg: ModelConfig, max_len: int,
                  last_only: bool = False) -> Callable:
     """prefill(params, tokens (B,S)[, last_pos]) -> (logits, cache, lengths).
@@ -153,10 +228,7 @@ def make_prefill(cfg: ModelConfig, max_len: int,
     ``last_pos-1`` instead of ``-1`` — for callers that right-pad every
     prompt to one canonical width.
     """
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP.md, queue 1: "
-            f"'Other model families')")
+    check_family(cfg)
 
     def prefill(params, tokens, last_pos: Optional[int] = None):
         h = embed(params["embed"], tokens)
@@ -167,13 +239,26 @@ def make_prefill(cfg: ModelConfig, max_len: int,
 
         def block(x, p):
             xn = rmsnorm(p["ln1"], x, cfg.norm_eps)
-            a, kv = _gqa_prefill_attn(p["attn"], xn, cfg, positions,
-                                      max_len=max_len)
+            if cfg.mla is not None:
+                a, kv = _mla_prefill_attn(p["attn"], xn, cfg, positions,
+                                          max_len=max_len)
+            else:
+                a, kv = _gqa_prefill_attn(p["attn"], xn, cfg, positions,
+                                          max_len=max_len)
             x = x + a
             xn = rmsnorm(p["ln2"], x, cfg.norm_eps)
-            return x + mlp(p["mlp"], xn), kv
+            if "moe" in p:
+                y, _ = moe_lib.moe_ffn(p["moe"], xn, cfg, with_aux=False)
+            else:
+                y = mlp(p["mlp"], xn)
+            return x + y, kv
 
-        h, kv = _maybe_scan(block, h, params["blocks"])
+        parts = []
+        for stacked in stacks(cfg, params):
+            h, kv = _maybe_scan(block, h, stacked)
+            parts.append(kv)
+        kv = (tree_map(lambda *xs: torch.cat(xs), *parts) if len(parts) > 1
+              else parts[0])
         h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
         if last_only:
             h = h[:, last_pos - 1:last_pos] if last_pos is not None \

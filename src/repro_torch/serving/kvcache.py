@@ -1,7 +1,11 @@
-"""Serving-state layouts, dense GQA family.
+"""Serving-state layouts, dense and MoE families.
 
-  dense GQA : k/v (L, B, S, N, hd) — N = kv heads (GQA shrinks the cache
-              by heads/N vs MHA).
+  GQA : k/v (L, B, S, N, hd) — N = kv heads (GQA shrinks the cache by
+        heads/N vs MHA).
+  MLA : latent c_kv (L, B, S, kv_lora) + shared rope key (L, B, S, qk_rope)
+        — (kv_lora + qk_rope) values per token and layer.
+
+An MoE model's dense and MoE layers share one stack of ``n_layers``.
 
 The paged engine turns every leaf whose sequence axis spans ``max_len``
 into a block-indexed page pool ``(L, num_pages, page_size, N, hd)``.
@@ -15,6 +19,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.pytree import tree_map
+from repro_torch.models.transformer import check_family
 
 PyTree = Any
 
@@ -38,12 +43,21 @@ def _gqa_kv(cfg: ModelConfig, layers: int, batch: int, seq: int):
     return {"k": (shape, axes, cfg.dtype), "v": (shape, axes, cfg.dtype)}
 
 
+def _mla_kv(cfg: ModelConfig, layers: int, batch: int, seq: int):
+    m = cfg.mla
+    return {
+        "ckv": ((layers, batch, seq, m.kv_lora),
+                ("layers", "batch", "seq", None), cfg.dtype),
+        "krope": ((layers, batch, seq, m.qk_rope),
+                  ("layers", "batch", "seq", None), cfg.dtype),
+    }
+
+
 def cache_layout(cfg: ModelConfig, batch: int, max_len: int) -> PyTree:
     """Tree of (shape, logical_axes, dtype) descriptors."""
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP.md, queue 1: "
-            f"'Other model families')")
+    check_family(cfg)
+    if cfg.mla is not None:
+        return {"kv": _mla_kv(cfg, cfg.n_layers, batch, max_len)}
     return {"kv": _gqa_kv(cfg, cfg.n_layers, batch, max_len)}
 
 
@@ -54,8 +68,8 @@ def paged_cache_layout(cfg: ModelConfig, num_pages: int, page_size: int,
     Leaves whose sequence axis spans ``max_len`` become block-indexed page
     pools shared by every request: ``(layers, batch, max_len, ...)`` turns
     into ``(layers, num_pages, page_size, ...)``. Everything else would
-    stay a dense per-row slab; the dense family has none, so its state
-    side is ``{}``.
+    stay a dense per-row slab; the dense and MoE families have none, so
+    their state side is ``{}``.
     """
     def page_desc(d):
         shape, axes = d[0], d[1]

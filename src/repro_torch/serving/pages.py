@@ -65,8 +65,10 @@ from repro_torch.core import host
 from repro_torch.core.host import resolve_device
 from repro_torch.core.pytree import flatten_with_path, keystr, tree_map
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import mla as mla_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import embed, mlp, rmsnorm, unembed
-from repro_torch.models.transformer import project_qkv
+from repro_torch.models.transformer import check_family, project_qkv
 from repro_torch.serving import engine as E
 from repro_torch.serving import kvcache
 from repro_torch.serving import prefix as prefix_lib
@@ -79,22 +81,53 @@ PyTree = Any
 # paged decode blocks (x: (B,1,d); kv leaves: (num_pages, page_size, ...))
 # ---------------------------------------------------------------------------
 
-def _paged_gqa_attn(p, xn, cfg: ModelConfig, kv, table, lengths, ps, attend):
+def _paged_gqa_attn(p, xn, cfg: ModelConfig, kv, table, lengths, ps, attend,
+                    at):
     pos = lengths[:, None]                       # rope position of new token
-    q, k, v = project_qkv(p, xn, cfg, pos)
-    kc = attn_lib.scatter_token(kv["k"], k[:, 0], table, lengths, ps)
-    vc = attn_lib.scatter_token(kv["v"], v[:, 0], table, lengths, ps)
+    q, k, v = project_qkv(p, xn, cfg, pos, at.rope)
+    kc = attn_lib.scatter_token(kv["k"], k[:, 0], table, lengths, ps, at.slots)
+    vc = attn_lib.scatter_token(kv["v"], v[:, 0], table, lengths, ps, at.slots)
     o = attend(q, kc, vc, table, lengths + 1)
     return torch.einsum("bshk,hkd->bsd", o, p["wo"]), {"k": kc, "v": vc}
 
 
-def _paged_dense_block(p, x, cfg, kv, table, lengths, ps, attend):
+def _paged_mla_attn(p, xn, cfg: ModelConfig, kv, table, lengths, ps, at):
+    pos = lengths[:, None]
+    ckv_new, krope_new = mla_lib.mla_new_cache_entry(p, xn, cfg, pos)
+    ckv = attn_lib.scatter_token(kv["ckv"], ckv_new[:, 0], table, lengths, ps,
+                                 at.slots)
+    krope = attn_lib.scatter_token(kv["krope"], krope_new[:, 0], table,
+                                   lengths, ps, at.slots)
+    # MLA decode is a latent-space matmul over the whole prefix: gather the
+    # chain into token order and reuse the dense path (masked identically)
+    o = mla_lib.mla_decode(p, xn, cfg, attn_lib.gather_pages(ckv, table),
+                           attn_lib.gather_pages(krope, table), lengths + 1)
+    return o, {"ckv": ckv, "krope": krope}
+
+
+def _paged_attn(p, xn, cfg, kv, table, lengths, ps, attend, at):
+    if cfg.mla is not None:
+        return _paged_mla_attn(p, xn, cfg, kv, table, lengths, ps, at)
+    return _paged_gqa_attn(p, xn, cfg, kv, table, lengths, ps, attend, at)
+
+
+def _paged_dense_block(p, x, cfg, kv, table, lengths, ps, attend, at):
     xn = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    a, kv = _paged_gqa_attn(p["attn"], xn, cfg, kv, table, lengths, ps,
-                            attend)
+    a, kv = _paged_attn(p["attn"], xn, cfg, kv, table, lengths, ps, attend,
+                        at)
     x = x + a
     xn = rmsnorm(p["ln2"], x, cfg.norm_eps)
     return x + mlp(p["mlp"], xn), kv
+
+
+def _paged_moe_block(p, x, cfg, kv, table, lengths, ps, attend, at):
+    xn = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    a, kv = _paged_attn(p["attn"], xn, cfg, kv, table, lengths, ps, attend,
+                        at)
+    x = x + a
+    xn = rmsnorm(p["ln2"], x, cfg.norm_eps)
+    y, _ = moe_lib.moe_ffn(p["moe"], xn, cfg, with_aux=False)
+    return x + y, kv
 
 
 def make_paged_decode(cfg: ModelConfig, page_size: int, *,
@@ -103,24 +136,36 @@ def make_paged_decode(cfg: ModelConfig, page_size: int, *,
     """decode(params, pool, state, page_table, tokens (B,1), lengths (B,))
     -> (logits, pool, state, lengths+1); ``pool`` is updated in place.
 
-    ``attend`` is the paged attention (default: the kernel for CUDA
-    tensors, its plain version for CPU ones); the on-card smoke passes the
-    plain version to hold one full-width decode step against the kernel.
+    ``attend`` is the paged attention of GQA layers (default: the kernel
+    for CUDA tensors, its plain version for CPU ones); the on-card smoke
+    passes the plain version to hold one full-width decode step against
+    the kernel. An MoE model decodes its ``first_dense`` dense layers, then
+    its MoE layers, over the two parts of its one pool stack; its MLA
+    layers gather their chains and attend in plain tensor code, as the JAX
+    package does.
     """
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP.md, queue 1: "
-            f"'Other model families')")
+    check_family(cfg)
     ps = page_size
 
     def decode(params, pool, state, page_table, tokens, lengths):
         h = embed(params["embed"], tokens)
-        body = lambda x, p, kv: _paged_dense_block(
-            p, x, cfg, kv, page_table, lengths, ps, attend)
-        h, kv = E._scan_decode(params["blocks"], pool["kv"], h, body)
+        at = E.StepAt(cfg, lengths,
+                      attn_lib.token_slots(page_table, lengths, ps))
+        dense = lambda x, p, kv: _paged_dense_block(
+            p, x, cfg, kv, page_table, lengths, ps, attend, at)
+        if cfg.family == "dense":
+            h, _ = E._scan_decode(params["blocks"], pool["kv"], h, dense)
+        else:
+            kv_d, kv_m = E.split_layers(cfg, pool["kv"])
+            if cfg.moe.first_dense:
+                h, _ = E._scan_decode(params["dense_blocks"], kv_d, h, dense)
+            h, _ = E._scan_decode(
+                params["moe_blocks"], kv_m, h,
+                lambda x, p, kv: _paged_moe_block(
+                    p, x, cfg, kv, page_table, lengths, ps, attend, at))
         h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
         logits = unembed(params["embed"], h, cfg.vocab_size)
-        return logits, {"kv": kv}, state, lengths + 1
+        return logits, pool, state, lengths + 1
 
     return decode
 

@@ -44,14 +44,17 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.pytree import tree_map
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import mla as mla_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import embed, mlp, rmsnorm, unembed
-from repro_torch.models.transformer import project_qkv
+from repro_torch.models.transformer import check_family, project_qkv
 from repro_torch.serving import engine as E
 from repro_torch.serving import kvcache
 
 #: Families whose entire serving cache pages (no per-row recurrent state);
-#: of these the port carries the dense family so far.
+#: of these the port carries the dense and MoE families so far.
 SHAREABLE_FAMILIES = ("dense", "audio", "vlm", "moe")
 
 
@@ -211,6 +214,21 @@ def _gqa_cont_attn(p, xn, cfg: ModelConfig, positions, pkv, p0):
     return torch.einsum("bshk,hkd->bsd", o, p["wo"]), {"k": k, "v": v}
 
 
+def _mla_cont_attn(p, xn, cfg: ModelConfig, positions, pkv, p0):
+    """MLA continuation: concat cached+new latents, then the same per-head
+    K/V reconstruction as ``mla_attention``'s prefill path."""
+    q_nope, q_rope = mla_lib._project_q(p, xn, cfg, positions)
+    c_new, krope_new = mla_lib._project_kv_latent(p, xn, cfg, positions)
+    ckv = torch.cat([pkv["ckv"].to(c_new.dtype), c_new], dim=1)
+    krope = torch.cat([pkv["krope"].to(krope_new.dtype), krope_new], dim=1)
+    k, v = mla_lib.per_head_kv(p, ckv, krope, cfg)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    o = attn_lib.flash_attention(q, k, v, causal=True, q_offset=p0,
+                                 q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+    out = torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    return out, {"ckv": c_new, "krope": krope_new}
+
+
 def make_continue_prefill(cfg: ModelConfig, page_size: int):
     """cont(params, pool, page_ids, tokens (1,S)[, last_pos])
     -> (last-real-position logits, suffix kv).
@@ -224,10 +242,7 @@ def make_continue_prefill(cfg: ModelConfig, page_size: int):
     every suffix to one canonical width (causal attention keeps real
     positions independent of the zero-padded tail).
     """
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP.md, queue 1: "
-            f"'Other model families')")
+    check_family(cfg)
 
     def cont(params, pool, page_ids, tokens, last_pos=None):
         b, s = tokens.shape
@@ -240,12 +255,27 @@ def make_continue_prefill(cfg: ModelConfig, page_size: int):
         def block(x, xs):
             p, pkv = xs
             xn = rmsnorm(p["ln1"], x, cfg.norm_eps)
-            a, kv = _gqa_cont_attn(p["attn"], xn, cfg, positions, pkv, p0)
+            if cfg.mla is not None:
+                a, kv = _mla_cont_attn(p["attn"], xn, cfg, positions, pkv, p0)
+            else:
+                a, kv = _gqa_cont_attn(p["attn"], xn, cfg, positions, pkv, p0)
             x = x + a
             xn = rmsnorm(p["ln2"], x, cfg.norm_eps)
-            return x + mlp(p["mlp"], xn), kv
+            if "moe" in p:
+                y, _ = moe_lib.moe_ffn(p["moe"], xn, cfg, with_aux=False)
+            else:
+                y = mlp(p["mlp"], xn)
+            return x + y, kv
 
-        h, kv = E._maybe_scan(block, h, (params["blocks"], prefix_kv))
+        parts, first = [], 0
+        for stacked in E.stacks(cfg, params):
+            n = E._n_layers(stacked)
+            pkv = tree_map(lambda a: a[first:first + n], prefix_kv)
+            h, kv = E._maybe_scan(block, h, (stacked, pkv))
+            parts.append(kv)
+            first += n
+        kv = (tree_map(lambda *xs: torch.cat(xs), *parts) if len(parts) > 1
+              else parts[0])
         h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
         h = h[:, last_pos - 1:last_pos] if last_pos is not None else h[:, -1:]
         logits = unembed(params["embed"], h, cfg.vocab_size)

@@ -20,7 +20,10 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro.") or m == "ml_dtypes")
-print(len(names), bad)
+moe = sorted(n for n in names if n.endswith((".moe", ".mla",
+                                              "moonshot_v1_16b_a3b",
+                                              "deepseek_v3_671b")))
+print(len(names), len(moe), bad)
 """
 
 
@@ -28,9 +31,10 @@ def test_every_module_imports_without_jax_or_repro():
     out = subprocess.run([sys.executable, "-c", _PROBE], capture_output=True,
                          text=True, timeout=120,
                          env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"},
-                         check=True).stdout.split(maxsplit=1)
-    n_modules, bad = int(out[0]), out[1].strip()
-    assert n_modules >= 59          # every module (core.insitu included)
+                         check=True).stdout.split(maxsplit=2)
+    n_modules, n_moe, bad = int(out[0]), int(out[1]), out[2].strip()
+    assert n_modules >= 63          # every module (core.insitu included)
+    assert n_moe == 4               # models.moe/mla and the two configs
     assert bad == "[]", f"port pulled in {bad}"
 
 
@@ -75,6 +79,8 @@ def test_entry_points_default_to_the_card(tmp_path):
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve_loop("smollm-135m")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve_loop("moonshot-v1-16b-a3b", smoke=False)
     cfg = base.get("smollm-135m", smoke=True)
     spec = transformer.param_spec(cfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

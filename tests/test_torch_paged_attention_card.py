@@ -169,3 +169,80 @@ def test_cuda_graph_replay_equals_eager(cuda, width):
         eager = PK.paged_decode_attention(*args)
         torch.cuda.synchronize()
         assert torch.equal(_bits(static_out), _bits(eager))
+
+
+# moonshot-v1-16b-a3b's serving shape: 16 kv heads of 128, one query head
+# each; in bf16 at page 16 one page of all heads is 128 KB, so the split
+# kernel takes them in groups (head_group)
+MOONSHOT = dict(hq=16, n_kv=16, d_k=128, d_v=128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,ps", [("bfloat16", 16), ("float32", 16),
+                                      ("float32", 8)])
+@pytest.mark.parametrize("width", [4, 64])
+def test_moonshot_shape_matches_plain_on_card(cuda, dtype, ps, width):
+    rng = np.random.default_rng(17)
+    full = ps * width
+    lengths = [0, 1, ps, ps + 1, full // 2 + 3, full - 1, full, full]
+    args = _case(rng, b=8, ps=ps, pps=width, lengths=lengths,
+                 dtype=getattr(torch, dtype), dev=cuda, **MOONSHOT)
+    _, per = PK.split_plan(width, ps, 8, 16)
+    n_h = PK.head_group(16, 1, 128, 128, ps, args[0].element_size(), per)
+    assert n_h < 16
+    out = PK.paged_decode_attention(*args)
+    torch.cuda.synchronize()
+    ref = PK.paged_decode_attention_plain(*args)
+    tol = F32_TOL if dtype == "float32" else dict(rtol=0, atol=BF16_ATOL)
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("width", [4, 256])
+def test_head_groups_with_one_round_size_give_one_result(cuda, dtype, width):
+    """A head group changes which bytes a CTA stages; a head's arithmetic
+    depends only on the pages of a round (one online-softmax step), which
+    the staging picks. At smollm's heads (3 of 64, one group by the plan)
+    and at moonshot's (16 of 128, page 8), every two groups that fit with
+    the same pages a round give the same bits."""
+    rng = np.random.default_rng(18)
+    compared = 0
+    for shape, ps in ((dict(hq=9, n_kv=3, d_k=64, d_v=64), 16),
+                      (MOONSHOT, 8)):
+        full = ps * width
+        args = _case(rng, b=8, ps=ps, pps=width,
+                     lengths=[0, 1, ps + 1, full // 2, full - 1, full, full,
+                              3], dtype=getattr(torch, dtype), dev=cuda,
+                     **shape)
+        n_kv, group = shape["n_kv"], shape["hq"] // shape["n_kv"]
+        _, per = PK.split_plan(width, ps, 8, n_kv)
+        by_round: dict = {}
+        for n_h in range(1, n_kv + 1):
+            rp, _, total = PK.staging(n_h, group, shape["d_k"],
+                                      shape["d_v"], ps,
+                                      args[0].element_size(), per)
+            if n_kv % n_h or total > PK.MAX_SMEM_BYTES:
+                continue
+            got = _bits(PK.paged_decode_attention(*args, n_h=n_h)).clone()
+            if rp in by_round:
+                assert torch.equal(got, by_round[rp]), (shape, n_h, rp)
+                compared += 1
+            else:
+                by_round[rp] = got
+    assert compared >= 2
+
+
+@pytest.mark.cuda
+def test_smem_bytes_mirror_the_source(cuda):
+    """``smem_bytes`` (Python, what the head-group choice reads) equals the
+    source's ``paged_decode_attention_smem_bytes`` over the shapes the
+    port serves and the tests use."""
+    _, c_bytes = PK._entry()
+    for n_h in (1, 2, 3, 4, 8, 16):
+        for group, d_k, d_v in ((1, 128, 128), (3, 64, 64), (2, 24, 40)):
+            for ps in (5, 8, 16, 32, 64):
+                for elem in (2, 4):
+                    for per in (1, 2, 4, 8, 256):
+                        args = (n_h, group, d_k, d_v, ps, elem, per)
+                        assert c_bytes(*args) == PK.smem_bytes(*args), args

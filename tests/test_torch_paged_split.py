@@ -135,3 +135,68 @@ def test_split_combine_matches_pallas_and_plain(group, ps, d_k, d_v):
                                    err_msg=f"{n_splits} splits of {per}")
         np.testing.assert_allclose(got, plain, **F32_TOL,
                                    err_msg=f"{n_splits} splits of {per}")
+
+
+def test_head_group_keeps_one_group_where_all_heads_fit():
+    """smollm's shapes (3 kv heads of 64, 3 query heads each, page 16) at
+    the serving and long tables, bf16 and f32: one group of all heads, the
+    plan the kernel had before head groups."""
+    for width, b in ((4, 8), (256, 8)):
+        _, per = PK.split_plan(width, 16, b, 3)
+        for elem in (2, 4):
+            assert PK.head_group(3, 3, 64, 64, 16, elem, per) == 3
+            assert PK.smem_bytes(3, 3, 64, 64, 16, elem, per) \
+                <= PK.MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("elem,ps,want", [
+    (2, 16, 4),      # moonshot serving: bf16, page 16 -> 4 heads, 2 CTAs/SM
+    (4, 16, 2),      # f32, page 16
+    (4, 8, 4),       # f32, page 8
+])
+def test_head_group_at_moonshots_shape(elem, ps, want):
+    """16 kv heads of 128, one query head each: all 16 do not fit (two
+    pages of them exceed 227 KB at page 16 in bf16); the group is the
+    largest divisor whose staging lets two CTAs share an SM."""
+    _, per = PK.split_plan(64 // ps, ps, 8, 16)
+    assert PK.smem_bytes(16, 1, 128, 128, ps, elem, per) > \
+        PK.MAX_SMEM_BYTES
+    n_h = PK.head_group(16, 1, 128, 128, ps, elem, per)
+    assert n_h == want and 16 % n_h == 0
+    assert PK.smem_bytes(n_h, 1, 128, 128, ps, elem, per) <= PK.SMEM_TWO_CTAS
+    assert PK.smem_bytes(2 * n_h, 1, 128, 128, ps, elem, per) \
+        > PK.SMEM_TWO_CTAS
+
+
+def test_head_group_keeps_all_heads_where_they_fit_one_cta():
+    """moonshot's heads in bf16 at page 8: two pages of all 16 fit 227 KB
+    (not two CTAs), so the plan stays one group."""
+    _, per = PK.split_plan(8, 8, 8, 16)
+    assert PK.SMEM_TWO_CTAS < PK.smem_bytes(16, 1, 128, 128, 8, 2, per) \
+        <= PK.MAX_SMEM_BYTES
+    assert PK.head_group(16, 1, 128, 128, 8, 2, per) == 16
+
+
+def test_head_group_takes_one_cta_when_no_group_shares_an_sm():
+    """Where even one kv head's staging needs more than half an SM, the
+    largest divisor that fits one CTA."""
+    n_h = PK.head_group(4, 1, 512, 512, 16, 4, 1)
+    assert PK.smem_bytes(n_h, 1, 512, 512, 16, 4, 1) <= PK.MAX_SMEM_BYTES
+    assert PK.smem_bytes(1, 1, 512, 512, 16, 4, 1) > PK.SMEM_TWO_CTAS
+    assert n_h == max(n for n in (1, 2, 4) if PK.smem_bytes(
+        n, 1, 512, 512, 16, 4, 1) <= PK.MAX_SMEM_BYTES)
+
+
+def test_head_group_raises_naming_the_shape():
+    with pytest.raises(ValueError, match=r"128 x 1 x 256\+256.*shared memory"):
+        PK.head_group(1, 1, 256, 256, 128, 4, 1)
+
+
+def test_smem_bytes_is_the_sources_layout():
+    """The smollm serving plan's bytes by hand from the source's layout:
+    a round of 2 pages (32 tokens) x 3 heads x (64 + 64) bf16, 3 buffers
+    (two rounds + 1) in the two-CTA cap, then q, acc, p, m, l of 9 query
+    heads in f32 and 4 page ids."""
+    buf = 2 * 16 * 3 * 128 * 2
+    extra = 9 * 64 * 4 * 2 + 9 * 32 * 4 + 2 * 48 + 16
+    assert PK.smem_bytes(3, 3, 64, 64, 16, 2, 4) == 3 * buf + extra

@@ -1,8 +1,11 @@
 """Serving parity between the PyTorch port and the JAX package (CPU).
 
-Both packages start from the same weights: the JAX package materializes a
-smoke-size ``smollm-135m`` tree, and the port takes it through its weight
-bridge. Tolerances:
+Every test runs for ``smollm-135m`` (dense) and the two MoE archs,
+``moonshot-v1-16b-a3b`` (GQA) and ``deepseek-v3-671b`` (MLA). Both
+packages start from the same weights: the JAX package materializes a
+smoke-size tree, and the port takes it through its weight bridge.
+Parameter specs are compared at the published widths, by shape and dtype,
+without materializing them. Tolerances:
 
 * the bridge is bitwise (same bits, bf16 through a uint16 view);
 * f32 prefill logits agree to rtol/atol 1e-4 (two frameworks, same math,
@@ -10,10 +13,22 @@ bridge. Tolerances:
 * bf16 prefill logits agree to atol 2e-2: every matmul output rounds to
   bf16 (8 significant bits, relative step 2^-8 ~ 4e-3) in both packages
   but at different places, and the differences accumulate over two
-  layers; the smoke logits are O(0.1..1);
-* greedy token streams of the paged engines are equal in f32 (params and
-  cache cast to f32 on both sides), with and without a registered prefix.
+  layers; the smoke logits are O(0.1..1). The MoE archs' to atol 8e-2:
+  their smoke logits reach about 3.5, where one bf16 step is 2^-6 ~ 0.016,
+  over three layers whose MoE and MLA blocks round at more places (expert
+  outputs, combine, shared experts, latents), some of which XLA's
+  compiled scan body keeps in f32; seeds 0-2 differ by at most 0.059
+  with every expert id equal;
+* greedy token streams of the paged and dense engines are equal in f32
+  (params and cache cast to f32 on both sides), with and without a
+  registered prefix. In the MoE family the rows of one decode step share
+  each expert's capacity, and an idle row's token competes for it as in
+  the JAX package; so the streams are compared only where both packages
+  run identical batches (the same engine, geometry and admissions);
+* an MoE chain one package's engine wrote hydrates the other package's
+  engine, which decodes the in-flight requests to the same f32 tokens.
 """
+import functools
 import dataclasses
 
 import jax
@@ -34,13 +49,13 @@ from repro_torch.models import transformer as TT
 from repro_torch.serving import engine as TE
 from repro_torch.serving import pages as TPG
 
-ARCH = "smollm-135m"
+ARCHS = ("smollm-135m", "moonshot-v1-16b-a3b", "deepseek-v3-671b")
 
 
-@pytest.fixture(scope="module")
-def bridged():
+@pytest.fixture(scope="module", params=ARCHS)
+def bridged(request):
     """(jax cfg, jax params, port cfg, port params), bf16 as materialized."""
-    return _bridged(ARCH)
+    return _bridged(request.param)
 
 
 def _f32(jcfg, jprm, tcfg, tprm):
@@ -78,16 +93,34 @@ def test_bridge_is_bitwise(bridged):
             np.testing.assert_array_equal(ta, ja, err_msg=k)
 
 
-def test_port_param_spec_matches_jax(bridged):
-    jcfg, _, tcfg, _ = bridged
+@pytest.mark.parametrize("smoke", [True, False])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_port_param_spec_matches_jax(arch, smoke):
+    """Same leaves, shapes and dtypes (published widths and smoke size),
+    the same configs, and the same parameter counts."""
+    jcfg, tcfg = jbase.get(arch, smoke=smoke), tbase.get(arch, smoke=smoke)
+    for f in dataclasses.fields(tcfg):
+        want = getattr(jcfg, f.name)
+        got = getattr(tcfg, f.name)
+        if dataclasses.is_dataclass(want):
+            assert dataclasses.asdict(got) == dataclasses.asdict(want), f.name
+        else:
+            assert got == want, f.name
     js = jax.tree_util.tree_leaves_with_path(
         JT.param_spec(jcfg), is_leaf=lambda x: isinstance(x, JP.ParamSpec))
-    ts = _flat(TT.param_spec(tcfg))
-    jshapes = {jax.tree_util.keystr(p): s.shape for p, s in js}
-    assert len(jshapes) == len(ts)
-    assert tcfg.n_params() == sum(int(np.prod(s)) for s in jshapes.values())
+    jspec = {"".join(f"/{k.key}" for k in p): s for p, s in js}
+    tspec = _flat(TT.param_spec(tcfg))
+    assert list(sorted(jspec)) == list(sorted(tspec))
+    for k, js_ in jspec.items():
+        ts_ = tspec[k]
+        assert ts_.shape == js_.shape and ts_.axes == js_.axes, k
+        assert str(ts_.dtype).split(".")[-1] == np.dtype(js_.dtype).name, k
+        assert (ts_.init, ts_.scale) == (js_.init, js_.scale), k
+    assert tcfg.n_params() == jcfg.n_params()
+    assert tcfg.n_active_params() == jcfg.n_active_params()
 
 
+@functools.lru_cache(maxsize=None)
 def _bridged(arch):
     jcfg = jbase.get(arch, smoke=True)
     jprm = JP.materialize(jax.random.PRNGKey(0), JT.param_spec(jcfg))
@@ -100,23 +133,28 @@ def _bridged(arch):
     ("granite-3-2b", "float32"),
     ("qwen3-4b", "float32"),         # qk_norm, head_dim decoupled
     ("qwen1.5-110b", "float32"),     # qkv bias
+    ("moonshot-v1-16b-a3b", "float32"), ("moonshot-v1-16b-a3b", "bfloat16"),
+    ("deepseek-v3-671b", "float32"), ("deepseek-v3-671b", "bfloat16"),
 ])
-def test_prefill_logits_match_jax(bridged, arch, dtype):
-    jcfg, jprm, tcfg, tprm = bridged if arch == ARCH else _bridged(arch)
+def test_prefill_logits_match_jax(arch, dtype):
+    jcfg, jprm, tcfg, tprm = _bridged(arch)
     if dtype == "float32":
         jcfg, jprm, tcfg, tprm = _f32(jcfg, jprm, tcfg, tprm)
         tol = dict(rtol=1e-4, atol=1e-4)
     else:
-        tol = dict(rtol=0, atol=2e-2)
+        tol = dict(rtol=0, atol=8e-2 if jcfg.moe is not None else 2e-2)
     rng = np.random.default_rng(1)
     toks = rng.integers(0, jcfg.vocab_size, size=(2, 16)).astype(np.int32)
     jl, jcache, _ = JE.make_prefill(jcfg, 32)(jprm, jnp.asarray(toks))
     tl, tcache, _ = TE.make_prefill(tcfg, 32)(tprm, torch.from_numpy(toks))
     jl = np.asarray(jl.astype(jnp.float32))
     np.testing.assert_allclose(tl.float().numpy(), jl, **tol)
-    jk = np.asarray(jcache["kv"]["k"].astype(jnp.float32))
-    assert tuple(tcache["kv"]["k"].shape) == jk.shape
-    np.testing.assert_allclose(tcache["kv"]["k"].float().numpy(), jk, **tol)
+    assert list(tcache["kv"]) == list(jcache["kv"])
+    for name, leaf in jcache["kv"].items():
+        jk = np.asarray(leaf.astype(jnp.float32))
+        assert tuple(tcache["kv"][name].shape) == jk.shape, name
+        np.testing.assert_allclose(tcache["kv"][name].float().numpy(), jk,
+                                   err_msg=name, **tol)
 
 
 def _requests(cls, vocab, seed, n, prefix=None, max_new=6):
@@ -184,3 +222,83 @@ def test_engine_snapshot_payload_matches_jax_leaves(bridged):
             np.testing.assert_array_equal(tl[k], jl[k], err_msg=k)
     assert jeng.snapshot_payload()["chunk_hints"] == \
         teng.snapshot_payload()["chunk_hints"]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_dense_engine_token_streams_match_jax(arch):
+    """The fixed-slot engines of both packages, f32, two slots for four
+    requests (admissions refill freed slots between steps)."""
+    jcfg, jprm, tcfg, tprm = _f32(*_bridged(arch))
+    ja = _requests(JE.Request, jcfg.vocab_size, 3, 4)
+    tb = _requests(TE.Request, tcfg.vocab_size, 3, 4)
+    JE.ServingEngine(jcfg, jprm, slots=2, prompt_len=16, max_len=64).run(ja)
+    TE.ServingEngine(tcfg, tprm, slots=2, prompt_len=16, max_len=64,
+                     device="cpu").run(tb)
+    for ra, rb in zip(ja, tb):
+        assert ra.done and rb.done
+        assert ra.out == rb.out, f"request {ra.rid} diverged"
+
+
+def _chain(eng, reqs, directory, store_cls, plan_mod):
+    """Admit ``reqs``, decode three steps with a SYNC snapshot after each
+    into ``directory``."""
+    plan = plan_mod.InSituPlan.from_dict({
+        "streams": ["kv_pages"],
+        "tasks": {"kv_snapshot": {
+            "stream": "kv_pages", "preset": "serve_snapshot", "every": 1,
+            "placement": "sync",
+            "options": {"base_every": 2, "directory": directory}}}})
+    for r in reqs:
+        assert eng.admit(r)
+    with plan_mod.Session(plan, raise_on_error=True) as session:
+        for step in range(3):
+            eng.step()
+            session.emit("kv_pages", step, eng.snapshot_payload)
+    return store_cls(directory).restore("kv_pages")
+
+
+@pytest.mark.parametrize("producer", ["jax", "torch"])
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "deepseek-v3-671b"])
+def test_moe_chain_hydrates_the_other_package(arch, producer, tmp_path):
+    """A paged MoE engine's snapshot chain (pool leaves ``['kv']['k']`` /
+    ``['kv']['v']``, or ``['kv']['ckv']`` / ``['kv']['krope']`` for MLA)
+    written by one package hydrates the other's engine, which decodes the
+    in-flight requests to the producer's f32 tokens with no prefill."""
+    from repro.core import session as JS
+    from repro.serving.snapshot import SnapshotStore as JStore
+    from repro_torch.core import session as TS
+    from repro_torch.serving.snapshot import SnapshotStore as TStore
+
+    jcfg, jprm, tcfg, tprm = _f32(*_bridged(arch))
+    kw = dict(num_pages=17, page_size=16, max_reqs=4, prompt_len=16,
+              max_len=64)
+    d = str(tmp_path / "chain")
+    if producer == "jax":
+        prod = JPG.PagedServingEngine(jcfg, jprm, **kw)
+        reqs = _requests(JE.Request, jcfg.vocab_size, 9, 3, max_new=10)
+        step, leaves = _chain(prod, reqs, d, JStore, JS)
+        rep = TPG.PagedServingEngine.from_snapshot(tcfg, tprm, leaves,
+                                                   device="cpu")
+    else:
+        prod = TPG.PagedServingEngine(tcfg, tprm, device="cpu", **kw)
+        reqs = _requests(TE.Request, tcfg.vocab_size, 9, 3, max_new=10)
+        step, leaves = _chain(prod, reqs, d, TStore, TS)
+        rep = JPG.PagedServingEngine.from_snapshot(jcfg, jprm, leaves)
+    assert step == 2
+    pool_keys = sorted(k for k in leaves if k.startswith("['pool']"))
+    want = (["['pool']['kv']['ckv']", "['pool']['kv']['krope']"]
+            if arch.startswith("deepseek") else
+            ["['pool']['kv']['k']", "['pool']['kv']['v']"])
+    assert pool_keys == want
+    assert leaves[want[0]].shape[0] == tcfg.n_layers
+    live = [a for a in rep.active if a is not None]
+    assert [r.out for r in live] == [r.out for r in reqs]
+    pre = rep.prefill_tokens
+    for _ in range(12):
+        for eng in (prod, rep):
+            if any(a is not None for a in eng.active):
+                eng.step()
+    for a, b in zip(reqs, live):
+        assert a.done and b.done
+        assert a.out == b.out, f"replica diverged on request {a.rid}"
+    assert rep.prefill_tokens == pre

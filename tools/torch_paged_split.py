@@ -28,7 +28,10 @@ beside:
              yardstick only)
 
 ``pv`` and ``kernel`` are held against the plain version (bf16, atol
-3.2e-2) before they are timed.
+3.2e-2) before they are timed, and ``kernel``'s output against this
+tree's ``paged_decode_attention`` bit for bit (``bits_equal_to_tree``:
+an older source gives the same bits where this tree's plan keeps one
+group of all kv heads).
 
 ``--dequant``: builds ``--old-spectral`` (an older ``spectral_lossy.cu``,
 as ``git show 6ebcf91:src/repro_torch/kernels/csrc/spectral_lossy.cu``
@@ -340,6 +343,7 @@ def paged(args) -> dict:
 
     src = args.source.read_text()
     new = "int n_splits" in src
+    grouped = "int n_h," in src       # the entry takes the head group
     work = Path(tempfile.mkdtemp(prefix="paged_split_"))
     so, log = build(work, "paged_split", src + _VARIANTS)
     lib = ctypes.CDLL(str(so))
@@ -347,7 +351,9 @@ def paged(args) -> dict:
     lib.split_variant.argtypes = [I] + [P] * 6 + [I] * 7 + [F, P]
     lib.split_variant.restype = I
     if new:
-        lib.paged_decode_attention.argtypes = [I] + [P] * 7 + [I] * 9 + [F, P]
+        lib.paged_decode_attention.argtypes = ([I] + [P] * 7
+                                               + [I] * (10 if grouped else 9)
+                                               + [F, P])
     else:
         lib.paged_decode_attention.argtypes = [I] + [P] * 6 + [I] * 7 + [F, P]
     lib.paged_decode_attention.restype = I
@@ -374,9 +380,11 @@ def paged(args) -> dict:
         if new:
             n_splits, per = PK.split_plan(width, ps, b, n_kv)
             part = torch.empty(b * n_splits * hq * (2 + d), device=dev)
+            heads = ((n_kv, PK.head_group(n_kv, group, d, d, ps, 2, per))
+                     if grouped else (n_kv,))
             full_call = lambda: _checked(
                 lib.paged_decode_attention, 1, *ptrs, out.data_ptr(),
-                part.data_ptr() if n_splits > 1 else None, b, n_kv, group,
+                part.data_ptr() if n_splits > 1 else None, b, *heads, group,
                 d, d, ps, width, n_splits, per, scale, stream)
         else:
             n_splits, per = 1, width
@@ -396,14 +404,20 @@ def paged(args) -> dict:
             errs[name] = (out.float() - ref).abs().max().item()
             torch.testing.assert_close(out.float(), ref, rtol=0.0,
                                        atol=smoke.BF16_ATOL)
+        calls["kernel"]()
+        torch.cuda.synchronize()
+        same = torch.equal(out.view(torch.int16),
+                           PK.paged_decode_attention(*a).view(torch.int16))
         row = in_turns(calls)
         result["ms"][label] = {"b": b, "width": width, "len": full,
                                "splits": n_splits, "pages_per_split": per,
-                               "max_abs_err": errs, **row}
+                               "max_abs_err": errs,
+                               "bits_equal_to_tree": same, **row}
         print(f"{label} (B={b}, {width} pages, len {full}, {n_splits} splits"
               f" of {per}): " + ", ".join(f"{n} {t:.4f} ms"
                                           for n, t in row.items())
-              + f"; |err| {errs}", flush=True)
+              + f"; |err| {errs}; the source's kernel bitwise this tree's: "
+              f"{same}", flush=True)
     return result
 
 
