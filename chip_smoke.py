@@ -146,7 +146,7 @@ Phases (any failure exits non-zero; none is swallowed):
    full published widths, batch 4 x 4096 tokens (``train_4k``'s length,
    its global batch of 256 cut to 4 for one card), bf16 state from seed
    0, each step a replay of the captured train step (the default). First
-   the bare loop (no in-situ task), 5 steps from seed 0, eagerly twice
+   the bare loop (no in-situ task), 3 steps from seed 0, eagerly twice
    and graphed once: the graphed losses must be bitwise the eager ones if
    the two eager runs are bitwise equal, else within their spread. Then,
    in HYBRID placement, 20 steps with no checkpoint task bound (what the
@@ -231,6 +231,38 @@ Phases (any failure exits non-zero; none is swallowed):
    four runs, peak memory, the weights' draw seconds, the decode step's
    host wall, device busy time and idle share. The phase must take at
    most 150 s.
+13. hybrid — the hybrid family (``hymba-1.5b``: parallel attention and
+   SSM heads, SWA rings on 29 layers, 3 global layers). (a) The paged
+   decode-attention kernel at hymba's heads (25 query heads over 5 kv
+   heads of 64: one CTA holds all 25, more than its 16 warps; B = 8, the
+   serving table of 4 pages and a 256-page one) against its plain
+   version in bf16 (atol 3.2e-2) and f32 (1e-5), one head group (its
+   shared-memory bytes equal to the source's), timed per call and on
+   the device beside the plain version, SDPA on the gathered cache and
+   the bound. (b) The smoke config in f32 with 40-token prompts past its
+   32-token window and 32 new tokens (the ring wraps in prefill and again
+   in decode): the dense 4-slot engine and a 4-row paged engine token for
+   token; a graphed and an eager 8-row paged engine from one state decode
+   the same tokens, the graphed one publishing a SYNC chain; a replica
+   restored from it at step 12 into a captured engine decodes in
+   lockstep with no prefill. (c) ``serve_loop("hymba-1.5b",
+   smoke=False)``: 32 layers at the published widths (1.66 G parameters,
+   3.33 GB in bf16, drawn on the card's generator from seed 0) on the
+   serve traffic, without and with the default async ``serve_snapshot``
+   plan, each eager and graphed: the four runs decode the same streams,
+   every request served and the pool empty, the graphed run's chain
+   restores bit-identically, and that run launches the kernel 3 times (the
+   global layers) a replayed decode step. Printed: the bytes a firing
+   publishes of ``pool`` and of ``state`` (raw, zlib base, zlib delta);
+   one decode step with the kernel held against the plain attention at
+   the 3 global layers on their inputs (atol 3.2e-2); the graphed decode
+   step profiled and the eager one's host wall. Then 8 requests of
+   1000-token prompts and 64 new tokens (max_len 1088, the SWA rings of
+   1024 slots wrapping in decode, the kernel over ~66 pages a row): the
+   graphed engine = an eager one's tokens over the first 8 steps, the
+   kernel against the plain attention at the global layers of one step,
+   and the rest of the run at 3 launches a step. The phase must take at
+   most 150 s.
 
 The last lines are the card line, one JSON object with every kernel's
 numbers, and ``{"ok": true, "device": {...}}``.
@@ -259,9 +291,14 @@ FLAT_EPS = (1e-3, 1e-2, 1e-1, 1.5)  # the flat/two-level threshold gate
 ROOFLINE_ITERS = 10                 # timed calls per kernel_report
 TRAIN = dict(steps=20, ckpt_every=5, resume_steps=5)
 PLACEMENTS = dict(steps=10, ckpt_every=5)     # the SYNC/ASYNC runs
+# the train phases' eager comparison runs, cut from 5 and 10 steps for the
+# time limit (PERF.md §4): bare steps, and the placements' eager reruns
+# (a checkpoint every ckpt_every, still 2 saves)
+EAGER = dict(bare_steps=3, placement_steps=6)
 INSITU = dict(steps=3, shard_count=4)          # the insitu phase
 INSITU_BUDGET_S = 90.0
 MOE_BUDGET_S = 150.0
+HYBRID_BUDGET_S = 150.0
 
 
 def log(msg: str) -> None:
@@ -1818,13 +1855,14 @@ def train_phase(ckpt_dir: Path) -> dict:
     _, sizes, rows = moment_rows(cfg)
     n_lossy = len(rows)
 
-    # 0. the bare loop (no in-situ task) from seed 0, 5 steps: eager twice
+    # 0. the bare loop (no in-situ task) from seed 0, a few steps: eager twice
     #    and graphed once; the graphed losses are bitwise the eager ones
     #    where two eager runs are, else within their spread
     short = {}
     for name, graph in (("eager", False), ("eager_again", False),
                         ("graph", True)):
-        run = T.train_loop("smollm-135m", smoke=False, steps=5,
+        run = T.train_loop("smollm-135m", smoke=False,
+                           steps=EAGER["bare_steps"],
                            plan={"streams": ["grads", "train_state"]},
                            device="cuda", seed=0, cuda_graph=graph,
                            log=lambda m: None)
@@ -1842,7 +1880,8 @@ def train_phase(ckpt_dir: Path) -> dict:
     else:
         assert graph_off <= eager_spread, short
     short.update(eager_spread=eager_spread, graph_off=graph_off)
-    log(f"train: 5 bare steps from seed 0, losses eager {short['eager']}, "
+    log(f"train: {EAGER['bare_steps']} bare steps from seed 0, losses "
+        f"eager {short['eager']}, "
         f"eager again {short['eager_again']}, graphed {short['graph']}: "
         f"eager runs {'bitwise equal' if short['eager_bitwise'] else 'apart'}"
         f" (max |dloss| {eager_spread}), graph vs eager max |dloss| "
@@ -1947,7 +1986,9 @@ def train_phase(ckpt_dir: Path) -> dict:
     batch = {k: torch.from_numpy(v).cuda() for k, v in host_batch.items()}
     step_fn(state, batch)
     torch.cuda.reset_peak_memory_stats()
-    prof = device_profile(lambda: step_fn(state, batch), 2)
+    # one eager step: ~290,000 aten ops a step make its profile slow
+    # (EAGER, the time limit)
+    prof = device_profile(lambda: step_fn(state, batch), 1)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -2001,7 +2042,7 @@ def train_phase(ckpt_dir: Path) -> dict:
         "peak_memory_gb": peak_gb, "step_profile_graph": prof_graph,
         "peak_memory_gb_graph": peak_graph_gb,
         "graph_pool_reserved_gb": held_gb, "graph_capture_s": capture_s,
-        "bare_5_steps": short,
+        "bare_steps": short,
     }
     log(f"train: step {without['step_s'] * 1e3:.1f} ms without the "
         f"checkpoint task, {with_ckpt['step_s'] * 1e3:.1f} ms with it (median "
@@ -2162,14 +2203,16 @@ def placements_phase(ckpt_root: Path, hybrid: dict) -> dict:
                         "detail": choice.detail}
     log(f"allocator (p_total {p_total}): {out['allocator']}")
 
-    # the same placements stepping eagerly, 10 steps with a checkpoint
-    # every 5: what the graph changed in each, within this run; the
-    # losses are the graphed runs' (bitwise where two eager runs are,
-    # else within their spread)
-    spread = hybrid["bare_5_steps"]
+    # the same placements stepping eagerly, EAGER["placement_steps"] steps
+    # with a checkpoint every 5 (the same two saves): what the graph
+    # changed in each, within this run; the losses are the graphed runs'
+    # (bitwise where two eager runs are, else within their spread)
+    spread = hybrid["bare_steps"]
     graphed = {"hybrid": hybrid["losses"], "sync": sync["losses"],
                "async": asyn["losses"]}
     out["eager"] = {}
+    steps = EAGER["placement_steps"]
+    assert (steps - 1) // every + 1 == n_saves
     for mode in ("hybrid", "sync", "async"):
         ckpt_dir = ckpt_root / f"eager_{mode}"
         if ckpt_dir.exists():
@@ -2552,6 +2595,54 @@ def _free_cuda(empty: bool = True) -> None:
         torch.cuda.empty_cache()
 
 
+def _one_step(cfg, eng, attend):
+    """One decode step of ``eng``'s state through ``attend``, on copies
+    of its pool and state; the last position's logits in f32."""
+    from repro_torch.core.pytree import tree_map
+    from repro_torch.serving.pages import make_paged_decode
+
+    clone = lambda t: tree_map(lambda x: x.clone(), t)
+    logits, *_ = make_paged_decode(cfg, eng.page_size, attend=attend)(
+        eng.params, clone(eng.pool), clone(eng.state),
+        eng.page_table.clone(), eng.tokens.clone(), eng.lengths.clone())
+    return logits[:, -1, :cfg.vocab_size].float()
+
+
+def _kernel_against_plain(cfg, eng, n_paged: int) -> tuple:
+    """One decode step driven by the plain attention, the kernel held
+    against it at each of the ``n_paged`` layers that attend over the
+    pages, on that layer's own inputs (atol BF16_ATOL). Returns the
+    per-layer errors and the step's logits through the plain attention
+    and through the kernel."""
+    from repro_torch.kernels import paged_attention as PK
+
+    layer_err = []
+
+    def plain_and_kernel(q, k, v, table, length):
+        ref = PK.paged_decode_attention_plain(q, k, v, table, length)
+        got = PK.paged_decode_attention(q, k, v, table, length)
+        layer_err.append((got.float() - ref.float()).abs().max().item())
+        return ref
+
+    with_plain = _one_step(cfg, eng, plain_and_kernel)
+    assert len(layer_err) == n_paged, layer_err
+    assert max(layer_err) <= BF16_ATOL, layer_err
+    return layer_err, with_plain, _one_step(cfg, eng,
+                                            PK.paged_decode_attention)
+
+
+def _hybrid_kernel_checks(cfg, eng) -> dict:
+    """:func:`_kernel_against_plain` at hymba's global layers."""
+    err, with_plain, with_kernel = _kernel_against_plain(
+        cfg, eng, cfg.n_global_layers)
+    return {"layer_attention_max_abs_err": err,
+            "logits_max_abs_kernel_plain":
+                (with_kernel - with_plain).abs().max().item(),
+            "argmax_agreement": (with_kernel.argmax(-1)
+                                 == with_plain.argmax(-1)).float()
+            .mean().item()}
+
+
 def _moe_engines(cfg, params, chain: Path) -> dict:
     """A graphed and an eager full-width engine from one state (8 rows
     admitted): 8 steps whose logits must be the same bits, the graphed
@@ -2561,12 +2652,11 @@ def _moe_engines(cfg, params, chain: Path) -> dict:
     attention; and where a decode step's time goes."""
     import numpy as np
     import torch
-    from repro_torch.core.pytree import tree_map
     from repro_torch.core.session import InSituPlan, Session
     from repro_torch.kernels import paged_attention as PK
     from repro_torch.serving import snapshot as S
     from repro_torch.serving.engine import Request
-    from repro_torch.serving.pages import PagedServingEngine, make_paged_decode
+    from repro_torch.serving.pages import PagedServingEngine
 
     if chain.exists():
         shutil.rmtree(chain)
@@ -2621,32 +2711,15 @@ def _moe_engines(cfg, params, chain: Path) -> dict:
     del replica, live
     _free_cuda()
 
-    def one_step(attend):
-        pool = tree_map(lambda t: t.clone(), eng.pool)
-        logits, *_ = make_paged_decode(cfg, 16, attend=attend)(
-            eng.params, pool, eng.state, eng.page_table.clone(),
-            eng.tokens.clone(), eng.lengths.clone())
-        return logits[:, -1, :cfg.vocab_size].float()
-
-    # one full-width step driven by the plain attention, the kernel held
-    # against it at every layer on that layer's own inputs
-    layer_err = []
-
-    def plain_and_kernel(q, k, v, table, length):
-        ref = PK.paged_decode_attention_plain(q, k, v, table, length)
-        got = PK.paged_decode_attention(q, k, v, table, length)
-        layer_err.append((got.float() - ref.float()).abs().max().item())
-        return ref
-
     def plain_f32(q, k, v, table, length):
         return PK.paged_decode_attention_plain(
             q.float(), k.float(), v.float(), table, length).to(q.dtype)
 
-    with_plain = one_step(plain_and_kernel)
-    assert len(layer_err) == cfg.n_layers, len(layer_err)
-    assert max(layer_err) <= BF16_ATOL, layer_err
-    with_kernel = one_step(PK.paged_decode_attention)
-    with_f32 = one_step(plain_f32)
+    # one full-width step driven by the plain attention, the kernel held
+    # against it at every layer on that layer's own inputs
+    layer_err, with_plain, with_kernel = _kernel_against_plain(
+        cfg, eng, cfg.n_layers)
+    with_f32 = _one_step(cfg, eng, plain_f32)
     spread = {name: {"max_abs": (x - y).abs().max().item(),
                      "argmax_agreement":
                          (x.argmax(-1) == y.argmax(-1)).float().mean().item()}
@@ -2985,6 +3058,500 @@ def moe_phase(build: Path) -> dict:
                        "serve": serve_s}}
 
 
+# ---------------------------------------------------------------------------
+# hybrid phase
+# ---------------------------------------------------------------------------
+
+HYBRID_ARCH = "hymba-1.5b"
+# the long run: rings of 1024 slots wrap in decode; 68 pages a row
+HYBRID_LONG = dict(n_requests=8, prompt=1000, max_new=64, max_len=1088)
+
+
+def _hybrid_kernel() -> dict:
+    """(a): kernel 1 at hymba's heads (25 query heads over 5 kv heads of
+    64: one CTA holds all 25, more than its 16 warps)."""
+    import torch
+    from repro_torch.kernels import paged_attention as PK
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(2323)
+    out: dict = {}
+    shapes = {"serve": dict(b=8, hq=25, n_kv=5, d=64, ps=16, pps=4),
+              "long": dict(b=8, hq=25, n_kv=5, d=64, ps=16, pps=256)}
+    _, c_bytes = PK._entry()
+    for name, shp in shapes.items():
+        full = shp["ps"] * shp["pps"]
+        lengths = [0, 1, 16, 17, full, full, full // 2 + 3, full - 1]
+        splits, per = PK.split_plan(shp["pps"], 16, shp["b"], 5)
+        for dtype in (torch.bfloat16, torch.float32):
+            args = _paged_case(gen, lengths=lengths, dtype=dtype, dev=dev,
+                               **shp)
+            got = PK.paged_decode_attention(*args)
+            torch.cuda.synchronize()
+            ref = PK.paged_decode_attention_plain(*args)
+            tol = (F32_TOL if dtype == torch.float32
+                   else dict(rtol=0.0, atol=BF16_ATOL))
+            torch.testing.assert_close(got.float(), ref.float(), **tol)
+            err = (got.float() - ref.float()).abs().max().item()
+            elem = args[0].element_size()
+            n_h = PK.head_group(5, 5, 64, 64, 16, elem, per)
+            assert n_h == 5, n_h
+            assert c_bytes(n_h, 5, 64, 64, 16, elem, per) == PK.smem_bytes(
+                n_h, 5, 64, 64, 16, elem, per)
+            out[f"{name}_{str(dtype)[6:]}"] = {
+                "max_abs_err": err, "splits": splits, "per": per,
+                "heads_per_cta": n_h * 5}
+            log(f"hybrid kernel {name} {str(dtype)[6:]}: {splits} splits of "
+                f"{per} pages, one group of 5 kv heads (25 query heads a "
+                f"CTA), max |kernel - plain| = {err:.3e}")
+        args = _paged_case(gen, lengths=[full] * shp["b"],
+                           dtype=torch.bfloat16, dev=dev, **shp)
+        ref = PK.paged_decode_attention_plain(*args)
+        err = (PK.paged_decode_attention(*args).float()
+               - ref.float()).abs().max().item()
+        k_ms = time_ms(lambda: PK.paged_decode_attention(*args))
+        p_ms = time_ms(lambda: PK.paged_decode_attention_plain(*args))
+        lib_ms = time_ms(_sdpa_call(*args))
+        b_ms, b_by = bound_ms("paged_decode_attention", *args)
+        dev_ms, dev_ops = kernel_device_ms(
+            lambda: PK.paged_decode_attention(*args),
+            ("paged_decode_kernel", "paged_combine_kernel"), 10)
+        out[name] = {"shape": dict(shp, len=full, dtype="bfloat16"),
+                     "max_abs_err": err, "ms": k_ms, "device_ms": dev_ms,
+                     "device_ops": dev_ops, "plain_ms": p_ms,
+                     "library_ms": lib_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "splits": splits,
+                     "pages_per_split": per}
+        log(f"hybrid kernel {name} timing (bf16, B=8, len={full}): kernel "
+            f"{k_ms:.4f} ms per call (device {dev_ms} ms), plain "
+            f"{p_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.6f} ms "
+            f"({b_by})")
+    return out
+
+
+def _hybrid_smoke(chain: Path) -> dict:
+    """(b): hymba at smoke size in f32, 40-token prompts past its 32-token
+    window and 32 new tokens (the ring wraps in prefill and again in
+    decode): the dense engine = the paged engine token for token; a
+    graphed and an eager paged engine from one state decode the same
+    tokens; a SYNC chain of the graphed one restored into a captured
+    replica decodes in lockstep with it."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import base as configs
+    from repro_torch.core.session import InSituPlan, Session
+    from repro_torch.models import params as P
+    from repro_torch.models import transformer
+    from repro_torch.serving import snapshot as S
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.pages import PagedServingEngine
+
+    cfg = dataclasses.replace(configs.get(HYBRID_ARCH, smoke=True),
+                              dtype="float32")
+    assert cfg.swa_window == 32
+    params = P.cast_tree(P.materialize(torch.Generator().manual_seed(0),
+                                       transformer.param_spec(cfg), "cuda"),
+                         torch.float32)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, 40)
+               for _ in range(SERVE["n_requests"])]
+    geo = dict(prompt_len=40, max_len=80)
+    pages = -(-(40 + SERVE["max_new"]) // 16)
+    streams = {}
+    for kind in ("dense", "paged"):
+        reqs = [Request(i, pr, max_new=SERVE["max_new"])
+                for i, pr in enumerate(prompts)]
+        if kind == "dense":
+            eng = ServingEngine(cfg, params, slots=SERVE["slots"],
+                                device="cuda", **geo)
+        else:
+            eng = PagedServingEngine(cfg, params,
+                                     num_pages=SERVE["slots"] * pages + 1,
+                                     page_size=16, max_reqs=SERVE["slots"],
+                                     device="cuda", **geo)
+        assert eng._graph is not None, kind
+        eng.run(reqs, max_steps=1024)
+        assert all(r.done and len(r.out) == r.max_new for r in reqs)
+        streams[kind] = [r.out for r in reqs]
+    assert streams["dense"] == streams["paged"], (
+        "hybrid: f32 dense and paged engines decoded different tokens")
+    del eng
+
+    if chain.exists():
+        shutil.rmtree(chain)
+    engines, reqs = {}, {}
+    for graph in (True, False):
+        e = engines[graph] = PagedServingEngine(
+            cfg, params, num_pages=8 * pages + 1, page_size=16, max_reqs=8,
+            device="cuda", cuda_graph=graph, **geo)
+        reqs[graph] = [Request(i, prompts[i], max_new=SERVE["max_new"])
+                       for i in range(8)]
+        for r in reqs[graph]:
+            assert e.admit(r)
+    eng, eng_eager = engines[True], engines[False]
+    plan = InSituPlan.from_dict({
+        "streams": ["kv_pages"],
+        "tasks": {"kv_snapshot": {
+            "stream": "kv_pages", "preset": "serve_snapshot", "every": 4,
+            "placement": "sync",
+            "options": {"base_every": 8, "codec": "none",
+                        "directory": str(chain)}}}})
+    bitwise = True
+    with Session(plan, raise_on_error=True) as session:
+        for step in range(12):
+            eng.step()
+            eng_eager.step()
+            bitwise &= torch.equal(eng.logits, eng_eager.logits)
+            session.emit("kv_pages", step + 1, eng.snapshot_payload)
+    step, leaves = S.SnapshotStore(str(chain)).restore("kv_pages")
+    assert step == 12, step
+    assert any(k.startswith("['state']['ssm_swa']") for k in leaves)
+    replica = PagedServingEngine.from_snapshot(cfg, params, leaves,
+                                               device="cuda")
+    assert replica._graph is not None
+    live = [a for a in replica.active if a is not None]
+    pre = replica.prefill_tokens
+    while any(a is not None for a in eng.active):
+        for e in (eng, eng_eager, replica):
+            e.step()
+        bitwise &= torch.equal(eng.logits, eng_eager.logits)
+    want = [r.out for r in reqs[True]]
+    assert all(r.done for r in reqs[True] + reqs[False] + live)
+    assert [r.out for r in reqs[False]] == want, (
+        "hybrid: graphed and eager paged engines decoded different tokens")
+    assert [r.out for r in live] == want, "hybrid: the replica left lockstep"
+    assert replica.prefill_tokens == pre, "replica prefilled"
+    log(f"hybrid smoke (f32, window 32, 40-token prompts + 32 new): dense "
+        f"and paged engines decode {sum(map(len, streams['dense']))} tokens "
+        f"token for token; graphed = eager over {SERVE['max_new'] - 1} "
+        f"decode steps of 8 rows (logits bitwise: {bitwise}); a SYNC chain "
+        f"restored at step {step} into a captured replica decodes the 8 "
+        f"requests in lockstep, no prefill")
+    del engines, eng, eng_eager, replica, params
+    _free_cuda()
+    return {"tokens": sum(map(len, streams["dense"])),
+            "graph_eager_logits_bitwise": bitwise, "restored_step": step}
+
+
+
+def _published_bytes(emitted: dict, hints: dict) -> dict:
+    """What the snapshot plan publishes a firing, by part of the payload
+    (``pool``: the global layers' pages; ``state``: SWA rings and SSM
+    state; the rest: tables, lengths, tokens, meta): the raw bytes, and
+    the zlib frames of the last firing the probe kept, as a base and as a
+    delta against the firing before it (what ``SnapshotStore.publish``
+    encodes; the pool's chunks one (layer, page) slab, as the engine's
+    ``chunk_hints`` give them)."""
+    from repro_torch.core import codecs, delta
+
+    steps = sorted(emitted)
+    last, prev = emitted[steps[-1]], emitted[steps[-2]]
+    out: dict = {}
+    pool = codecs.codec_pool()
+    for key, arr in last.items():
+        part = ("pool" if key.startswith("['pool']") else "state"
+                if key.startswith("['state']") else "rest")
+        chunk = int(hints.get(key, codecs.DEFAULT_CHUNK))
+        base, _ = delta.encode(arr, None, codec="zlib", chunk_bytes=chunk,
+                               pool=pool)
+        dlt, _ = delta.encode(arr, prev[key], codec="zlib",
+                              chunk_bytes=chunk, pool=pool)
+        row = out.setdefault(part, {"raw": 0, "base": 0, "delta": 0})
+        row["raw"] += arr.nbytes
+        row["base"] += len(base)
+        row["delta"] += len(dlt)
+    out["firings"] = [steps[-2], steps[-1]]
+    return out
+
+
+def _hybrid_serve(build: Path) -> dict:
+    """(c): full-width serving of hymba-1.5b on SERVE's traffic, four
+    runs, the chain restored; then the engine checks and the long run."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import base as configs
+    from repro_torch.core.session import Every, InSituPlan, Placement, \
+        TaskSpec
+    from repro_torch.core.pytree import leaves as tree_leaves
+    from repro_torch.kernels import paged_attention as PK
+    from repro_torch.launch.serve import (default_serve_plan, serve_loop,
+                                          weight_generator)
+    from repro_torch.models import params as P
+    from repro_torch.models import transformer
+    from repro_torch.serving import snapshot as S
+
+    cfg = configs.get(HYBRID_ARCH)
+    chain = build / "smoke_hybrid_chain"
+    n_global = cfg.n_global_layers
+
+    def snapshot_plan(directory: Path, emitted: dict) -> InSituPlan:
+        if directory.exists():
+            shutil.rmtree(directory)
+        base = InSituPlan.from_dict(
+            default_serve_plan(snapshot_dir=str(directory)))
+        probe = TaskSpec(name="probe", stream="kv_pages", trigger=Every(4),
+                         placement=Placement.SYNC,
+                         sink=lambda step, p: emitted.__setitem__(
+                             step, S._flatten(p["cache"])))
+        return InSituPlan(streams=base.streams, tasks=[*base.tasks, probe],
+                          workers=base.workers,
+                          staging_capacity=base.staging_capacity)
+
+    runs, emitted, lines, peak = {}, {}, [], {}
+    launches = decode_steps = None
+    for snap in (False, True):
+        for graph in (False, True):
+            key = ("plan" if snap else "bare", graph)
+            name = f"{'graph' if graph else 'eager'}_{key[0]}"
+            if snap and graph:      # the chain on disk, checked below
+                plan = snapshot_plan(chain, emitted)
+            elif snap:              # the default plan as a user runs it
+                plan = default_serve_plan()
+            else:
+                plan = {"streams": ["kv_pages"]}
+            torch.cuda.reset_peak_memory_stats()
+            PK.paged_decode_attention.launches = 0
+            runs[key] = serve_loop(
+                HYBRID_ARCH, smoke=False, device="cuda", seed=0, plan=plan,
+                cuda_graph=graph, log=lines.append, **SERVE)
+            torch.cuda.synchronize()
+            peak[name] = torch.cuda.max_memory_allocated() / 2**30
+            if key == ("plan", True):
+                launches = PK.paged_decode_attention.launches
+                decode_steps = len(runs[key]["telemetry"].spans(
+                    "step/compute"))
+            r = runs[key]
+            rep = r["session_report"]
+            log(f"hybrid: serve {name}: {r['tok_per_s']:.1f} tok/s, wall "
+                f"{_serve_wall_s(r):.2f} s = admissions "
+                f"{r['telemetry'].total('serve/admit'):.2f} + decode steps "
+                f"{rep['step_compute_s']:.2f} + hand-off dispatch "
+                f"{rep['handoff_dispatch_s']:.2f} + sync stall "
+                f"{rep['sync_stall_s']:.2f} + the rest; peak "
+                f"{peak[name]:.2f} GiB")
+            _free_cuda(empty=False)
+    streams = {k: [r.out for r in run["requests"]] for k, run in runs.items()}
+    for key, got in streams.items():
+        assert got == streams["plan", True], (
+            f"hybrid serve run {key} decoded other tokens than the graphed "
+            f"run with snapshots")
+    out = runs["plan", True]
+    for r in out["requests"]:
+        assert r.done and len(r.out) == r.max_new, r.rid
+        assert all(0 <= t < cfg.vocab_size for t in r.out), r.rid
+    pools = [m for m in (re.match(r"page pool: (\d+)/", ln) for ln in lines)
+             if m]
+    assert len(pools) == 4 and all(int(m.group(1)) == 0 for m in pools), \
+        "page pool not empty at exit"
+    rep = out["session_report"]
+    assert rep["n_errors"] == 0, rep["errors"]
+    assert rep["tasks"]["kv_snapshot"]["publishes"] > 0, "no snapshot"
+    assert launches == decode_steps * n_global, (
+        f"kernel launches {launches} != {decode_steps} decode steps x "
+        f"{n_global} global layers")
+    log(f"hybrid: the four runs decode the same {SERVE['n_requests']} "
+        f"streams; {launches} kernel launches = {decode_steps} replayed "
+        f"decode steps x {n_global} global layers")
+    step, leaves = S.SnapshotStore(str(chain)).restore("kv_pages")
+    want = emitted[step]
+    assert list(leaves) == list(want), "restored leaf keys differ"
+    for key, arr in leaves.items():
+        if not np.array_equal(arr.reshape(-1).view(np.uint8),
+                              want[key].reshape(-1).view(np.uint8)):
+            raise AssertionError(f"{chain.name}: restored leaf {key} "
+                                 f"differs at step {step}")
+    restored = {"step": step,
+                "bytes": sum(a.nbytes for a in leaves.values())}
+    del leaves, want
+    hints = {k: int(np.prod(a.shape[2:])) * a.itemsize
+             for k, a in emitted[step].items() if k.startswith("['pool']")}
+    published = _published_bytes(emitted, hints)
+    emitted.clear()
+    log(f"hybrid: the graphed run's chain restores bit-identically to what "
+        f"was emitted at step {step} ({restored['bytes']} bytes); bytes a "
+        f"firing (raw / zlib base / zlib delta): {published}")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = P.materialize(weight_generator(cfg, 0, torch.device("cuda"),
+                                            False),
+                           transformer.param_spec(cfg), "cuda")
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    log(f"hybrid: drew {n_bytes / 1e9:.2f} GB of weights on the card's "
+        f"generator in {draw_s:.2f} s")
+    checks = _hybrid_engines(cfg, params)
+    long = _hybrid_long(cfg, params)
+    del params
+    _free_cuda()
+    tok_s = {f"{'graph' if g else 'eager'}_{k}": r["tok_per_s"]
+             for (k, g), r in runs.items()}
+    log(f"hybrid: tok/s {tok_s}")
+    return {"tok_per_s_by_run": tok_s, "peak_gib_by_run": peak,
+            "wall_s_by_run": {f"{'graph' if g else 'eager'}_{k}":
+                              _serve_wall_s(r) for (k, g), r in runs.items()},
+            "admit_s_by_run": {f"{'graph' if g else 'eager'}_{k}":
+                               r["telemetry"].total("serve/admit")
+                               for (k, g), r in runs.items()},
+            "step_compute_s_by_run": {
+                f"{'graph' if g else 'eager'}_{k}":
+                    r["session_report"]["step_compute_s"]
+                for (k, g), r in runs.items()},
+            "decode_steps": decode_steps, "launches": launches,
+            "snapshots": rep["tasks"]["kv_snapshot"]["publishes"],
+            "snapshot_drops": rep["drops"].get("kv_snapshot", 0),
+            "restored": restored, "published_bytes": published,
+            "weight_draw_s": draw_s, "weight_bytes": n_bytes,
+            "long": long, **checks}
+
+
+def _hybrid_engines(cfg, params) -> dict:
+    """A graphed and an eager full-width engine with 8 rows admitted: the
+    kernel against the plain attention at each global layer of one step,
+    and where a decode step's time goes."""
+    import numpy as np
+    from repro_torch.serving.engine import Request
+    from repro_torch.serving.pages import PagedServingEngine
+
+    geo = dict(num_pages=33, page_size=16, max_reqs=8, prompt_len=16,
+               max_len=64)
+    engines = {}
+    for graph in (True, False):
+        e = engines[graph] = PagedServingEngine(cfg, params, device="cuda",
+                                                cuda_graph=graph, **geo)
+        rng = np.random.default_rng(5)
+        for i in range(8):
+            assert e.admit(Request(i, rng.integers(0, cfg.vocab_size, 16),
+                                   max_new=40))
+    eng, eng_eager = engines[True], engines[False]
+    eng.step()
+    eng_eager.step()
+    checks = _hybrid_kernel_checks(cfg, eng)
+    log(f"hybrid: one full-width decode step: the kernel against the plain "
+        f"attention at the {cfg.n_global_layers} global layers "
+        f"{checks['layer_attention_max_abs_err']} (<= {BF16_ATOL}); logits "
+        f"max |kernel - plain| {checks['logits_max_abs_kernel_plain']:.3e}, "
+        f"argmax agreement {checks['argmax_agreement']}")
+    prof = device_profile(eng.step, 5)
+    prof["wall_ms_unprofiled"] = host_wall_ms(eng.step, 5)
+    prof["device_idle_share_unprofiled"] = (
+        1 - prof["device_busy_ms"] / prof["wall_ms_unprofiled"]
+        if prof["device_busy_ms"] else None)
+    prof["paged_launches_recorded"] = sum(
+        c for op, c in prof["launches"].items()
+        if "paged_decode_kernel" in op)
+    prof["eager_wall_ms"] = host_wall_ms(eng_eager.step, 5)
+    log(f"hybrid: decode step (graph, 8 rows, full width): "
+        f"{prof['wall_ms_unprofiled']:.3f} ms host wall (eager "
+        f"{prof['eager_wall_ms']:.3f}), device busy {prof['device_busy_ms']} "
+        f"ms, idle share {prof['device_idle_share_unprofiled']}, "
+        f"{prof['host_aten_ops']:.0f} aten ops")
+    for op, ms in prof["top"][:6]:
+        log(f"hybrid:   {ms * 1e3:9.1f} us/step  {op[:90]}")
+    prof.pop("launches")
+    prof.pop("per_launch_ms")
+    del engines, eng, eng_eager
+    _free_cuda()
+    return {**checks, "decode_profile": prof}
+
+
+def _hybrid_long(cfg, params) -> dict:
+    """8 requests of 1000-token prompts and 64 new tokens at full width
+    (max_len 1088, 68 pages a row): the SWA rings of 1024 slots wrap in
+    decode, and the global layers' kernel reads ~63-67 pages a row. The
+    graphed engine runs them to the end (launches = steps x global
+    layers); an eager engine from the same admissions decodes the same
+    tokens over the first 8 steps; the kernel is held against the plain
+    attention at each global layer of one step."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import paged_attention as PK
+    from repro_torch.serving.engine import Request
+    from repro_torch.serving.pages import PagedServingEngine
+
+    L = HYBRID_LONG
+    max_len = L["max_len"]
+    assert L["prompt"] + L["max_new"] > cfg.swa_window   # the ring wraps
+    assert max_len > cfg.swa_window                      # rings of 1024
+    geo = dict(num_pages=L["n_requests"] * (max_len // 16) + 1,
+               page_size=16, max_reqs=L["n_requests"],
+               prompt_len=L["prompt"], max_len=max_len)
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab_size, L["prompt"])
+               for _ in range(L["n_requests"])]
+    engines, reqs = {}, {}
+    t0 = time.perf_counter()
+    for graph in (True, False):
+        e = engines[graph] = PagedServingEngine(cfg, params, device="cuda",
+                                                cuda_graph=graph, **geo)
+        reqs[graph] = [Request(i, p, max_new=L["max_new"])
+                       for i, p in enumerate(prompts)]
+        for r in reqs[graph]:
+            assert e.admit(r)
+    torch.cuda.synchronize()
+    admit_s = time.perf_counter() - t0
+    eng, eng_eager = engines[True], engines[False]
+    assert eng.state["swa_kv"]["k"].shape[2] == cfg.swa_window
+    bitwise = True
+    for _ in range(8):
+        eng.step()
+        eng_eager.step()
+        bitwise &= torch.equal(eng.logits, eng_eager.logits)
+    assert [r.out for r in reqs[True]] == [r.out for r in reqs[False]], (
+        "hybrid long: graphed and eager engines decoded different tokens")
+    del engines[False], eng_eager
+    _free_cuda()
+    checks = _hybrid_kernel_checks(cfg, eng)
+    PK.paged_decode_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps = 0
+    while any(a is not None for a in eng.active):
+        eng.step()
+        steps += 1
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = PK.paged_decode_attention.launches
+    assert launches == steps * cfg.n_global_layers, (launches, steps)
+    for r in reqs[True]:
+        assert r.done and len(r.out) == L["max_new"], r.rid
+        assert all(0 <= t < cfg.vocab_size for t in r.out), r.rid
+    log(f"hybrid long (8 x {L['prompt']} + {L['max_new']} tokens, "
+        f"max_len {max_len}): admissions {admit_s:.2f} s for both engines; "
+        f"graphed = eager tokens over 8 steps (logits bitwise: {bitwise}); "
+        f"the kernel against the plain attention at the global layers "
+        f"{checks['layer_attention_max_abs_err']}; {steps} more replayed "
+        f"steps in {run_s:.2f} s, {launches} launches = {steps} x "
+        f"{cfg.n_global_layers}; the rings wrapped at {cfg.swa_window}")
+    del engines, eng
+    _free_cuda()
+    return {"max_len": max_len, "admit_s_both_engines": admit_s,
+            "graph_eager_logits_bitwise": bitwise, "steps": steps,
+            "launches": launches, "replayed_steps_s": run_s,
+            "ms_per_step": run_s * 1e3 / max(steps, 1), **checks}
+
+
+def hybrid_phase(build: Path) -> dict:
+    """The hybrid family on the card (see the module docstring, phase
+    13)."""
+    _free_cuda()
+    t0 = time.perf_counter()
+    kern = _hybrid_kernel()
+    kernel_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    smoke = _hybrid_smoke(build / "smoke_hybrid_replica")
+    smoke_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serve = _hybrid_serve(build)
+    serve_s = time.perf_counter() - t0
+    log(f"hybrid phase parts: kernel {kernel_s:.1f} s, smoke {smoke_s:.1f} "
+        f"s, full-width serve {serve_s:.1f} s")
+    return {"kernel": kern, "smoke": smoke, "serve": serve,
+            "part_s": {"kernel": kernel_s, "smoke": smoke_s,
+                       "serve": serve_s}}
+
+
 def main() -> int:
     import torch
 
@@ -3051,6 +3618,11 @@ def main() -> int:
     moe["phase_s"] = time.perf_counter() - t0
     log(f"moe phase: {moe['phase_s']:.1f}s")
     assert moe["phase_s"] <= MOE_BUDGET_S, moe["phase_s"]
+    t0 = time.perf_counter()
+    hybrid = hybrid_phase(ROOT / "build")
+    hybrid["phase_s"] = time.perf_counter() - t0
+    log(f"hybrid phase: {hybrid['phase_s']:.1f}s")
+    assert hybrid["phase_s"] <= HYBRID_BUDGET_S, hybrid["phase_s"]
     log(f"all phases: {time.perf_counter() - t_phases:.1f}s")
 
     main_path = kern["serve"]
@@ -3074,11 +3646,14 @@ def main() -> int:
         "shape": main_path["shape"],
         "long_context": kern["long"],
         "at_moonshot": {k: moe["kernel"][k] for k in ("serve", "long")},
+        "at_hymba": {k: hybrid["kernel"][k] for k in ("serve", "long")},
         "launches_by_path": {
             "serve": serve["launches"],
             "stream_producer": stream["hydrate"]["producer_launches"],
             "stream_replica": stream["hydrate"]["launches"],
-            "moe_serve": moe["serve"]["launches"]},
+            "moe_serve": moe["serve"]["launches"],
+            "hybrid_serve": hybrid["serve"]["launches"],
+            "hybrid_long": hybrid["serve"]["long"]["launches"]},
     }
     records = [record]
     tpu = "src/repro/kernels/spectral_lossy.py"
@@ -3180,6 +3755,7 @@ def main() -> int:
     log(json.dumps({"train_placements": placements}))
     log(json.dumps({"insitu": insitu}))
     log(json.dumps({"moe": moe}))
+    log(json.dumps({"hybrid": hybrid}))
     log(json.dumps({"roofline": {k: v for k, v in roof.items()
                                  if k != "reports"}}))
     log(card)

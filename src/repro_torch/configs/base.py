@@ -3,8 +3,9 @@
 Each architecture the port runs gets one module in this package defining
 ``CONFIG`` (the exact published numbers) and ``smoke()`` (a reduced config
 of the same family for CPU tests). ``get(name)`` resolves either. The port
-carries the dense and MoE families; the other families of the JAX package
-are listed so that asking for one names the ROADMAP item that brings it.
+carries the dense, MoE and hybrid families; the other families of the JAX
+package are listed so that asking for one names the ROADMAP item that
+brings it.
 """
 from __future__ import annotations
 
@@ -44,9 +45,18 @@ class MLAConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    chunk: int = 128
+    dt_rank: int = 0  # 0 -> ceil(d_model/16)
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                   # dense | moe (the families ported so far)
+    family: str                   # dense | moe | hybrid (ported so far)
     n_layers: int
     d_model: int
     n_heads: int
@@ -63,6 +73,10 @@ class ModelConfig:
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
     mtp_weight: float = 0.0       # deepseek multi-token-prediction loss weight
+    ssm: Optional[SSMConfig] = None
+    # hybrid attention (hymba): sliding window on all but the global layers
+    swa_window: int = 0           # 0 -> full attention everywhere
+    n_global_layers: int = 0      # leading/middle/trailing full-attn layers
     # attention chunking (flash) — bounds prefill's live score memory
     q_chunk: int = 512
     kv_chunk: int = 1024
@@ -70,6 +84,8 @@ class ModelConfig:
     # keeping its activations (torch.utils.checkpoint per block)
     remat: bool = True
     rules: str = "default"        # sharding policy name (kept for parity)
+    # which shapes this arch supports (long_500k only for sub-quadratic)
+    sub_quadratic: bool = False
     source: str = ""
 
     @property
@@ -137,13 +153,13 @@ _MODULES = {
     "qwen1.5-110b": "qwen1_5_110b",
     "deepseek-v3-671b": "deepseek_v3_671b",
     "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
+    "hymba-1.5b": "hymba_1_5b",
 }
 
 # archs whose family the port does not carry yet -> that family
 _NOT_PORTED = {
     "musicgen-medium": "audio",
     "internvl2-26b": "vlm",
-    "hymba-1.5b": "hybrid",
     "xlstm-1.3b": "ssm",
 }
 

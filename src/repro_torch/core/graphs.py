@@ -39,7 +39,9 @@ class CapturedStep:
     ``warmup`` (default ``body``) runs :data:`WARMUP_STEPS` times on a
     side stream before the capture: a body that updates state in place
     passes its functional form there, so that warming up advances
-    nothing. Launch counts of the warm-up are dropped and those of the
+    nothing a caller reads (a serving engine's warm-up, with every row
+    idle, writes only the scratch page and idle rows' state, which an
+    admission overwrites whole). Launch counts of the warm-up are dropped and those of the
     capture come back once per replay (``_build.held_launches``). ``out``
     is what ``body`` returned at capture.
 

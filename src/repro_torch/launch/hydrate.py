@@ -16,7 +16,8 @@ scale-out/failover mechanism:
     — mid-serve, without stopping the producer.
 
 Either way the result is ``PagedServingEngine.from_snapshot``: page pool,
-page tables, allocator free list + refcounts, in-flight requests, and
+per-row state (the hybrid family's SWA rings and SSM state), page tables,
+allocator free list + refcounts, in-flight requests, and
 registered prefixes all restored bit-identically, so the replica's next
 decoded token matches the producer's — no prefill at all. Cold-replica
 time-to-first-token is then the restore plus one decode step instead of

@@ -104,9 +104,14 @@ def decode_attention(
     k_cache: torch.Tensor,    # (B, S, N, D)
     v_cache: torch.Tensor,    # (B, S, N, Dv)
     length: torch.Tensor,     # (B,) valid prefix length (after current insert)
+    *,
+    window: int = 0,
+    ring: bool = False,       # cache is a ring buffer (SWA): all slots valid
 ) -> torch.Tensor:
-    """Single-token attention over a KV cache; positions >= length are
-    masked to NEG_INF."""
+    """Single-token attention over a (possibly ring) KV cache. Positions
+    >= length are masked to NEG_INF, and with ``window`` those before
+    ``length - window``; a ring cache holds ``min(length, S)`` valid
+    slots in ring order."""
     b, s, n_kv, dv = v_cache.shape
     hq = q.shape[2]
     g = hq // n_kv
@@ -115,7 +120,12 @@ def decode_attention(
     scores = torch.einsum("bsngd,btnd->bngst", q5, k_cache).float()
     scores = scores * scale                       # (B,N,G,1,S)
     pos = torch.arange(s, device=q.device)
-    valid = pos[None, :] < length[:, None]
+    if ring:
+        valid = pos[None, :] < torch.clamp(length, max=s)[:, None]
+    else:
+        valid = pos[None, :] < length[:, None]
+        if window:
+            valid &= pos[None, :] >= (length[:, None] - window)
     scores = torch.where(valid[:, None, None, None, :], scores, NEG_INF)
     p = torch.softmax(scores, dim=-1)
     o = torch.einsum("bngst,btnd->bngsd", p.to(v_cache.dtype), v_cache)

@@ -1,8 +1,10 @@
-"""Decoder-LM assembly, dense and MoE families.
+"""Decoder-LM assembly, dense, MoE and hybrid families.
 
-  dense : [GQA attn + SwiGLU] x N
-  moe   : [attn (MLA or GQA) + (dense | MoE) ffn], the leading
-          ``first_dense`` layers dense; deepseek's MTP head in the loss
+  dense  : [GQA attn + SwiGLU] x N
+  moe    : [attn (MLA or GQA) + (dense | MoE) ffn], the leading
+           ``first_dense`` layers dense; deepseek's MTP head in the loss
+  hybrid : [parallel attn + SSM, fused + SwiGLU] x N (hymba), the
+           global layers full attention and the rest a sliding window
 
 Layer parameters are stacked on a leading ``layers`` axis, as in the JAX
 package, so a parameter tree crosses between the two packages unchanged.
@@ -22,8 +24,10 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.pytree import leaves, tree_map
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import hymba
 from repro_torch.models import mla as mla_lib
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (apply_rope, cross_entropy, embed,
                                        embed_spec, mlp, mlp_spec, rmsnorm,
                                        rmsnorm_spec, unembed)
@@ -80,11 +84,11 @@ def project_qkv(p, x: torch.Tensor, cfg: ModelConfig, positions,
     return q, k, v
 
 
-def gqa_attention(p, x: torch.Tensor, cfg: ModelConfig,
-                  positions) -> torch.Tensor:
+def gqa_attention(p, x: torch.Tensor, cfg: ModelConfig, positions, *,
+                  window: int = 0) -> torch.Tensor:
     q, k, v = project_qkv(p, x, cfg, positions)
-    o = attn_lib.flash_attention(q, k, v, causal=True, q_chunk=cfg.q_chunk,
-                                 kv_chunk=cfg.kv_chunk)
+    o = attn_lib.flash_attention(q, k, v, causal=True, window=window,
+                                 q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
     return torch.einsum("bshk,hkd->bsd", o, p["wo"])
 
 
@@ -116,10 +120,21 @@ def _moe_block_spec(cfg: ModelConfig, layers: int) -> dict:
     }
 
 
+def _hybrid_block_spec(cfg: ModelConfig, layers: int) -> dict:
+    return {
+        "ln1": rmsnorm_spec(cfg.d_model, layers),
+        "ln2": rmsnorm_spec(cfg.d_model, layers),
+        "attn": attn_spec(cfg, layers),
+        "ssm": ssm_lib.ssm_spec(cfg, layers),
+        "fusion": hymba.fusion_spec(cfg, layers),
+        "mlp": mlp_spec(cfg.d_model, cfg.d_ff, layers),
+    }
+
+
 def check_family(cfg: ModelConfig) -> None:
     """Raise for a family the port does not carry yet, naming the ROADMAP
     item that brings it."""
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "hybrid"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP.md, queue 1: "
             f"'Other model families')")
@@ -131,6 +146,10 @@ def param_spec(cfg: ModelConfig) -> dict:
                                       cfg.tie_embeddings)}
     if cfg.family == "dense":
         spec["blocks"] = _dense_block_spec(cfg, cfg.n_layers, cfg.d_ff)
+    elif cfg.family == "hybrid":
+        n_global = len(hymba.global_layer_ids(cfg))
+        spec["global_blocks"] = _hybrid_block_spec(cfg, n_global)
+        spec["swa_blocks"] = _hybrid_block_spec(cfg, cfg.n_layers - n_global)
     else:
         m = cfg.moe
         if m.first_dense:
@@ -176,6 +195,16 @@ def moe_block(p, x: torch.Tensor, cfg: ModelConfig, positions):
     return x + y, aux
 
 
+def hybrid_block(p, x: torch.Tensor, cfg: ModelConfig, positions, *,
+                 window: int = 0) -> torch.Tensor:
+    xn = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    a = gqa_attention(p["attn"], xn, cfg, positions, window=window)
+    s = ssm_lib.ssm_mixer(p["ssm"], xn, cfg)
+    x = x + hymba.fuse(p["fusion"], a, s, cfg)
+    xn = rmsnorm(p["ln2"], x, cfg.norm_eps)
+    return x + mlp(p["mlp"], xn)
+
+
 def _run_blocks(stacked, h: torch.Tensor, cfg: ModelConfig, body, aux):
     """One block per layer of a stacked tree; ``body(x, p) -> (x, aux)``,
     ``aux`` None for a block that has none. Under grad with ``cfg.remat`` each block is recomputed in the backward
@@ -209,6 +238,8 @@ def forward(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor):
     dense = lambda x, p: (dense_block(p, x, cfg, positions), None)
     if cfg.family == "dense":
         h, _ = _run_blocks(params["blocks"], h, cfg, dense, aux)
+    elif cfg.family == "hybrid":
+        h = _hybrid_forward(params, cfg, h, positions)
     else:
         if cfg.moe.first_dense:
             h, _ = _run_blocks(params["dense_blocks"], h, cfg, dense, aux)
@@ -218,6 +249,21 @@ def forward(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor):
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
     logits = unembed(params["embed"], h, cfg.vocab_size)
     return logits, aux, loss_mask
+
+
+def _hybrid_forward(params: PyTree, cfg: ModelConfig, h: torch.Tensor,
+                    positions) -> torch.Tensor:
+    """Global (full-attention) and SWA blocks in layer order, a run of
+    one kind at a time (``hymba.layer_runs``)."""
+    for is_g, first, count in hymba.layer_runs(cfg):
+        stacked = params["global_blocks" if is_g else "swa_blocks"]
+        part = tree_map(lambda t: t[first:first + count], stacked)
+        window = 0 if is_g else cfg.swa_window
+        h, _ = _run_blocks(
+            part, h, cfg,
+            lambda x, p, window=window: (hybrid_block(
+                p, x, cfg, positions, window=window), None), None)
+    return h
 
 
 def train_loss(params: PyTree, cfg: ModelConfig,

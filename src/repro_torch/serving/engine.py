@@ -1,17 +1,19 @@
-"""Serving: requests, prefill, the decode step (dense and MoE families)
-and the fixed-slot baseline engine.
+"""Serving: requests, prefill, the decode step (dense, MoE and hybrid
+families) and the fixed-slot baseline engine.
 
   prefill(params, tokens)                  -> (logits, cache, lengths)
   decode (params, cache, tokens, lengths)  -> (logits, cache, lengths+1)
 
 Cache convention: ``lengths`` counts tokens already *in* the cache. Decode
-inserts the new token at slot ``lengths``, attends over ``lengths+1``
-entries, and returns ``lengths+1``.
+inserts the new token at slot ``lengths`` (ring slot ``lengths % window``
+for SWA layers), attends over ``lengths+1`` entries, and returns
+``lengths+1``.
 
 Where the JAX package scans one compiled block body over stacked layer
 parameters, the port runs a Python loop over the leading ``layers`` axis
-(the layer views cost no copy), and decode writes each new K/V row into
-the cache **in place** rather than returning a copy of it.
+(the layer views cost no copy), and decode writes each new K/V row, and
+the hybrid family's SSM state, into the cache **in place** rather than
+returning a copy of it.
 
 :class:`ServingEngine` is the JAX package's fixed-slot baseline: one
 contiguous ``(layers, slots, max_len, ...)`` cache, every slot decoded by
@@ -34,8 +36,10 @@ from repro_torch.core.graphs import CapturedStep
 from repro_torch.core.host import resolve_device
 from repro_torch.core.pytree import leaves, tree_map
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import hymba as hymba_lib
 from repro_torch.models import mla as mla_lib
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (embed, mlp, rmsnorm, rope_table,
                                        unembed)
 from repro_torch.models.transformer import check_family, project_qkv
@@ -107,13 +111,19 @@ class StepAt:
         self.slots = slots
 
 
-def _gqa_decode_attn(p, xn, cfg: ModelConfig, kv, lengths, at: StepAt):
-    """kv: {'k','v'} (B,S,N,hd). Returns (attn_out, kv updated in place)."""
+def _gqa_decode_attn(p, xn, cfg: ModelConfig, kv, lengths, at: StepAt, *,
+                     window: int = 0):
+    """kv: {'k','v'} (B,S,N,hd). Returns (attn_out, kv updated in place).
+    A cache of ``window`` slots is a ring: the new token goes to slot
+    ``lengths % window``, which stays in range for an idle row too."""
+    ring = window > 0 and kv["k"].shape[1] == window
     pos = lengths[:, None]                       # rope position of new token
     q, k, v = project_qkv(p, xn, cfg, pos, at.rope)
-    kc = _insert_at(kv["k"], k[:, 0], lengths)
-    vc = _insert_at(kv["v"], v[:, 0], lengths)
-    o = attn_lib.decode_attention(q, kc, vc, lengths + 1)
+    slot = lengths % window if ring else lengths
+    kc = _insert_at(kv["k"], k[:, 0], slot)
+    vc = _insert_at(kv["v"], v[:, 0], slot)
+    o = attn_lib.decode_attention(q, kc, vc, lengths + 1, window=window,
+                                  ring=ring)
     return torch.einsum("bshk,hkd->bsd", o, p["wo"]), {"k": kc, "v": vc}
 
 
@@ -149,6 +159,34 @@ def _moe_decode_block(p, x, cfg, kv, lengths, at: StepAt):
     return x + y, kv
 
 
+def _hybrid_decode_block(p, x, cfg, ssm_state, attn):
+    """One hybrid layer's decode: ``attn(p_attn, xn) -> (out, kv)`` is the
+    layer's attention (its cache updated in place); the SSM state's new
+    ``h`` and ``conv`` are written into ``ssm_state`` in place."""
+    xn = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    a, _ = attn(p["attn"], xn)
+    s, new = ssm_lib.ssm_decode(p["ssm"], xn, cfg, ssm_state)
+    ssm_state["h"].copy_(new["h"])
+    ssm_state["conv"].copy_(new["conv"])
+    x = x + hymba_lib.fuse(p["fusion"], a, s, cfg)
+    xn = rmsnorm(p["ln2"], x, cfg.norm_eps)
+    return x + mlp(p["mlp"], xn)
+
+
+def hybrid_layers(cfg: ModelConfig, params, kv_global, kv_swa, ssm_global,
+                  ssm_swa):
+    """A hybrid model's layers in order: ``(is_global, params, kv,
+    ssm_state)`` of each, views into the stacks (in-place writes land in
+    them)."""
+    for is_g, first, count in hymba_lib.layer_runs(cfg):
+        stacked = params["global_blocks" if is_g else "swa_blocks"]
+        kv, st = (kv_global, ssm_global) if is_g else (kv_swa, ssm_swa)
+        for i in range(first, first + count):
+            at_i = lambda t: t[i]
+            yield (is_g, tree_map(at_i, stacked), tree_map(at_i, kv),
+                   tree_map(at_i, st))
+
+
 def split_layers(cfg: ModelConfig, kv: PyTree) -> tuple[PyTree, PyTree]:
     """An MoE model's cache stack as (leading dense layers, MoE layers):
     views, so in-place writes land in the one stack."""
@@ -160,7 +198,8 @@ def make_decode(cfg: ModelConfig) -> Callable:
     """decode(params, cache, tokens (B,1), lengths (B,)) -> (logits, cache,
     lengths+1); ``cache`` is updated in place and returned. An MoE model
     decodes its ``first_dense`` dense layers, then its MoE layers, over
-    the two parts of its one cache stack."""
+    the two parts of its one cache stack; a hybrid model its global and
+    SWA layers in layer order."""
     check_family(cfg)
 
     def decode(params, cache, tokens, lengths):
@@ -170,6 +209,15 @@ def make_decode(cfg: ModelConfig) -> Callable:
                                                      at)
         if cfg.family == "dense":
             h, _ = _scan_decode(params["blocks"], cache["kv"], h, dense)
+        elif cfg.family == "hybrid":
+            for is_g, p, kv, st in hybrid_layers(
+                    cfg, params, cache["global_kv"], cache["swa_kv"],
+                    cache["ssm_global"], cache["ssm_swa"]):
+                window = 0 if is_g else cfg.swa_window
+                h = _hybrid_decode_block(
+                    p, h, cfg, st,
+                    lambda pa, xn, kv=kv, window=window: _gqa_decode_attn(
+                        pa, xn, cfg, kv, lengths, at, window=window))
         else:
             kv_d, kv_m = split_layers(cfg, cache["kv"])
             if cfg.moe.first_dense:
@@ -189,12 +237,26 @@ def make_decode(cfg: ModelConfig) -> Callable:
 # prefill (build the cache from a whole prompt)
 # ---------------------------------------------------------------------------
 
-def _gqa_prefill_attn(p, xn, cfg, positions, *, max_len):
+def _gqa_prefill_attn(p, xn, cfg, positions, *, max_len, window=0):
+    """Attention of a prompt and its K/V for the cache: padded to
+    ``max_len``, or, for a ring of ``max_len == window`` slots, the last
+    ``window`` tokens with token t at slot ``t % window``."""
     q, k, v = project_qkv(p, xn, cfg, positions)
-    o = attn_lib.flash_attention(q, k, v, causal=True,
+    o = attn_lib.flash_attention(q, k, v, causal=True, window=window,
                                  q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
     out = torch.einsum("bshk,hkd->bsd", o, p["wo"])
-    pad = max_len - xn.shape[1]
+    s = xn.shape[1]
+    if window and max_len == window:
+        t0 = max(0, s - window)
+        kr, vr = k[:, t0:], v[:, t0:]
+        pad = window - kr.shape[1]
+        if pad:
+            kr = F.pad(kr, (0, 0, 0, 0, 0, pad))
+            vr = F.pad(vr, (0, 0, 0, 0, 0, pad))
+        shift = t0 % window
+        return out, {"k": torch.roll(kr, shift, dims=1),
+                     "v": torch.roll(vr, shift, dims=1)}
+    pad = max_len - s
     if pad > 0:
         k = F.pad(k, (0, 0, 0, 0, 0, pad))
         v = F.pad(v, (0, 0, 0, 0, 0, pad))
@@ -209,6 +271,34 @@ def _mla_prefill_attn(p, xn, cfg, positions, *, max_len):
         ckv = F.pad(ckv, (0, 0, 0, pad))
         krope = F.pad(krope, (0, 0, 0, pad))
     return out, {"ckv": ckv, "krope": krope}
+
+
+def _hybrid_prefill(params, cfg: ModelConfig, h, positions, max_len: int):
+    """The hybrid layers in order over a whole prompt: the hidden state
+    and the cache (``global_kv`` padded to ``max_len``; ``swa_kv`` a ring
+    of ``min(swa_window, max_len)`` slots; each layer's final SSM
+    state)."""
+    win = min(cfg.swa_window, max_len)
+    out = {True: [], False: []}
+    for is_g, first, count in hymba_lib.layer_runs(cfg):
+        stacked = params["global_blocks" if is_g else "swa_blocks"]
+        for i in range(first, first + count):
+            p = tree_map(lambda t: t[i], stacked)
+            xn = rmsnorm(p["ln1"], h, cfg.norm_eps)
+            a, kv = _gqa_prefill_attn(
+                p["attn"], xn, cfg, positions,
+                window=0 if is_g else cfg.swa_window,
+                max_len=max_len if is_g else win)
+            s_out, st = ssm_lib.ssm_mixer(p["ssm"], xn, cfg,
+                                          return_state=True)
+            h = h + hymba_lib.fuse(p["fusion"], a, s_out, cfg)
+            h = h + mlp(p["mlp"], rmsnorm(p["ln2"], h, cfg.norm_eps))
+            out[is_g].append((kv, st))
+    stack = lambda ys: tree_map(lambda *ls: torch.stack(ls), *ys)
+    kv_g, ssm_g = stack(out[True]) if out[True] else ({}, {})
+    kv_s, ssm_s = stack(out[False]) if out[False] else ({}, {})
+    return h, {"global_kv": kv_g, "swa_kv": kv_s, "ssm_global": ssm_g,
+               "ssm_swa": ssm_s}
 
 
 def stacks(cfg: ModelConfig, params) -> list:
@@ -253,18 +343,21 @@ def make_prefill(cfg: ModelConfig, max_len: int,
                 y = mlp(p["mlp"], xn)
             return x + y, kv
 
-        parts = []
-        for stacked in stacks(cfg, params):
-            h, kv = _maybe_scan(block, h, stacked)
-            parts.append(kv)
-        kv = (tree_map(lambda *xs: torch.cat(xs), *parts) if len(parts) > 1
-              else parts[0])
+        if cfg.family == "hybrid":
+            h, cache = _hybrid_prefill(params, cfg, h, positions, max_len)
+        else:
+            parts = []
+            for stacked in stacks(cfg, params):
+                h, kv = _maybe_scan(block, h, stacked)
+                parts.append(kv)
+            cache = {"kv": tree_map(lambda *xs: torch.cat(xs), *parts)
+                     if len(parts) > 1 else parts[0]}
         h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
         if last_only:
             h = h[:, last_pos - 1:last_pos] if last_pos is not None \
                 else h[:, -1:]
         logits = unembed(params["embed"], h, cfg.vocab_size)
-        return logits, {"kv": kv}, lengths
+        return logits, cache, lengths
 
     return prefill
 

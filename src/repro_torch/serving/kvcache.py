@@ -1,14 +1,17 @@
-"""Serving-state layouts, dense and MoE families.
+"""Serving-state layouts, dense, MoE and hybrid families.
 
   GQA : k/v (L, B, S, N, hd) — N = kv heads (GQA shrinks the cache by
         heads/N vs MHA).
   MLA : latent c_kv (L, B, S, kv_lora) + shared rope key (L, B, S, qk_rope)
         — (kv_lora + qk_rope) values per token and layer.
+  SWA (hymba) : ring buffer (L, B, window, N, hd), bounded whatever the
+        context; plus per-layer SSM state (h in f32, conv taps).
 
 An MoE model's dense and MoE layers share one stack of ``n_layers``.
 
 The paged engine turns every leaf whose sequence axis spans ``max_len``
-into a block-indexed page pool ``(L, num_pages, page_size, N, hd)``.
+into a block-indexed page pool ``(L, num_pages, page_size, N, hd)``; the
+SWA rings and the SSM state stay per-row slabs.
 ``init_cache`` / ``init_paged_cache`` return concrete zeros on a device.
 """
 from __future__ import annotations
@@ -19,6 +22,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.pytree import tree_map
+from repro_torch.models import hymba as hymba_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.transformer import check_family
 
 PyTree = Any
@@ -53,9 +58,30 @@ def _mla_kv(cfg: ModelConfig, layers: int, batch: int, seq: int):
     }
 
 
+def _ssm_state(cfg: ModelConfig, layers: int, batch: int):
+    s = cfg.ssm
+    di = ssm_lib.d_inner(cfg)
+    return {
+        "h": ((layers, batch, di, s.d_state),
+              ("layers", "batch", "mlp", "state"), "float32"),
+        "conv": ((layers, batch, s.d_conv - 1, di),
+                 ("layers", "batch", "conv", "mlp"), cfg.dtype),
+    }
+
+
 def cache_layout(cfg: ModelConfig, batch: int, max_len: int) -> PyTree:
     """Tree of (shape, logical_axes, dtype) descriptors."""
     check_family(cfg)
+    if cfg.family == "hybrid":
+        n_global = len(hymba_lib.global_layer_ids(cfg))
+        n_swa = cfg.n_layers - n_global
+        win = min(cfg.swa_window, max_len)
+        return {
+            "global_kv": _gqa_kv(cfg, n_global, batch, max_len),
+            "swa_kv": _gqa_kv(cfg, n_swa, batch, win),
+            "ssm_global": _ssm_state(cfg, n_global, batch),
+            "ssm_swa": _ssm_state(cfg, n_swa, batch),
+        }
     if cfg.mla is not None:
         return {"kv": _mla_kv(cfg, cfg.n_layers, batch, max_len)}
     return {"kv": _gqa_kv(cfg, cfg.n_layers, batch, max_len)}
@@ -67,9 +93,10 @@ def paged_cache_layout(cfg: ModelConfig, num_pages: int, page_size: int,
 
     Leaves whose sequence axis spans ``max_len`` become block-indexed page
     pools shared by every request: ``(layers, batch, max_len, ...)`` turns
-    into ``(layers, num_pages, page_size, ...)``. Everything else would
-    stay a dense per-row slab; the dense and MoE families have none, so
-    their state side is ``{}``.
+    into ``(layers, num_pages, page_size, ...)``. Everything else — SWA
+    ring buffers (bounded at ``window``), SSM state (O(1) per request) —
+    stays a dense per-row slab with ``batch=max_reqs``. The dense and MoE
+    families have no such leaf, so their state side is ``{}``.
     """
     def page_desc(d):
         shape, axes = d[0], d[1]
@@ -79,24 +106,28 @@ def paged_cache_layout(cfg: ModelConfig, num_pages: int, page_size: int,
         new_axes = ("layers", "pages", "page_slot") + axes[3:]
         return (new_shape, new_axes) + d[2:]
 
-    def split(node):
+    def split(node, in_ring):
         pool, state = {}, {}
         for k, v in node.items():
+            # SWA ring buffers keep ring semantics (slot = t % window) even
+            # when window == max_len, so they are state by name, not shape
+            ring = in_ring or k == "swa_kv"
             if _is_desc(v):
                 shape, axes = v[0], v[1]
-                if "seq" in axes and shape[axes.index("seq")] == max_len:
+                if (not ring and "seq" in axes
+                        and shape[axes.index("seq")] == max_len):
                     pool[k] = page_desc(v)
                 else:
                     state[k] = v
             else:
-                p, s = split(v)
+                p, s = split(v, ring)
                 if p:
                     pool[k] = p
                 if s:
                     state[k] = s
         return pool, state
 
-    return split(cache_layout(cfg, max_reqs, max_len))
+    return split(cache_layout(cfg, max_reqs, max_len), False)
 
 
 def _map_layout(layout: PyTree, fn) -> PyTree:

@@ -4,6 +4,7 @@ KV memory is a shared pool of fixed-size pages per layer:
 
   pool leaf   (layers, num_pages, page_size, ...)   — block-indexed storage
   page_table  (max_reqs, pages_per_seq) int32       — per-request chains
+  state leaf  (layers, max_reqs, ...)               — SWA rings / SSM state
 
 A request is admitted whenever a batch row *and* enough free pages exist —
 ``ceil((prompt + max_new) / page_size)`` pages are reserved up front so a
@@ -14,7 +15,8 @@ stop blocking long ones.
 Lifecycle (JetStream's engine vocabulary):
 
   admit(req)      prefill the prompt, then insert
-  _insert(...)    scatter the prefilled KV into the reserved pages
+  _insert(...)    scatter the prefilled KV into the reserved pages and copy
+                  recurrent state into the request's row
   step()          one batched decode for every row; page writes go through
                   the per-request page table
   free_resource() return pages, zero the table row
@@ -26,7 +28,8 @@ Where the JAX package is functional, this engine updates its device state
 **in place**: decode writes each new K/V row straight into the pool, and
 admission scatters the prompt's KV into its pages without copying the pool.
 The pool is the largest tensor of the serving state; a functional update
-would copy it per layer per step.
+would copy it per layer per step. The hybrid family's per-row state (SWA
+rings, SSM ``h`` and ``conv``) is written in place the same way.
 
 Attention over the pages is ``models.attention.paged_decode_attention``:
 the hand-written Hopper kernel for CUDA tensors, its plain version (gather +
@@ -34,11 +37,13 @@ masked softmax) for CPU tensors.
 
 The step is the JAX engine's jitted ``_step``: decode, the greedy argmax,
 then the next tokens and ``lengths + 1``, written **into** the engine's
-``tokens`` and ``lengths``. Every device buffer of the engine (pool, page
-table, lengths, tokens) keeps its address for the engine's life:
-admission, completion and prefix registration write them in place between
-steps. On CUDA the step is captured once, when the engine is built, in a
-CUDA graph (``core/graphs.py``) and each ``step()`` replays it;
+``tokens`` and ``lengths``. Every device buffer of the engine (pool,
+state, page table, lengths, tokens) keeps its address for the engine's
+life: admission, completion and prefix registration write them in place
+between steps. On CUDA the step is captured once, when the engine is
+built, in a CUDA graph (``core/graphs.py``) and each ``step()`` replays
+it; its warm-up steps, with every row idle, write only the scratch page 0
+and idle rows' state, which an admission overwrites whole;
 ``cuda_graph=False`` steps eagerly instead. On the CPU the step is always
 eager: that path is the parity oracle.
 
@@ -142,7 +147,9 @@ def make_paged_decode(cfg: ModelConfig, page_size: int, *,
     the kernel. An MoE model decodes its ``first_dense`` dense layers, then
     its MoE layers, over the two parts of its one pool stack; its MLA
     layers gather their chains and attend in plain tensor code, as the JAX
-    package does.
+    package does. A hybrid model's global layers attend over the pool and
+    its SWA layers over their per-row rings in ``state``; both update
+    their SSM state in ``state`` in place.
     """
     check_family(cfg)
     ps = page_size
@@ -155,6 +162,17 @@ def make_paged_decode(cfg: ModelConfig, page_size: int, *,
             p, x, cfg, kv, page_table, lengths, ps, attend, at)
         if cfg.family == "dense":
             h, _ = E._scan_decode(params["blocks"], pool["kv"], h, dense)
+        elif cfg.family == "hybrid":
+            for is_g, p, kv, st in E.hybrid_layers(
+                    cfg, params, pool["global_kv"], state["swa_kv"],
+                    state["ssm_global"], state["ssm_swa"]):
+                if is_g:
+                    attn = lambda pa, xn, kv=kv: _paged_gqa_attn(
+                        pa, xn, cfg, kv, page_table, lengths, ps, attend, at)
+                else:
+                    attn = lambda pa, xn, kv=kv: E._gqa_decode_attn(
+                        pa, xn, cfg, kv, lengths, at, window=cfg.swa_window)
+                h = E._hybrid_decode_block(p, h, cfg, st, attn)
         else:
             kv_d, kv_m = E.split_layers(cfg, pool["kv"])
             if cfg.moe.first_dense:
@@ -256,6 +274,27 @@ class PageAllocator:
 # insert helpers (in place)
 # ---------------------------------------------------------------------------
 
+def _split_tree(tree: dict, pool_l: dict, state_l: dict):
+    """Partition a prefill cache into (pool-side, state-side) subtrees
+    following the ``paged_cache_layout`` split."""
+    pool, state = {}, {}
+    for k, v in tree.items():
+        if k in pool_l and k in state_l:          # mixed subtree
+            pool[k], state[k] = _split_tree(v, pool_l[k], state_l[k])
+        elif k in pool_l:
+            pool[k] = v
+        else:
+            state[k] = v
+    return pool, state
+
+
+def _insert_state(state: PyTree, state1: PyTree, row: int) -> None:
+    """Copy a single-request prefill's per-row state (SWA rings, SSM
+    state) into ``row`` of the engine's state, in place."""
+    tree_map(lambda full, one: E._set_batch_slot(full, one, row),
+             state, state1)
+
+
 def _insert_pages(pool: PyTree, pool1: PyTree, page_ids: torch.Tensor,
                   ) -> None:
     """Scatter a single-request prefill cache into the reserved pages, in
@@ -351,11 +390,15 @@ class PagedServingEngine:
 
         self._decode = make_paged_decode(cfg, page_size)
         self._prefill_one = make_prefill(cfg, max_len, last_only=True)
-        # every prompt is right-padded to one canonical width (prompt_len),
-        # as in the JAX package: a prefix a register_prefix writes is then
-        # computed at the same shape as the KV an unshared admit of the same
-        # tokens would write
-        self._cont_prefill = prefix_lib.make_continue_prefill(cfg, page_size)
+        # attention families right-pad every prompt to one canonical width
+        # (prompt_len), as in the JAX package: a prefix a register_prefix
+        # writes is then computed at the same shape as the KV an unshared
+        # admit of the same tokens would write. Recurrent families (hybrid)
+        # prefill at the prompt's exact length: pad tokens would advance
+        # their per-row state past the real prompt.
+        self._pad_prompts = cfg.family in prefix_lib.SHAREABLE_FAMILIES
+        self._cont_prefill = (prefix_lib.make_continue_prefill(cfg, page_size)
+                              if self._pad_prompts else None)
 
         self._state_version = 0
         self._page_versions = np.zeros(num_pages, np.int64)
@@ -415,8 +458,12 @@ class PagedServingEngine:
         return pages
 
     def _prefill_prompt(self, prompt: np.ndarray):
-        """Prefill at the canonical padded width; logits are for the last
-        *real* position."""
+        """Prefill at the canonical padded width (attention families) or
+        the exact length (recurrent families); logits are for the last
+        *real* position either way."""
+        if not self._pad_prompts:
+            toks = torch.from_numpy(np.asarray(prompt, np.int32)[None, :])
+            return self._prefill_one(self.params, toks.to(self.device))
         padded = np.zeros((1, self.prompt_len), np.int32)
         padded[0, :len(prompt)] = prompt
         toks = torch.from_numpy(padded).to(self.device)
@@ -438,7 +485,10 @@ class PagedServingEngine:
     def _insert(self, row: int, req: Request, prompt: np.ndarray,
                 pages: list[int]) -> None:
         logits, cache1, _ = self._prefill_prompt(prompt)
-        _insert_pages(self.pool, cache1, self._ids(pages))
+        pool1, state1 = _split_tree(cache1, self._pool_layout,
+                                    self._state_layout)
+        _insert_pages(self.pool, pool1, self._ids(pages))
+        _insert_state(self.state, state1, row)
         req.out.append(self._set_row(row, pages, len(prompt), logits))
         self.active[row] = req
         self._chains[row] = list(pages)
@@ -505,7 +555,8 @@ class PagedServingEngine:
                 f"cannot register prefix: {p0 // self.page_size} pages "
                 f"needed, {self.allocator.free_pages} free")
         _, cache1, _ = self._prefill_prompt(toks)   # chain ends mid-prompt
-        _insert_pages(self.pool, cache1, self._ids(pages))
+        pool1, _ = _split_tree(cache1, self._pool_layout, self._state_layout)
+        _insert_pages(self.pool, pool1, self._ids(pages))
         self.prefill_tokens += p0
         self._state_version += 1
         self._page_versions[pages] = self._state_version

@@ -243,6 +243,10 @@ def make_continue_prefill(cfg: ModelConfig, page_size: int):
     positions independent of the zero-padded tail).
     """
     check_family(cfg)
+    if cfg.family not in SHAREABLE_FAMILIES:
+        raise ValueError(
+            f"prefix sharing requires a fully paged cache; family "
+            f"{cfg.family!r} keeps per-row recurrent state")
 
     def cont(params, pool, page_ids, tokens, last_pos=None):
         b, s = tokens.shape

@@ -66,6 +66,20 @@ def test_decode_graph_equals_eager_over_40_steps(cuda):
     logits of the active rows and every token stream are bitwise equal,
     and the kernel counts once per layer per step on either engine."""
     cfg = configs.get(ARCH, smoke=True)
+    _graph_equals_eager(cfg, cuda, paged_layers=cfg.n_layers)
+
+
+def test_hybrid_decode_graph_equals_eager_over_40_steps(cuda):
+    """The same for hymba's smoke config, whose rows carry state besides
+    their pages (SWA rings of 32 slots, wrapped by the longer requests,
+    and SSM state): the graphed engine's warm-up and finished requests
+    leave idle rows' state behind, which an admission overwrites whole.
+    The kernel counts once per global layer per step."""
+    cfg = configs.get("hymba-1.5b", smoke=True)
+    _graph_equals_eager(cfg, cuda, paged_layers=cfg.n_global_layers)
+
+
+def _graph_equals_eager(cfg, cuda, *, paged_layers):
     params = P.materialize(torch.Generator().manual_seed(0),
                            transformer.param_spec(cfg), cuda)
     kw = dict(num_pages=17, page_size=16, max_reqs=4, prompt_len=16,
@@ -96,7 +110,7 @@ def test_decode_graph_equals_eager_over_40_steps(cuda):
         assert a.out == b.out, f"request {a.rid} diverged"
     assert sum(r.done for r in reqs[graphed]) >= 8
     torch.cuda.synchronize()
-    assert PK.paged_decode_attention.launches == 2 * steps * cfg.n_layers
+    assert PK.paged_decode_attention.launches == 2 * steps * paged_layers
 
 
 def _train_setup(dev, seed=0):

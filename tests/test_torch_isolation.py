@@ -23,7 +23,9 @@ bad = sorted(m for m in sys.modules
 moe = sorted(n for n in names if n.endswith((".moe", ".mla",
                                               "moonshot_v1_16b_a3b",
                                               "deepseek_v3_671b")))
-print(len(names), len(moe), bad)
+hybrid = sorted(n for n in names if n.endswith((".ssm", ".hymba",
+                                                 "hymba_1_5b")))
+print(len(names), len(moe), len(hybrid), bad)
 """
 
 
@@ -31,10 +33,12 @@ def test_every_module_imports_without_jax_or_repro():
     out = subprocess.run([sys.executable, "-c", _PROBE], capture_output=True,
                          text=True, timeout=120,
                          env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"},
-                         check=True).stdout.split(maxsplit=2)
-    n_modules, n_moe, bad = int(out[0]), int(out[1]), out[2].strip()
-    assert n_modules >= 63          # every module (core.insitu included)
+                         check=True).stdout.split(maxsplit=3)
+    n_modules, n_moe, n_hybrid = int(out[0]), int(out[1]), int(out[2])
+    bad = out[3].strip()
+    assert n_modules >= 66          # every module (core.insitu included)
     assert n_moe == 4               # models.moe/mla and the two configs
+    assert n_hybrid == 3            # models.ssm/hymba and hymba's config
     assert bad == "[]", f"port pulled in {bad}"
 
 
@@ -81,6 +85,8 @@ def test_entry_points_default_to_the_card(tmp_path):
         serve_loop("smollm-135m")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve_loop("moonshot-v1-16b-a3b", smoke=False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve_loop("hymba-1.5b", smoke=False)
     cfg = base.get("smollm-135m", smoke=True)
     spec = transformer.param_spec(cfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -233,6 +233,44 @@ def test_head_groups_with_one_round_size_give_one_result(cuda, dtype, width):
     assert compared >= 2
 
 
+# hymba-1.5b's global layers: 25 query heads over 5 kv heads of 64 (a group
+# of 5). One group holds all 5 kv heads, so a CTA carries 25 query heads,
+# more than its 16 warps: a warp takes two heads in turn
+HYMBA = dict(hq=25, n_kv=5, d_k=64, d_v=64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("width", [4, 256])
+def test_hymba_shape_matches_plain_on_card(cuda, dtype, width):
+    rng = np.random.default_rng(23)
+    ps, full = 16, 16 * width
+    lengths = [0, 1, ps, ps + 1, full // 2 + 3, full - 1, full, full]
+    args = _case(rng, b=8, ps=ps, pps=width, lengths=lengths,
+                 dtype=getattr(torch, dtype), dev=cuda, **HYMBA)
+    out = PK.paged_decode_attention(*args)
+    torch.cuda.synchronize()
+    ref = PK.paged_decode_attention_plain(*args)
+    tol = F32_TOL if dtype == "float32" else dict(rtol=0, atol=BF16_ATOL)
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    assert torch.equal(_bits(PK.paged_decode_attention(*args)), _bits(out))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [4, 68, 256])
+def test_hymba_head_group_and_smem_mirror_the_source(cuda, width):
+    """At hymba's heads the plan keeps one group of all 5 kv heads, and
+    the Python staging it reads has the source's shared-memory bytes for
+    every group that divides 5."""
+    _, c_bytes = PK._entry()
+    _, per = PK.split_plan(width, 16, 8, 5)
+    for elem in (2, 4):
+        assert PK.head_group(5, 5, 64, 64, 16, elem, per) == 5
+        for n_h in (1, 5):
+            args = (n_h, 5, 64, 64, 16, elem, per)
+            assert c_bytes(*args) == PK.smem_bytes(*args), args
+
+
 @pytest.mark.cuda
 def test_smem_bytes_mirror_the_source(cuda):
     """``smem_bytes`` (Python, what the head-group choice reads) equals the

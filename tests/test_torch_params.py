@@ -35,7 +35,7 @@ def _recording(monkeypatch):
 
 
 @pytest.mark.parametrize("arch", ["smollm-135m", "moonshot-v1-16b-a3b",
-                                  "deepseek-v3-671b"])
+                                  "deepseek-v3-671b", "hymba-1.5b"])
 def test_no_f32_temporary_exceeds_one_layer_slice(monkeypatch, arch):
     spec = T.param_spec(tbase.get(arch, smoke=True))
     seen = _recording(monkeypatch)
@@ -85,3 +85,52 @@ def test_serve_loop_draws_on_the_cpu_unless_full_width_moe_on_the_card():
     gen = weight_generator(tbase.get("smollm-135m"), 0,
                            torch.device("cuda"), False)
     assert gen.device.type == "cpu"
+
+
+def test_hybrid_spec_and_count_match_jax():
+    """hymba's spec at the published widths, leaf by leaf (shape, axes,
+    dtype, initializer), and its parameter count, 1,663,182,400, against
+    the JAX package's; the SSM and fusion vectors are f32, ``a_log`` an
+    ``embed`` draw at scale 0.5."""
+    from repro.configs import base as jbase
+    from repro.models import params as JP
+    from repro.models import transformer as JT
+    import jax
+
+    jspec = {jax.tree_util.keystr(p): s for p, s in
+             jax.tree_util.tree_flatten_with_path(
+                 JT.param_spec(jbase.get("hymba-1.5b")),
+                 is_leaf=lambda x: isinstance(x, JP.ParamSpec))[0]}
+    tcfg = tbase.get("hymba-1.5b")
+    tspec = {keystr(p): s for p, s in
+             flatten_with_path(T.param_spec(tcfg))}
+    assert sorted(tspec) == sorted(jspec)
+    for k, js in jspec.items():
+        ts = tspec[k]
+        assert (ts.shape, ts.axes, ts.init, ts.scale) == \
+            (js.shape, js.axes, js.init, js.scale), k
+        assert str(ts.dtype).split(".")[-1] == np.dtype(js.dtype).name, k
+    f32 = sorted(k.rsplit("[", 1)[1] for k, s in tspec.items()
+                 if s.dtype == torch.float32 and "['ssm']" in k)
+    assert f32 == ["'a_log']", "'a_log']", "'d_skip']", "'d_skip']",
+                   "'dt_bias']", "'dt_bias']"]
+    assert tspec["['swa_blocks']['ssm']['a_log']"].init == "embed"
+    assert tspec["['swa_blocks']['ssm']['a_log']"].scale == 0.5
+    assert tspec["['global_blocks']['fusion']['ssm_gain']"].shape == (3, 1600)
+    assert tcfg.n_params() == jbase.get("hymba-1.5b").n_params() \
+        == 1_663_182_400
+
+
+def test_full_width_hybrid_draws_on_the_card():
+    """hymba at full width on the card draws on the card's generator (as
+    a full-width MoE does); at smoke size, or on the CPU, on the CPU's."""
+    cpu = torch.device("cpu")
+    for smoke in (True, False):
+        assert weight_generator(tbase.get("hymba-1.5b", smoke=smoke), 0,
+                                cpu, smoke).device.type == "cpu"
+    assert weight_generator(tbase.get("hymba-1.5b", smoke=True), 0,
+                            torch.device("cuda"), True).device.type == "cpu"
+    if torch.cuda.is_available():
+        assert weight_generator(tbase.get("hymba-1.5b"), 0,
+                                torch.device("cuda"),
+                                False).device.type == "cuda"

@@ -171,6 +171,22 @@ def test_bounds_reproduce_perf_md_rows_1_to_7():
     assert round(per_save["hist_refine"], 3) == 0.322
 
 
+@pytest.mark.parametrize("pps,ms", [(4, 0.000211), (256, 0.01254)])
+def test_bounds_reproduce_perf_md_row_1h(pps, ms):
+    """Row 1h: kernel 1 at hymba-1.5b's heads (25 query heads over 5 kv
+    heads of 64), bf16, B = 8, every row at full length, on the serving
+    table of 4 pages and on a 256-page one: bytes bound both."""
+    b, ps = 8, 16
+    meta = lambda shape, dtype=torch.bfloat16: torch.empty(
+        shape, dtype=dtype, device="meta")
+    args = (meta((b, 1, 25, 64)), meta((b * pps + 1, ps, 5, 64)),
+            meta((b * pps + 1, ps, 5, 64)), meta((b, pps), torch.int32),
+            torch.full((b,), ps * pps, dtype=torch.int32))
+    got, by = _bound("paged_decode_attention", *args)
+    digits = len(repr(ms).split(".")[1])
+    assert (round(got, digits), by) == (ms, "bytes")
+
+
 def _moment_leaf_blocks():
     from repro_torch.core import pytree
     from repro_torch.models import transformer

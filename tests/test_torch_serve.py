@@ -57,8 +57,40 @@ def test_prefix_requests_share_pages():
 
 def test_waiting_parts_say_so():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve_loop("hymba-1.5b", device="cpu")
+        serve_loop("xlstm-1.3b", device="cpu")
     plan = default_serve_plan()
     plan["tasks"]["fault"] = {"stream": "kv_pages", "preset": "fault"}
     with pytest.raises(PlanError, match="not ported"):
         Session(plan)
+
+
+def test_serves_hymba_with_a_snapshot_chain(tmp_path):
+    """The hybrid family through ``serve_loop``: every request served, every
+    page back, and the default plan's chain (persisted here) restores
+    with the per-row ``state`` leaves beside the global pool."""
+    from repro_torch.serving.snapshot import SnapshotStore
+
+    lines = []
+    plan = default_serve_plan(snapshot_dir=str(tmp_path / "chain"))
+    out = serve_loop("hymba-1.5b", n_requests=5, max_new=6, slots=2,
+                     plan=plan, device="cpu", log=lines.append)
+    assert all(r.done and len(r.out) == 6 for r in out["requests"])
+    assert any(ln.startswith("page pool: 0/16 pages in use at exit")
+               for ln in lines), lines
+    rep = out["session_report"]
+    assert rep["n_errors"] == 0
+    assert rep["tasks"]["kv_snapshot"]["publishes"] > 0
+    _, leaves = SnapshotStore(str(tmp_path / "chain")).restore("kv_pages")
+    assert "['pool']['global_kv']['k']" in leaves
+    assert "['state']['ssm_swa']['h']" in leaves
+
+
+def test_hymba_refuses_a_shared_prefix():
+    """A system prompt of a page or more is registered for sharing, which
+    the hybrid family's per-row state refuses, in both packages."""
+    with pytest.raises(ValueError, match="recurrent state"):
+        serve_loop("hymba-1.5b", n_requests=2, max_new=2, prefix_len=16,
+                   device="cpu", log=lambda _: None)
+    with pytest.raises(ValueError, match="recurrent state"):
+        jax_serve_loop("hymba-1.5b", n_requests=2, max_new=2, prefix_len=16,
+                       log=lambda _: None)

@@ -1,7 +1,9 @@
 """Serving parity between the PyTorch port and the JAX package (CPU).
 
-Every test runs for ``smollm-135m`` (dense) and the two MoE archs,
-``moonshot-v1-16b-a3b`` (GQA) and ``deepseek-v3-671b`` (MLA). Both
+Every test runs for ``smollm-135m`` (dense), the two MoE archs,
+``moonshot-v1-16b-a3b`` (GQA) and ``deepseek-v3-671b`` (MLA), and the
+hybrid ``hymba-1.5b`` (SWA rings and SSM state beside a global page
+pool). Both
 packages start from the same weights: the JAX package materializes a
 smoke-size tree, and the port takes it through its weight bridge.
 Parameter specs are compared at the published widths, by shape and dtype,
@@ -18,15 +20,26 @@ without materializing them. Tolerances:
   over three layers whose MoE and MLA blocks round at more places (expert
   outputs, combine, shared experts, latents), some of which XLA's
   compiled scan body keeps in f32; seeds 0-2 differ by at most 0.059
-  with every expert id equal;
+  with every expert id equal. hymba's to atol 8e-2 as well: its smoke
+  logits reach 3.75, and from its second layer on the SSM branch and the
+  fusion round at more places (conv taps, four projections, two norms);
+  seeds 0-2 differ by at most 0.053 (its first, global layer's cache
+  bits equal). Every cache leaf is held at the logits' tolerance, and
+  has the JAX package's dtype (hymba's SSM ``h`` is f32 in both);
 * greedy token streams of the paged and dense engines are equal in f32
   (params and cache cast to f32 on both sides), with and without a
-  registered prefix. In the MoE family the rows of one decode step share
+  registered prefix (the hybrid family refuses a prefix in both
+  packages: its per-row state cannot be shared), across the smoke
+  window's wrap (40-token prompts, 30 new tokens, window 32), and with
+  prompts prefilled at their exact length (5 and 17 tokens: the SSM
+  state equals the JAX package's, and differs from a padded prefill's).
+  In the MoE family the rows of one decode step share
   each expert's capacity, and an idle row's token competes for it as in
   the JAX package; so the streams are compared only where both packages
   run identical batches (the same engine, geometry and admissions);
-* an MoE chain one package's engine wrote hydrates the other package's
-  engine, which decodes the in-flight requests to the same f32 tokens.
+* an MoE or hybrid chain one package's engine wrote hydrates the other
+  package's engine, which decodes the in-flight requests to the same f32
+  tokens; a hybrid chain carries its ``state`` leaves.
 """
 import functools
 import dataclasses
@@ -49,7 +62,8 @@ from repro_torch.models import transformer as TT
 from repro_torch.serving import engine as TE
 from repro_torch.serving import pages as TPG
 
-ARCHS = ("smollm-135m", "moonshot-v1-16b-a3b", "deepseek-v3-671b")
+ARCHS = ("smollm-135m", "moonshot-v1-16b-a3b", "deepseek-v3-671b",
+         "hymba-1.5b")
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -135,6 +149,7 @@ def _bridged(arch):
     ("qwen1.5-110b", "float32"),     # qkv bias
     ("moonshot-v1-16b-a3b", "float32"), ("moonshot-v1-16b-a3b", "bfloat16"),
     ("deepseek-v3-671b", "float32"), ("deepseek-v3-671b", "bfloat16"),
+    ("hymba-1.5b", "float32"), ("hymba-1.5b", "bfloat16"),
 ])
 def test_prefill_logits_match_jax(arch, dtype):
     jcfg, jprm, tcfg, tprm = _bridged(arch)
@@ -142,18 +157,22 @@ def test_prefill_logits_match_jax(arch, dtype):
         jcfg, jprm, tcfg, tprm = _f32(jcfg, jprm, tcfg, tprm)
         tol = dict(rtol=1e-4, atol=1e-4)
     else:
-        tol = dict(rtol=0, atol=8e-2 if jcfg.moe is not None else 2e-2)
+        tol = dict(rtol=0, atol=8e-2 if jcfg.family in ("moe", "hybrid")
+                   else 2e-2)
     rng = np.random.default_rng(1)
     toks = rng.integers(0, jcfg.vocab_size, size=(2, 16)).astype(np.int32)
     jl, jcache, _ = JE.make_prefill(jcfg, 32)(jprm, jnp.asarray(toks))
     tl, tcache, _ = TE.make_prefill(tcfg, 32)(tprm, torch.from_numpy(toks))
     jl = np.asarray(jl.astype(jnp.float32))
     np.testing.assert_allclose(tl.float().numpy(), jl, **tol)
-    assert list(tcache["kv"]) == list(jcache["kv"])
-    for name, leaf in jcache["kv"].items():
+    jflat, tflat = _flat(jcache), _flat(tcache)
+    assert sorted(tflat) == sorted(jflat)
+    for name, leaf in jflat.items():
         jk = np.asarray(leaf.astype(jnp.float32))
-        assert tuple(tcache["kv"][name].shape) == jk.shape, name
-        np.testing.assert_allclose(tcache["kv"][name].float().numpy(), jk,
+        assert tuple(tflat[name].shape) == jk.shape, name
+        assert str(tflat[name].dtype).split(".")[-1] == \
+            np.dtype(leaf.dtype).name, name
+        np.testing.assert_allclose(tflat[name].float().numpy(), jk,
                                    err_msg=name, **tol)
 
 
@@ -179,7 +198,13 @@ def test_paged_engine_token_streams_match_jax(bridged, shared_prefix):
 
     jeng = JPG.PagedServingEngine(jcfg, jprm, **kw)
     teng = TPG.PagedServingEngine(tcfg, tprm, device="cpu", **kw)
-    if shared_prefix:
+    if shared_prefix and jcfg.family == "hybrid":
+        # per-row recurrent state cannot be shared: both packages refuse
+        for eng in (jeng, teng):
+            with pytest.raises(ValueError, match="recurrent state"):
+                eng.register_prefix(prefix)
+        shared_prefix = False
+    elif shared_prefix:
         assert jeng.register_prefix(prefix) == teng.register_prefix(prefix)
     jeng.run(ja, max_steps=64)
     teng.run(tb, max_steps=64)
@@ -215,9 +240,13 @@ def test_engine_snapshot_payload_matches_jax_leaves(bridged):
     jl = jflatten(jeng.snapshot_payload()["cache"])
     tl = tflatten(default_handoff(teng.snapshot_payload()["cache"]))
     assert list(jl) == list(tl)
+    if jcfg.family == "hybrid":
+        assert any(k.startswith("['state']['ssm_swa']") for k in tl)
     for k in jl:
-        if k.startswith("['pool']"):
-            np.testing.assert_allclose(tl[k], jl[k], rtol=1e-4, atol=1e-4)
+        if k.startswith(("['pool']", "['state']")):
+            assert tl[k].dtype == jl[k].dtype, k
+            np.testing.assert_allclose(tl[k], jl[k], rtol=1e-4, atol=1e-4,
+                                       err_msg=k)
         else:
             np.testing.assert_array_equal(tl[k], jl[k], err_msg=k)
     assert jeng.snapshot_payload()["chunk_hints"] == \
@@ -302,3 +331,110 @@ def test_moe_chain_hydrates_the_other_package(arch, producer, tmp_path):
         assert a.done and b.done
         assert a.out == b.out, f"replica diverged on request {a.rid}"
     assert rep.prefill_tokens == pre
+
+
+@pytest.mark.parametrize("producer", ["jax", "torch"])
+def test_hybrid_chain_hydrates_the_other_package(producer, tmp_path):
+    """A paged hybrid engine's chain (pool ``['pool']['global_kv']``, per-row
+    ``['state']`` rings and SSM state) written by one package hydrates
+    the other's engine, which decodes the in-flight requests to the
+    producer's f32 tokens with no prefill, across the window's wrap."""
+    from repro.core import session as JS
+    from repro.serving.snapshot import SnapshotStore as JStore
+    from repro_torch.core import session as TS
+    from repro_torch.serving.snapshot import SnapshotStore as TStore
+
+    jcfg, jprm, tcfg, tprm = _f32(*_bridged("hymba-1.5b"))
+    kw = dict(num_pages=25, page_size=16, max_reqs=3, prompt_len=40,
+              max_len=64)
+    d = str(tmp_path / "chain")
+    if producer == "jax":
+        prod = JPG.PagedServingEngine(jcfg, jprm, **kw)
+        reqs = _wrap_requests(JE.Request, 3, 30, max_new=14)
+        step, leaves = _chain(prod, reqs, d, JStore, JS)
+        rep = TPG.PagedServingEngine.from_snapshot(tcfg, tprm, leaves,
+                                                   device="cpu")
+    else:
+        prod = TPG.PagedServingEngine(tcfg, tprm, device="cpu", **kw)
+        reqs = _wrap_requests(TE.Request, 3, 30, max_new=14)
+        step, leaves = _chain(prod, reqs, d, TStore, TS)
+        rep = JPG.PagedServingEngine.from_snapshot(jcfg, jprm, leaves)
+    assert step == 2
+    assert sorted(k for k in leaves if k.startswith("['pool']")) == \
+        ["['pool']['global_kv']['k']", "['pool']['global_kv']['v']"]
+    assert sorted(k for k in leaves if k.startswith("['state']")) == [
+        "['state']['ssm_global']['conv']", "['state']['ssm_global']['h']",
+        "['state']['ssm_swa']['conv']", "['state']['ssm_swa']['h']",
+        "['state']['swa_kv']['k']", "['state']['swa_kv']['v']"]
+    assert leaves["['state']['swa_kv']['k']"].shape[:3] == (2, 3, 32)
+    live = [a for a in rep.active if a is not None]
+    assert [r.out for r in live] == [r.out for r in reqs]
+    pre = rep.prefill_tokens
+    for _ in range(14):
+        for eng in (prod, rep):
+            if any(a is not None for a in eng.active):
+                eng.step()
+    for a, b in zip(reqs, live):
+        assert a.done and b.done
+        assert a.out == b.out, f"replica diverged on request {a.rid}"
+    assert rep.prefill_tokens == pre
+
+
+def _wrap_requests(cls, n, prompt, max_new, seed=11):
+    rng = np.random.default_rng(seed)
+    return [cls(i, rng.integers(0, 257, size=prompt).astype(np.int32),
+                max_new=max_new) for i in range(n)]
+
+
+@pytest.mark.parametrize("kind", ["paged", "dense"])
+def test_hybrid_streams_match_jax_across_the_window_wrap(kind):
+    """Prompts of 40 tokens pass the smoke window of 32 (the prefill keeps
+    the last 32 in ring order), and 30 new tokens wrap the ring again in
+    decode: the f32 token streams equal the JAX package's."""
+    jcfg, jprm, tcfg, tprm = _f32(*_bridged("hymba-1.5b"))
+    assert jcfg.swa_window == 32
+    ja = _wrap_requests(JE.Request, 4, 40, 30)
+    tb = _wrap_requests(TE.Request, 4, 40, 30)
+    if kind == "paged":
+        kw = dict(num_pages=11, page_size=16, max_reqs=2, prompt_len=40,
+                  max_len=80)
+        jeng = JPG.PagedServingEngine(jcfg, jprm, **kw)
+        teng = TPG.PagedServingEngine(tcfg, tprm, device="cpu", **kw)
+    else:
+        kw = dict(slots=2, prompt_len=40, max_len=80)
+        jeng = JE.ServingEngine(jcfg, jprm, **kw)
+        teng = TE.ServingEngine(tcfg, tprm, device="cpu", **kw)
+    jeng.run(ja, max_steps=256)
+    teng.run(tb, max_steps=256)
+    for ra, rb in zip(ja, tb):
+        assert ra.done and rb.done and len(rb.out) == 30
+        assert ra.out == rb.out, f"request {ra.rid} diverged"
+
+
+def test_hybrid_prefills_prompts_at_their_exact_length():
+    """Prompts of 5 and 17 tokens in a 24-token prompt window: the SSM
+    state the port's paged engine holds after admission equals the JAX
+    engine's, and differs from the state of the same prompt padded to the
+    window (pad tokens would advance it)."""
+    jcfg, jprm, tcfg, tprm = _f32(*_bridged("hymba-1.5b"))
+    kw = dict(num_pages=9, page_size=16, max_reqs=2, prompt_len=24,
+              max_len=64)
+    jeng = JPG.PagedServingEngine(jcfg, jprm, **kw)
+    teng = TPG.PagedServingEngine(tcfg, tprm, device="cpu", **kw)
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(0, 257, size=n).astype(np.int32) for n in (5, 17)]
+    for i, pr in enumerate(prompts):
+        assert jeng.admit(JE.Request(i, pr, max_new=4))
+        assert teng.admit(TE.Request(i, pr, max_new=4))
+    for key in ("ssm_global", "ssm_swa"):
+        for leaf in ("h", "conv"):
+            want = np.asarray(jeng.state[key][leaf])
+            got = teng.state[key][leaf].numpy()
+            np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4,
+                                       err_msg=f"{key}/{leaf}")
+    assert [r.out for r in teng.active] == [r.out for r in jeng.active]
+    padded = np.zeros((1, 24), np.int32)
+    padded[0, :5] = prompts[0]
+    _, cache, _ = TE.make_prefill(tcfg, 64)(tprm, torch.from_numpy(padded))
+    assert not torch.allclose(cache["ssm_swa"]["h"][:, 0],
+                              teng.state["ssm_swa"]["h"][:, 0], atol=1e-3)
