@@ -149,8 +149,8 @@ Phases (any failure exits non-zero; none is swallowed):
    the bare loop (no in-situ task), 3 steps from seed 0, eagerly twice
    and graphed once: the graphed losses must be bitwise the eager ones if
    the two eager runs are bitwise equal, else within their spread. Then,
-   in HYBRID placement, 20 steps with no checkpoint task bound (what the
-   in-situ work costs), then 20 steps with a checkpoint every 5 steps
+   in HYBRID placement, 11 steps with no checkpoint task bound (what the
+   in-situ work costs), then 11 steps with a checkpoint every 5 steps
    under ``build/`` (launch counts are set to 0 just before and read just
    after: kernels 2-4 once per save), then a direct restore of the newest
    step (kernel 5 once per lossy leaf) whose params must equal bitwise
@@ -159,7 +159,7 @@ Phases (any failure exits non-zero; none is swallowed):
    resumes from it. Also: the device stage alone on the trained state,
    and one train step's device profile, eager and replayed, each with
    its peak memory (and what the graph's pool keeps).
-10. train (sync/async ckpt) — the same graphed loop, 10 steps with a
+10. train (sync/async ckpt) — the same graphed loop, 6 steps with a
    checkpoint every 5 steps (saves at 0 and 5) in SYNC and then in ASYNC
    placement: the lossy stage runs per leaf on the checkpoint's workers
    through the single-tensor kernels. Launch counts are set to 0 just
@@ -169,7 +169,10 @@ Phases (any failure exits non-zero; none is swallowed):
    within ``error_bound(eps)``). Printed beside the HYBRID run's numbers:
    step time, the checkpoint's loop-blocking seconds, its worker seconds,
    raw/stored bytes and the restore time; the p_o/p_i allocator's choice
-   from the measured SYNC and ASYNC save costs.
+   from the measured SYNC and ASYNC save costs. Then HYBRID, SYNC and
+   ASYNC eagerly (``cuda_graph=False``), 3 steps and one save each: the
+   losses the graphed runs', the step time beside theirs, and the
+   loop-blocking of the step-0 save beside that of theirs.
 11. insitu — the legacy in-situ engine path, the checkpoint write layouts
    and the examples. (a) ``run_pipeline`` drives a ``PipelineRuntime``
    whose HYBRID task's device stage is ``ops.spectral_compress`` over an
@@ -211,10 +214,11 @@ Phases (any failure exits non-zero; none is swallowed):
    ``serve_loop("moonshot-v1-16b-a3b", smoke=False)``: 48 layers at the
    published widths (28.3 G parameters, 56.6 GB in bf16, drawn on the
    card's generator from seed 0) on the serve traffic (16 requests x 32
-   new tokens, page 16, a 17-page pool), without and with the default
-   async ``serve_snapshot`` plan, each eager and graphed: the four runs
-   decode the same streams, every request is served and the pool empty
-   at exit, the graphed run's chain (persisted under ``build/``, beside
+   new tokens, page 16, a 17-page pool), eager and graphed with no
+   in-situ task and graphed with the default async ``serve_snapshot``
+   plan (the eager run with snapshots was cut for the time limit): the
+   three runs decode the same streams, every request is served and the
+   pool empty at exit, the graphed run's chain (persisted under ``build/``, beside
    a probe of what was emitted) restores bit-identically, and that run
    launches the kernel 48 times a replayed decode step. Then a graphed and an eager engine step 8 times
    from one state (logits the same bits) while the graphed one publishes
@@ -228,7 +232,7 @@ Phases (any failure exits non-zero; none is swallowed):
    plain version's own bf16 rounding moves logits by up to 0.25, so no
    logit bound is gated); and the graphed decode step profiled, the
    eager one's host wall beside it. Printed: tok/s of the
-   four runs, peak memory, the weights' draw seconds, the decode step's
+   three runs, peak memory, the weights' draw seconds, the decode step's
    host wall, device busy time and idle share. The phase must take at
    most 150 s.
 13. hybrid — the hybrid family (``hymba-1.5b``: parallel attention and
@@ -248,8 +252,9 @@ Phases (any failure exits non-zero; none is swallowed):
    lockstep with no prefill. (c) ``serve_loop("hymba-1.5b",
    smoke=False)``: 32 layers at the published widths (1.66 G parameters,
    3.33 GB in bf16, drawn on the card's generator from seed 0) on the
-   serve traffic, without and with the default async ``serve_snapshot``
-   plan, each eager and graphed: the four runs decode the same streams,
+   serve traffic, eager and graphed bare and graphed with the default
+   async ``serve_snapshot`` plan (the eager run with snapshots cut, as in
+   12): the three runs decode the same streams,
    every request served and the pool empty, the graphed run's chain
    restores bit-identically, and that run launches the kernel 3 times (the
    global layers) a replayed decode step. Printed: the bytes a firing
@@ -263,6 +268,39 @@ Phases (any failure exits non-zero; none is swallowed):
    kernel against the plain attention at the global layers of one step,
    and the rest of the run at 3 launches a step. The phase must take at
    most 150 s.
+14. xlstm — the xLSTM family (``xlstm-1.3b``: 6 super-blocks of 7 mLSTM
+   layers and one sLSTM layer; no attention, no page pool, and 5.65 GB of
+   per-row recurrent state at 8 rows, all of it rewritten every step, in
+   place). No kernel lies on its path: every kernel's launch count is set
+   to 0 at the start of the phase and must read 0 at its end. (a) The
+   smoke config in f32 and a variant with 8 blocks and one sLSTM per 4
+   (three mLSTM layers a super-block), 32-token prompts and 32 new
+   tokens: the dense 4-slot engine and a 4-row paged engine token for
+   token; a graphed and an eager 8-row paged engine from one state decode
+   the same tokens, the graphed one publishing a SYNC chain of state
+   leaves only; a replica restored from it at step 12 into a captured
+   engine decodes in lockstep with no prefill. (b)
+   ``serve_loop("xlstm-1.3b", smoke=False)``: 48 blocks at the published
+   widths (3.61 G parameters, 7.21 GB in bf16, drawn on the card's
+   generator from seed 0) on the serve traffic, eager and graphed bare and
+   graphed with an async ``serve_snapshot`` plan sized for its payload
+   (one worker, a staging ring of one, frames stored raw, every frame a
+   base, one chain kept under ``build/``; the default plan holds up to
+   six 5.65 GB firings in flight and a chain in memory, and is measured
+   by ``tools/torch_xlstm_serve_plan.py``): the three runs decode the
+   same streams, every request served and every reserved page back; the chain restores
+   bit-identically to the sha256 digests (per 256 MiB) of every leaf of
+   the firing it ends at, taken as that firing was published. Printed:
+   tok/s, peak memory on the card, the host's ``MemAvailable`` and RSS,
+   firings published and dropped, the loop-blocking and drain seconds,
+   each firing's raw and stored bytes, the frames on disk, zlib's base and
+   delta of 64 MiB of ``c`` (bytes, seconds, and a whole firing's seconds
+   at that rate); the weights' draw seconds; the graphed decode step
+   profiled (busy ms, idle share, top ops) and the eager step's host wall.
+   (c) 2 requests of 1024-token prompts (8 mLSTM chunks of 128, 1024 sLSTM
+   steps a layer) prefilled once; an eager engine from that state decodes
+   the same tokens as the graphed one over 8 steps. The phase must take
+   at most 150 s.
 
 The last lines are the card line, one JSON object with every kernel's
 numbers, and ``{"ok": true, "device": {...}}``.
@@ -289,16 +327,23 @@ SERVE = dict(n_requests=16, max_new=32, num_pages=17, page_size=16, slots=4)
 EPS = 1e-2                          # the checkpoint's lossy_eps
 FLAT_EPS = (1e-3, 1e-2, 1e-1, 1.5)  # the flat/two-level threshold gate
 ROOFLINE_ITERS = 10                 # timed calls per kernel_report
-TRAIN = dict(steps=20, ckpt_every=5, resume_steps=5)
-PLACEMENTS = dict(steps=10, ckpt_every=5)     # the SYNC/ASYNC runs
+# the train phases' runs, cut from 20 and 10 steps for the time limit
+# (PERF.md section 4): still 3 HYBRID saves (0, 5, 10) and 2 SYNC/ASYNC
+# saves (0, 5)
+TRAIN = dict(steps=11, ckpt_every=5, resume_steps=5)
+PLACEMENTS = dict(steps=6, ckpt_every=5)      # the SYNC/ASYNC runs
 # the train phases' eager comparison runs, cut from 5 and 10 steps for the
 # time limit (PERF.md §4): bare steps, and the placements' eager reruns
-# (a checkpoint every ckpt_every, still 2 saves)
-EAGER = dict(bare_steps=3, placement_steps=6)
+# (a checkpoint every ckpt_every: one save, at step 0)
+EAGER = dict(bare_steps=3, placement_steps=3)
 INSITU = dict(steps=3, shard_count=4)          # the insitu phase
 INSITU_BUDGET_S = 90.0
 MOE_BUDGET_S = 150.0
+# the full-width family phases' serve runs: (plan, graphed); the eager run
+# with snapshots was cut for the time limit (PERF.md section 4)
+SERVE_RUNS = (("bare", False), ("bare", True), ("plan", True))
 HYBRID_BUDGET_S = 150.0
+XLSTM_BUDGET_S = 150.0
 
 
 def log(msg: str) -> None:
@@ -2022,6 +2067,8 @@ def train_phase(ckpt_dir: Path) -> dict:
     result = {
         "ckpt_blocking_s": blocking,
         "ckpt_blocking_s_per_save": blocking / n_saves,
+        "ckpt_blocking_s_first_save": _ckpt_blocking_s(out["telemetry"],
+                                                       first_save=True),
         "losses_without_ckpt": bare["losses"], "losses": out["losses"],
         "resume_losses": res["losses"],
         "step_s_without_ckpt": without["step_s"],
@@ -2058,15 +2105,20 @@ def train_phase(ckpt_dir: Path) -> dict:
     return result
 
 
-def _ckpt_blocking_s(tm) -> float:
+def _ckpt_blocking_s(tm, first_save: bool = False) -> float:
     """Seconds the checkpoint task held the loop: its SYNC chain, its
     device stage (HYBRID), its hand-off dispatch and any blocking
-    hand-off."""
+    hand-off. ``first_save`` counts only the save at step 0 (the spans
+    before step 1's compute), which carries the one-time costs."""
+    end = math.inf
+    if first_save:
+        end = next(sp.t0 for sp in tm.spans("step/compute") if sp.step == 1)
     return sum(sp.dt for sp in tm.spans()
-               if sp.name in ("insitu-sync/checkpoint",
-                              "insitu-device/checkpoint")
-               or (sp.name in ("handoff/dispatch", "step/handoff")
-                   and sp.meta.get("task") == "checkpoint"))
+               if sp.t0 < end
+               and (sp.name in ("insitu-sync/checkpoint",
+                                "insitu-device/checkpoint")
+                    or (sp.name in ("handoff/dispatch", "step/handoff")
+                        and sp.meta.get("task") == "checkpoint")))
 
 
 def placements_phase(ckpt_root: Path, hybrid: dict) -> dict:
@@ -2151,6 +2203,8 @@ def placements_phase(ckpt_root: Path, hybrid: dict) -> dict:
             "loop": loop,
             "ckpt_blocking_s": blocking,
             "ckpt_blocking_s_per_save": blocking / n_saves,
+            "ckpt_blocking_s_first_save": _ckpt_blocking_s(
+                tm, first_save=True),
             "ckpt_worker_s": worker_s,
             "probe_sync_s": tm.total("insitu-sync/probe"),
             "saves": ck["saves"], "raw_bytes": ck["raw_bytes"],
@@ -2204,15 +2258,17 @@ def placements_phase(ckpt_root: Path, hybrid: dict) -> dict:
     log(f"allocator (p_total {p_total}): {out['allocator']}")
 
     # the same placements stepping eagerly, EAGER["placement_steps"] steps
-    # with a checkpoint every 5 (the same two saves): what the graph
-    # changed in each, within this run; the losses are the graphed runs'
-    # (bitwise where two eager runs are, else within their spread)
+    # with a checkpoint every 5 (the first of the graphed runs' saves):
+    # what the graph changed in each, within this run, the loop-blocking
+    # of the step-0 save on both sides (the eager runs make no other); the
+    # losses are the graphed runs' (bitwise where two eager runs are, else
+    # within their spread)
     spread = hybrid["bare_steps"]
     graphed = {"hybrid": hybrid["losses"], "sync": sync["losses"],
                "async": asyn["losses"]}
     out["eager"] = {}
     steps = EAGER["placement_steps"]
-    assert (steps - 1) // every + 1 == n_saves
+    eager_saves = (steps - 1) // every + 1
     for mode in ("hybrid", "sync", "async"):
         ckpt_dir = ckpt_root / f"eager_{mode}"
         if ckpt_dir.exists():
@@ -2226,7 +2282,7 @@ def placements_phase(ckpt_root: Path, hybrid: dict) -> dict:
         wall = time.perf_counter() - t0
         rep = run["session_report"]
         assert rep["n_errors"] == 0, rep["errors"]
-        assert rep["checkpoint"]["saves"] == n_saves, rep["checkpoint"]
+        assert rep["checkpoint"]["saves"] == eager_saves, rep["checkpoint"]
         want = graphed[mode][:steps]
         off = max(abs(a - b) for a, b in zip(run["losses"], want))
         if spread["eager_bitwise"]:
@@ -2239,17 +2295,22 @@ def placements_phase(ckpt_root: Path, hybrid: dict) -> dict:
         out["eager"][mode] = {
             "losses": run["losses"], "wall_s": wall,
             "step_median_s": loop["step_median_s"], "loop": loop,
-            "ckpt_blocking_s_per_save": blocking / n_saves,
+            "ckpt_blocking_s_per_save": blocking / eager_saves,
+            "ckpt_blocking_s_first_save": _ckpt_blocking_s(
+                tm, first_save=True),
             "ckpt_worker_s": tm.total("insitu-async/checkpoint"),
             "graph_loss_max_abs_diff": off}
     eager = out["eager"]
     log(f"train placements, eager (ckpt every {every} of {steps} steps): "
         f"median step s hybrid {eager['hybrid']['step_median_s']:.4f} / "
         f"sync {eager['sync']['step_median_s']:.4f} / async "
-        f"{eager['async']['step_median_s']:.4f}; loop-blocking s per save "
-        f"hybrid {eager['hybrid']['ckpt_blocking_s_per_save']:.4f} / sync "
-        f"{eager['sync']['ckpt_blocking_s_per_save']:.4f} / async "
-        f"{eager['async']['ckpt_blocking_s_per_save']:.4f}; worker s async "
+        f"{eager['async']['step_median_s']:.4f}; loop-blocking s of the "
+        f"step-0 save, eager / graph: "
+        + " / ".join(f"{m} {eager[m]['ckpt_blocking_s_first_save']:.4f} / "
+                     f"{g['ckpt_blocking_s_first_save']:.4f}"
+                     for m, g in (("hybrid", hybrid), ("sync", sync),
+                                  ("async", asyn)))
+        + f"; worker s async "
         f"{eager['async']['ckpt_worker_s']:.3f}; losses equal to the "
         f"graphed runs' (max |dloss| "
         f"{max(e['graph_loss_max_abs_diff'] for e in eager.values())})")
@@ -2758,7 +2819,8 @@ def _moe_engines(cfg, params, chain: Path) -> dict:
 
 def _moe_serve(build: Path) -> dict:
     """(a): full-width serving of moonshot-v1-16b-a3b on SERVE's traffic,
-    four runs, the chain restored, then the engine checks."""
+    three runs (:data:`SERVE_RUNS`), the chain restored, then the engine
+    checks."""
     import numpy as np
     import torch
     from repro_torch.configs import base as configs
@@ -2790,37 +2852,36 @@ def _moe_serve(build: Path) -> dict:
 
     runs, emitted, lines, peak = {}, {}, [], {}
     launches = decode_steps = None
-    for snap in (False, True):
-        for graph in (False, True):
-            key = ("plan" if snap else "bare", graph)
-            name = f"{'graph' if graph else 'eager'}_{key[0]}"
-            if snap and graph:      # the chain on disk, checked below
-                plan = snapshot_plan(chain, emitted)
-            elif snap:              # the default plan as a user runs it
-                plan = default_serve_plan()
-            else:
-                plan = {"streams": ["kv_pages"]}
-            torch.cuda.reset_peak_memory_stats()
-            PK.paged_decode_attention.launches = 0
-            runs[key] = serve_loop(
-                MOE_ARCH, smoke=False, device="cuda", seed=0, plan=plan,
-                cuda_graph=graph, log=lines.append, **SERVE)
-            torch.cuda.synchronize()
-            peak[name] = torch.cuda.max_memory_allocated() / 2**30
-            if key == ("plan", True):
-                launches = PK.paged_decode_attention.launches
-                decode_steps = len(runs[key]["telemetry"].spans(
-                    "step/compute"))
-            r = runs[key]
-            rep = r["session_report"]
-            log(f"moe: serve {name}: {r['tok_per_s']:.1f} tok/s, wall "
-                f"{_serve_wall_s(r):.2f} s = admissions "
-                f"{r['telemetry'].total('serve/admit'):.2f} + decode steps "
-                f"{rep['step_compute_s']:.2f} + hand-off dispatch "
-                f"{rep['handoff_dispatch_s']:.2f} + sync stall "
-                f"{rep['sync_stall_s']:.2f} + the rest; peak "
-                f"{peak[name]:.1f} GiB")
-            _free_cuda(empty=False)
+    # eager and graphed bare, graphed with snapshots (the eager run with
+    # snapshots was cut for the time limit: PERF.md section 4)
+    for key in SERVE_RUNS:
+        graph = key[1]
+        name = f"{'graph' if graph else 'eager'}_{key[0]}"
+        if key[0] == "plan":    # the chain on disk, checked below
+            plan = snapshot_plan(chain, emitted)
+        else:
+            plan = {"streams": ["kv_pages"]}
+        torch.cuda.reset_peak_memory_stats()
+        PK.paged_decode_attention.launches = 0
+        runs[key] = serve_loop(
+            MOE_ARCH, smoke=False, device="cuda", seed=0, plan=plan,
+            cuda_graph=graph, log=lines.append, **SERVE)
+        torch.cuda.synchronize()
+        peak[name] = torch.cuda.max_memory_allocated() / 2**30
+        if key == ("plan", True):
+            launches = PK.paged_decode_attention.launches
+            decode_steps = len(runs[key]["telemetry"].spans(
+                "step/compute"))
+        r = runs[key]
+        rep = r["session_report"]
+        log(f"moe: serve {name}: {r['tok_per_s']:.1f} tok/s, wall "
+            f"{_serve_wall_s(r):.2f} s = admissions "
+            f"{r['telemetry'].total('serve/admit'):.2f} + decode steps "
+            f"{rep['step_compute_s']:.2f} + hand-off dispatch "
+            f"{rep['handoff_dispatch_s']:.2f} + sync stall "
+            f"{rep['sync_stall_s']:.2f} + the rest; peak "
+            f"{peak[name]:.1f} GiB")
+        _free_cuda(empty=False)
     streams = {k: [r.out for r in run["requests"]] for k, run in runs.items()}
     for key, got in streams.items():
         assert got == streams["plan", True], (
@@ -2832,15 +2893,15 @@ def _moe_serve(build: Path) -> dict:
         assert all(0 <= t < cfg.vocab_size for t in r.out), r.rid
     pools = [m for m in (re.match(r"page pool: (\d+)/", ln) for ln in lines)
              if m]
-    assert len(pools) == 4 and all(int(m.group(1)) == 0 for m in pools), \
-        "page pool not empty at exit"
+    assert len(pools) == len(SERVE_RUNS) and all(
+        int(m.group(1)) == 0 for m in pools), "page pool not empty at exit"
     rep = out["session_report"]
     assert rep["n_errors"] == 0, rep["errors"]
     assert rep["tasks"]["kv_snapshot"]["publishes"] > 0, "no snapshot"
     assert launches == decode_steps * cfg.n_layers, (
         f"kernel launches {launches} != {decode_steps} decode steps x "
         f"{cfg.n_layers} layers")
-    log(f"moe: the four runs decode the same {SERVE['n_requests']} streams; "
+    log(f"moe: the three runs decode the same {SERVE['n_requests']} streams; "
         f"{launches} kernel launches = {decode_steps} replayed decode steps "
         f"x {cfg.n_layers} layers")
     step, leaves = S.SnapshotStore(str(chain)).restore("kv_pages")
@@ -3129,34 +3190,22 @@ def _hybrid_kernel() -> dict:
     return out
 
 
-def _hybrid_smoke(chain: Path) -> dict:
-    """(b): hymba at smoke size in f32, 40-token prompts past its 32-token
-    window and 32 new tokens (the ring wraps in prefill and again in
-    decode): the dense engine = the paged engine token for token; a
-    graphed and an eager paged engine from one state decode the same
-    tokens; a SYNC chain of the graphed one restored into a captured
-    replica decodes in lockstep with it."""
-    import numpy as np
+def _smoke_in_lockstep(tag: str, cfg, params, prompts, geo: dict,
+                       chain: Path, check_leaves) -> dict:
+    """A recurrent family at smoke size on SERVE's traffic (``prompts``,
+    ``geo`` the engines' prompt_len and max_len): the dense 4-slot engine
+    = a 4-row paged engine token for token; a graphed and an eager 8-row
+    paged engine from one state decode the same tokens, the graphed one
+    publishing a SYNC chain under ``chain`` (``check_leaves`` gets its
+    restored leaves); a replica restored from it into a captured engine
+    decodes in lockstep, with no prefill."""
     import torch
-    from repro_torch.configs import base as configs
     from repro_torch.core.session import InSituPlan, Session
-    from repro_torch.models import params as P
-    from repro_torch.models import transformer
     from repro_torch.serving import snapshot as S
     from repro_torch.serving.engine import Request, ServingEngine
     from repro_torch.serving.pages import PagedServingEngine
 
-    cfg = dataclasses.replace(configs.get(HYBRID_ARCH, smoke=True),
-                              dtype="float32")
-    assert cfg.swa_window == 32
-    params = P.cast_tree(P.materialize(torch.Generator().manual_seed(0),
-                                       transformer.param_spec(cfg), "cuda"),
-                         torch.float32)
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab_size, 40)
-               for _ in range(SERVE["n_requests"])]
-    geo = dict(prompt_len=40, max_len=80)
-    pages = -(-(40 + SERVE["max_new"]) // 16)
+    pages = -(-(geo["prompt_len"] + SERVE["max_new"]) // 16)
     streams = {}
     for kind in ("dense", "paged"):
         reqs = [Request(i, pr, max_new=SERVE["max_new"])
@@ -3174,7 +3223,7 @@ def _hybrid_smoke(chain: Path) -> dict:
         assert all(r.done and len(r.out) == r.max_new for r in reqs)
         streams[kind] = [r.out for r in reqs]
     assert streams["dense"] == streams["paged"], (
-        "hybrid: f32 dense and paged engines decoded different tokens")
+        f"{tag}: f32 dense and paged engines decoded different tokens")
     del eng
 
     if chain.exists():
@@ -3205,7 +3254,7 @@ def _hybrid_smoke(chain: Path) -> dict:
             session.emit("kv_pages", step + 1, eng.snapshot_payload)
     step, leaves = S.SnapshotStore(str(chain)).restore("kv_pages")
     assert step == 12, step
-    assert any(k.startswith("['state']['ssm_swa']") for k in leaves)
+    check_leaves(leaves)
     replica = PagedServingEngine.from_snapshot(cfg, params, leaves,
                                                device="cuda")
     assert replica._graph is not None
@@ -3218,20 +3267,51 @@ def _hybrid_smoke(chain: Path) -> dict:
     want = [r.out for r in reqs[True]]
     assert all(r.done for r in reqs[True] + reqs[False] + live)
     assert [r.out for r in reqs[False]] == want, (
-        "hybrid: graphed and eager paged engines decoded different tokens")
-    assert [r.out for r in live] == want, "hybrid: the replica left lockstep"
+        f"{tag}: graphed and eager paged engines decoded different tokens")
+    assert [r.out for r in live] == want, f"{tag}: the replica left lockstep"
     assert replica.prefill_tokens == pre, "replica prefilled"
-    log(f"hybrid smoke (f32, window 32, 40-token prompts + 32 new): dense "
-        f"and paged engines decode {sum(map(len, streams['dense']))} tokens "
-        f"token for token; graphed = eager over {SERVE['max_new'] - 1} "
-        f"decode steps of 8 rows (logits bitwise: {bitwise}); a SYNC chain "
-        f"restored at step {step} into a captured replica decodes the 8 "
-        f"requests in lockstep, no prefill")
-    del engines, eng, eng_eager, replica, params
+    del engines, eng, eng_eager, replica, leaves
     _free_cuda()
+    shutil.rmtree(chain, ignore_errors=True)
     return {"tokens": sum(map(len, streams["dense"])),
             "graph_eager_logits_bitwise": bitwise, "restored_step": step}
 
+
+def _hybrid_smoke(chain: Path) -> dict:
+    """(b): hymba at smoke size in f32, 40-token prompts past its 32-token
+    window and 32 new tokens (the ring wraps in prefill and again in
+    decode), through :func:`_smoke_in_lockstep`."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import base as configs
+    from repro_torch.models import params as P
+    from repro_torch.models import transformer
+
+    cfg = dataclasses.replace(configs.get(HYBRID_ARCH, smoke=True),
+                              dtype="float32")
+    assert cfg.swa_window == 32
+    params = P.cast_tree(P.materialize(torch.Generator().manual_seed(0),
+                                       transformer.param_spec(cfg), "cuda"),
+                         torch.float32)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, 40)
+               for _ in range(SERVE["n_requests"])]
+
+    def check_leaves(leaves):
+        assert any(k.startswith("['state']['ssm_swa']") for k in leaves)
+
+    out = _smoke_in_lockstep("hybrid", cfg, params, prompts,
+                             dict(prompt_len=40, max_len=80), chain,
+                             check_leaves)
+    log(f"hybrid smoke (f32, window 32, 40-token prompts + 32 new): dense "
+        f"and paged engines decode {out['tokens']} tokens token for token; "
+        f"graphed = eager over {SERVE['max_new'] - 1} decode steps of 8 "
+        f"rows (logits bitwise: {out['graph_eager_logits_bitwise']}); a "
+        f"SYNC chain restored at step {out['restored_step']} into a "
+        f"captured replica decodes the 8 requests in lockstep, no prefill")
+    del params
+    _free_cuda()
+    return out
 
 
 def _published_bytes(emitted: dict, hints: dict) -> dict:
@@ -3265,8 +3345,9 @@ def _published_bytes(emitted: dict, hints: dict) -> dict:
 
 
 def _hybrid_serve(build: Path) -> dict:
-    """(c): full-width serving of hymba-1.5b on SERVE's traffic, four
-    runs, the chain restored; then the engine checks and the long run."""
+    """(c): full-width serving of hymba-1.5b on SERVE's traffic, three
+    runs (:data:`SERVE_RUNS`), the chain restored; then the engine checks
+    and the long run."""
     import numpy as np
     import torch
     from repro_torch.configs import base as configs
@@ -3299,37 +3380,36 @@ def _hybrid_serve(build: Path) -> dict:
 
     runs, emitted, lines, peak = {}, {}, [], {}
     launches = decode_steps = None
-    for snap in (False, True):
-        for graph in (False, True):
-            key = ("plan" if snap else "bare", graph)
-            name = f"{'graph' if graph else 'eager'}_{key[0]}"
-            if snap and graph:      # the chain on disk, checked below
-                plan = snapshot_plan(chain, emitted)
-            elif snap:              # the default plan as a user runs it
-                plan = default_serve_plan()
-            else:
-                plan = {"streams": ["kv_pages"]}
-            torch.cuda.reset_peak_memory_stats()
-            PK.paged_decode_attention.launches = 0
-            runs[key] = serve_loop(
-                HYBRID_ARCH, smoke=False, device="cuda", seed=0, plan=plan,
-                cuda_graph=graph, log=lines.append, **SERVE)
-            torch.cuda.synchronize()
-            peak[name] = torch.cuda.max_memory_allocated() / 2**30
-            if key == ("plan", True):
-                launches = PK.paged_decode_attention.launches
-                decode_steps = len(runs[key]["telemetry"].spans(
-                    "step/compute"))
-            r = runs[key]
-            rep = r["session_report"]
-            log(f"hybrid: serve {name}: {r['tok_per_s']:.1f} tok/s, wall "
-                f"{_serve_wall_s(r):.2f} s = admissions "
-                f"{r['telemetry'].total('serve/admit'):.2f} + decode steps "
-                f"{rep['step_compute_s']:.2f} + hand-off dispatch "
-                f"{rep['handoff_dispatch_s']:.2f} + sync stall "
-                f"{rep['sync_stall_s']:.2f} + the rest; peak "
-                f"{peak[name]:.2f} GiB")
-            _free_cuda(empty=False)
+    # eager and graphed bare, graphed with snapshots (the eager run with
+    # snapshots was cut for the time limit: PERF.md section 4)
+    for key in SERVE_RUNS:
+        graph = key[1]
+        name = f"{'graph' if graph else 'eager'}_{key[0]}"
+        if key[0] == "plan":    # the chain on disk, checked below
+            plan = snapshot_plan(chain, emitted)
+        else:
+            plan = {"streams": ["kv_pages"]}
+        torch.cuda.reset_peak_memory_stats()
+        PK.paged_decode_attention.launches = 0
+        runs[key] = serve_loop(
+            HYBRID_ARCH, smoke=False, device="cuda", seed=0, plan=plan,
+            cuda_graph=graph, log=lines.append, **SERVE)
+        torch.cuda.synchronize()
+        peak[name] = torch.cuda.max_memory_allocated() / 2**30
+        if key == ("plan", True):
+            launches = PK.paged_decode_attention.launches
+            decode_steps = len(runs[key]["telemetry"].spans(
+                "step/compute"))
+        r = runs[key]
+        rep = r["session_report"]
+        log(f"hybrid: serve {name}: {r['tok_per_s']:.1f} tok/s, wall "
+            f"{_serve_wall_s(r):.2f} s = admissions "
+            f"{r['telemetry'].total('serve/admit'):.2f} + decode steps "
+            f"{rep['step_compute_s']:.2f} + hand-off dispatch "
+            f"{rep['handoff_dispatch_s']:.2f} + sync stall "
+            f"{rep['sync_stall_s']:.2f} + the rest; peak "
+            f"{peak[name]:.2f} GiB")
+        _free_cuda(empty=False)
     streams = {k: [r.out for r in run["requests"]] for k, run in runs.items()}
     for key, got in streams.items():
         assert got == streams["plan", True], (
@@ -3341,15 +3421,15 @@ def _hybrid_serve(build: Path) -> dict:
         assert all(0 <= t < cfg.vocab_size for t in r.out), r.rid
     pools = [m for m in (re.match(r"page pool: (\d+)/", ln) for ln in lines)
              if m]
-    assert len(pools) == 4 and all(int(m.group(1)) == 0 for m in pools), \
-        "page pool not empty at exit"
+    assert len(pools) == len(SERVE_RUNS) and all(
+        int(m.group(1)) == 0 for m in pools), "page pool not empty at exit"
     rep = out["session_report"]
     assert rep["n_errors"] == 0, rep["errors"]
     assert rep["tasks"]["kv_snapshot"]["publishes"] > 0, "no snapshot"
     assert launches == decode_steps * n_global, (
         f"kernel launches {launches} != {decode_steps} decode steps x "
         f"{n_global} global layers")
-    log(f"hybrid: the four runs decode the same {SERVE['n_requests']} "
+    log(f"hybrid: the three runs decode the same {SERVE['n_requests']} "
         f"streams; {launches} kernel launches = {decode_steps} replayed "
         f"decode steps x {n_global} global layers")
     step, leaves = S.SnapshotStore(str(chain)).restore("kv_pages")
@@ -3552,6 +3632,475 @@ def hybrid_phase(build: Path) -> dict:
                        "serve": serve_s}}
 
 
+# ---------------------------------------------------------------------------
+# xlstm phase
+# ---------------------------------------------------------------------------
+
+XLSTM_ARCH = "xlstm-1.3b"
+# the long prefill: 8 mLSTM chunks of 128 and 1024 sLSTM steps a request
+XLSTM_LONG = dict(n_requests=2, prompt=1024, max_new=32, steps=8)
+XLSTM_C_KEY = "['state']['mlstm']['c']"
+DIGEST_PIECE = 256 << 20          # bytes a sha256 covers in a leaf's digest
+ZLIB_PROBE = 64 << 20             # bytes of c the zlib rate is measured on
+
+
+def _all_launches() -> dict:
+    """Every kernel wrapper's launch count, by name."""
+    from repro_torch.kernels import paged_attention as PK
+    from repro_torch.kernels import spectral_lossy as K
+
+    out = {k.__name__: k.launches for k in K.KERNELS}
+    out["paged_decode_attention"] = PK.paged_decode_attention.launches
+    return out
+
+
+def _reset_all_launches() -> None:
+    from repro_torch.kernels import paged_attention as PK
+    from repro_torch.kernels import spectral_lossy as K
+
+    K.reset_launches()
+    PK.paged_decode_attention.launches = 0
+
+
+def _mem_available_gib() -> float:
+    with open("/proc/meminfo") as f:
+        for ln in f:
+            if ln.startswith("MemAvailable:"):
+                return int(ln.split()[1]) / 2**20
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def _rss_gib() -> dict:
+    """This process's resident set now and at its peak."""
+    import resource
+
+    now = None
+    with open("/proc/self/status") as f:
+        for ln in f:
+            if ln.startswith("VmRSS:"):
+                now = int(ln.split()[1]) / 2**20
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    return {"rss_gib": now, "peak_rss_gib": peak}
+
+
+def _leaf_digest(arr, pool) -> list:
+    """sha256 of each DIGEST_PIECE-byte piece of a leaf's bytes, hashed on
+    ``pool``'s threads (hashlib releases the GIL on large buffers)."""
+    import hashlib
+
+    import numpy as np
+
+    raw = np.ascontiguousarray(arr).reshape(-1).view(np.uint8)
+    pieces = [raw[i:i + DIGEST_PIECE] for i in range(0, raw.size,
+                                                     DIGEST_PIECE)]
+    return list(pool.map(lambda p: hashlib.sha256(p).hexdigest(), pieces))
+
+
+def _xlstm_cfgs(smoke_cfg) -> dict:
+    """The smoke config and its 8-block variant with one sLSTM per 4
+    (three mLSTM layers a super-block), both in f32."""
+    per3 = dataclasses.replace(
+        smoke_cfg, n_layers=8,
+        xlstm=dataclasses.replace(smoke_cfg.xlstm, slstm_every=4))
+    return {name: dataclasses.replace(c, dtype="float32")
+            for name, c in (("smoke", smoke_cfg), ("per3", per3))}
+
+
+def _xlstm_smoke(chain: Path) -> dict:
+    """(a): the smoke config and its 8-block variant in f32, 32-token
+    prompts (two mLSTM chunks of 16) and 32 new tokens, through
+    :func:`_smoke_in_lockstep`; the chain holds state leaves only."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import base as configs
+    from repro_torch.models import params as P
+    from repro_torch.models import transformer
+
+    out = {}
+    for name, cfg in _xlstm_cfgs(configs.get(XLSTM_ARCH, smoke=True)).items():
+        params = P.cast_tree(P.materialize(
+            torch.Generator().manual_seed(0), transformer.param_spec(cfg),
+            "cuda"), torch.float32)
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, cfg.vocab_size, 32)
+                   for _ in range(SERVE["n_requests"])]
+
+        def check_leaves(leaves, cfg=cfg):
+            assert not any(k.startswith("['pool']") for k in leaves)
+            assert leaves[XLSTM_C_KEY].shape[:3] == (
+                cfg.n_layers // cfg.xlstm.slstm_every,
+                cfg.xlstm.slstm_every - 1, 8)
+
+        out[name] = _smoke_in_lockstep(
+            f"xlstm {name}", cfg, params, prompts,
+            dict(prompt_len=32, max_len=64), chain / name, check_leaves)
+        log(f"xlstm smoke {name} ({cfg.n_layers} blocks, "
+            f"{cfg.xlstm.slstm_every - 1} mLSTM a super-block, f32, "
+            f"32-token prompts + 32 new): dense and paged engines decode "
+            f"{out[name]['tokens']} tokens token for token; graphed = eager "
+            f"over {SERVE['max_new'] - 1} decode steps of 8 rows (logits "
+            f"bitwise: {out[name]['graph_eager_logits_bitwise']}); a SYNC "
+            f"chain of state leaves only, restored at step "
+            f"{out[name]['restored_step']} into a captured replica, decodes "
+            f"the 8 requests in lockstep, no prefill")
+        del params
+        _free_cuda()
+    return out
+
+
+def _xlstm_snapshot_plan(chain: Path) -> dict:
+    """``default_serve_plan``'s async plan changed for a 5.65 GB payload
+    (the default bounds no host memory): its chain on disk, one chain
+    kept, one worker and a staging ring of one, so at most two firings
+    are in flight (each holds a pinned host copy of the whole state) and
+    the rest drop; frames stored raw (``codec="none"``), as zlib at the host's rate would take
+    a minute a firing (measured on a slice: ``zlib_probe``); and every
+    frame a base (``base_every=1``): the state changes everywhere each
+    step, so a delta frame is all SELF chunks, as large as a base, and
+    would only make a restore read two frames."""
+    from repro_torch.launch.serve import default_serve_plan
+
+    if chain.exists():
+        shutil.rmtree(chain)
+    plan = default_serve_plan(snapshot_dir=str(chain), codec="none",
+                              base_every=1, p_i=1)
+    plan["staging_capacity"] = 1
+    plan["tasks"]["kv_snapshot"]["options"]["keep_chains"] = 1
+    return plan
+
+
+def _zlib_probe(published: dict) -> dict:
+    """zlib (the default plan's codec) on ZLIB_PROBE bytes of ``c`` from
+    the last two published firings: base and delta frame sizes and
+    seconds on the codec pool, and the seconds a whole firing's ``c``
+    would take at that rate."""
+    from repro_torch.core import codecs, delta
+
+    steps = sorted(published)
+    new = published[steps[-1]]["c_probe"]
+    old = published[steps[-2]]["c_probe"] if len(steps) > 1 else None
+    pool = codecs.codec_pool()
+    t0 = time.perf_counter()
+    base, _ = delta.encode(new, None, codec="zlib", pool=pool)
+    base_s = time.perf_counter() - t0
+    out = {"probe_bytes": new.nbytes, "base_bytes": len(base),
+           "base_s": base_s,
+           "c_base_firing_s_at_this_rate":
+               base_s * published[steps[-1]]["c_bytes"] / new.nbytes}
+    if old is not None:
+        t0 = time.perf_counter()
+        dlt, st = delta.encode(new, old, codec="zlib", pool=pool)
+        delta_s = time.perf_counter() - t0
+        out.update({"delta_bytes": len(dlt), "delta_s": delta_s,
+                    "delta_chunks": {"copy": st.n_copy, "xor": st.n_xor,
+                                     "self": st.n_self},
+                    "c_delta_firing_s_at_this_rate":
+                        delta_s * published[steps[-1]]["c_bytes"]
+                        / new.nbytes})
+    return out
+
+
+def _xlstm_serve(build: Path) -> dict:
+    """(b): full-width serving of xlstm-1.3b on SERVE's traffic, three
+    runs (:data:`SERVE_RUNS`), the chain checked against the digests of
+    the published firings; then the decode step profiled."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import base as configs
+    from repro_torch.launch.serve import serve_loop
+    from repro_torch.serving import snapshot as S
+
+    cfg = configs.get(XLSTM_ARCH)
+    chain = build / "smoke_xlstm_chain"
+    published: dict = {}
+    hasher = ThreadPoolExecutor(max_workers=8, thread_name_prefix="digest")
+    publish = S.SnapshotStore.publish
+
+    def recording_publish(store, stream, step, tree, **kw):
+        t0 = time.perf_counter()
+        rec = publish(store, stream, step, tree, **kw)
+        publish_s = time.perf_counter() - t0
+        if rec.kind in ("base", "delta"):
+            leaves = store._streams[stream].last_leaves
+            c = leaves[XLSTM_C_KEY]
+            published[step] = {
+                "kind": rec.kind, "raw_bytes": rec.raw_bytes,
+                "stored_bytes": rec.stored_bytes, "publish_s": publish_s,
+                "digests": {k: _leaf_digest(a, hasher)
+                            for k, a in leaves.items()},
+                "c_bytes": c.nbytes,
+                "c_probe": c.reshape(-1)[:ZLIB_PROBE // 4].copy()}
+        return rec
+
+    runs, lines, peak, mem, tail = {}, [], {}, {}, {}
+    launches_before = _all_launches()
+    t_runs = time.perf_counter()
+    for key in SERVE_RUNS:
+        graph = key[1]
+        name = f"{'graph' if graph else 'eager'}_{key[0]}"
+        plan = (_xlstm_snapshot_plan(chain) if key[0] == "plan"
+                else {"streams": ["kv_pages"]})
+        mem[name] = {"mem_available_gib_before": _mem_available_gib()}
+        torch.cuda.reset_peak_memory_stats()
+        S.SnapshotStore.publish = recording_publish
+        try:
+            runs[key] = serve_loop(
+                XLSTM_ARCH, smoke=False, device="cuda", seed=0, plan=plan,
+                cuda_graph=graph, log=lines.append, **SERVE)
+        finally:
+            S.SnapshotStore.publish = publish
+        torch.cuda.synchronize()
+        peak[name] = torch.cuda.max_memory_allocated() / 2**30
+        mem[name].update(_rss_gib())
+        mem[name]["mem_available_gib_after"] = _mem_available_gib()
+        r = runs[key]
+        rep = r["session_report"]
+        parts = (r["telemetry"].total("serve/admit"), rep["step_compute_s"],
+                 rep["handoff_dispatch_s"], rep["sync_stall_s"])
+        tail[name] = _serve_wall_s(r) - sum(parts)
+        log(f"xlstm: serve {name}: {r['tok_per_s']:.1f} tok/s, wall "
+            f"{_serve_wall_s(r):.2f} s = admissions {parts[0]:.2f} + decode "
+            f"steps {parts[1]:.2f} + hand-off dispatch {parts[2]:.2f} + "
+            f"sync stall {parts[3]:.2f} + the rest {tail[name]:.2f} (with "
+            f"snapshots: the session's end waiting for the firings in "
+            f"flight); peak {peak[name]:.2f} GiB on the card; host "
+            f"{mem[name]}")
+        _free_cuda(empty=False)
+    hasher.shutdown()
+    launches = {k: v - launches_before[k] for k, v in _all_launches().items()}
+    streams = {k: [r.out for r in run["requests"]] for k, run in runs.items()}
+    for key, got in streams.items():
+        assert got == streams["plan", True], (
+            f"xlstm serve run {key} decoded other tokens than the graphed run "
+            f"with snapshots")
+    out = runs["plan", True]
+    for r in out["requests"]:
+        assert r.done and len(r.out) == r.max_new, r.rid
+        assert all(0 <= t < cfg.vocab_size for t in r.out), r.rid
+    pools = [m for m in (re.match(r"page pool: (\d+)/", ln) for ln in lines)
+             if m]
+    assert len(pools) == len(SERVE_RUNS) and all(
+        int(m.group(1)) == 0 for m in pools), "reserved pages not returned"
+    rep = out["session_report"]
+    snap = rep["tasks"]["kv_snapshot"]
+    assert rep["n_errors"] == 0, rep["errors"]
+    assert snap["publishes"] > 0 and published, "no snapshot published"
+    decode_steps = len(out["telemetry"].spans("step/compute"))
+    eager = runs["bare", False]
+    eager_step_ms = (eager["session_report"]["step_compute_s"] * 1e3
+                     / len(eager["telemetry"].spans("step/compute")))
+    log(f"xlstm: the three runs decode the same {SERVE['n_requests']} "
+        f"streams; {decode_steps} decode steps in the graphed run with "
+        f"snapshots; kernel launches over the runs {launches}")
+
+    runs_s = time.perf_counter() - t_runs
+    frames = sorted((p.name, p.stat().st_size)
+                    for p in (chain / "kv_pages").iterdir())
+    t0 = time.perf_counter()
+    step, leaves = S.SnapshotStore(str(chain)).restore("kv_pages")
+    restore_s = time.perf_counter() - t0
+    assert step in published, (step, sorted(published))
+    want = published[step]["digests"]
+    assert list(leaves) == list(want), "restored leaf keys differ"
+    assert not any(k.startswith("['pool']") for k in leaves)
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        for key, arr in leaves.items():
+            if _leaf_digest(arr, pool) != want[key]:
+                raise AssertionError(f"{chain.name}: restored leaf {key} "
+                                     f"differs at step {step}")
+    restored = {"step": step, "restore_s": restore_s,
+                "bytes": sum(a.nbytes for a in leaves.values()),
+                "state_bytes": sum(a.nbytes for k, a in leaves.items()
+                                   if k.startswith("['state']")),
+                "c_bytes": leaves[XLSTM_C_KEY].nbytes}
+    del leaves
+    zlib_probe = _zlib_probe(published)
+    firings = {s: {k: v for k, v in p.items()
+                   if k not in ("digests", "c_probe")}
+               for s, p in sorted(published.items())}
+    published.clear()
+    shutil.rmtree(chain, ignore_errors=True)
+    log(f"xlstm: the graphed run's chain restores bit-identically (sha256 of "
+        f"every {DIGEST_PIECE >> 20} MiB of every leaf) to the firing "
+        f"published at step {step}: {restored}; published firings "
+        f"{firings}; frames on disk {frames}; zlib on {ZLIB_PROBE >> 20} MiB "
+        f"of c: {zlib_probe}")
+    tok_s = {f"{'graph' if g else 'eager'}_{k}": r["tok_per_s"]
+             for (k, g), r in runs.items()}
+    log(f"xlstm: tok/s {tok_s}")
+    return {"tok_per_s_by_run": tok_s, "peak_gib_by_run": peak,
+            "host_memory_by_run": mem,
+            "wall_s_by_run": {f"{'graph' if g else 'eager'}_{k}":
+                              _serve_wall_s(r) for (k, g), r in runs.items()},
+            "admit_s_by_run": {f"{'graph' if g else 'eager'}_{k}":
+                               r["telemetry"].total("serve/admit")
+                               for (k, g), r in runs.items()},
+            "step_compute_s_by_run": {
+                f"{'graph' if g else 'eager'}_{k}":
+                    r["session_report"]["step_compute_s"]
+                for (k, g), r in runs.items()},
+            "loop_blocking_s": rep["handoff_dispatch_s"]
+            + rep["sync_stall_s"],
+            "handoff_dispatch_s": rep["handoff_dispatch_s"],
+            "rest_s_by_run": tail,
+            "decode_steps": decode_steps, "launches": launches,
+            "eager_step_ms": eager_step_ms,
+            "snapshot": {k: snap[k] for k in (
+                "publishes", "bases", "deltas", "noops", "raw_bytes",
+                "stored_bytes", "codec", "keep_chains")},
+            "snapshot_drops": rep["drops"].get("kv_snapshot", 0),
+            "published_firings": firings, "frames": frames,
+            "restored": restored, "zlib_probe": zlib_probe,
+            "runs_s": runs_s}
+
+
+def _xlstm_engine(cfg, params, eager_step_ms: float) -> dict:
+    """A graphed full-width engine with 8 rows admitted: where a decode
+    step's time goes (the eager step's host wall is the eager serve
+    run's, ``eager_step_ms``: its step computes all 8 rows too)."""
+    import numpy as np
+    from repro_torch.core.pytree import leaves
+    from repro_torch.serving.engine import Request
+    from repro_torch.serving.pages import PagedServingEngine
+
+    eng = PagedServingEngine(cfg, params, num_pages=33, page_size=16,
+                             max_reqs=8, prompt_len=16, max_len=64,
+                             device="cuda")
+    rng = np.random.default_rng(5)
+    for i in range(8):
+        assert eng.admit(Request(i, rng.integers(0, cfg.vocab_size, 16),
+                                 max_new=40))
+    eng.step()
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in leaves(eng.state))
+    prof = device_profile(eng.step, 3)
+    prof["wall_ms_unprofiled"] = host_wall_ms(eng.step, 5)
+    prof["device_idle_share_unprofiled"] = (
+        1 - prof["device_busy_ms"] / prof["wall_ms_unprofiled"]
+        if prof["device_busy_ms"] else None)
+    prof["eager_wall_ms"] = eager_step_ms
+    log(f"xlstm: decode step (graph, 8 rows, full width, "
+        f"{state_bytes} bytes of state): {prof['wall_ms_unprofiled']:.3f} "
+        f"ms host wall (eager {eager_step_ms:.3f}, the eager serve run's "
+        f"mean), device busy {prof['device_busy_ms']} ms, idle share "
+        f"{prof['device_idle_share_unprofiled']}, "
+        f"{prof['host_aten_ops']:.0f} aten ops")
+    for op, ms in prof["top"][:6]:
+        log(f"xlstm:   {ms * 1e3:9.1f} us/step  {op[:90]}")
+    prof.pop("launches")
+    prof.pop("per_launch_ms")
+    del eng
+    _free_cuda()
+    return {"decode_profile": prof, "state_bytes": state_bytes}
+
+
+def _xlstm_long(cfg, params) -> dict:
+    """(c): 2 requests of 1024-token prompts (8 mLSTM chunks of 128, 1024
+    sLSTM steps a layer) prefilled once in a graphed engine; an eager
+    engine hydrated from that state; both decode the same tokens over 8
+    steps (logits bitwise)."""
+    import numpy as np
+    import torch
+    from repro_torch.serving import snapshot as S
+    from repro_torch.serving.engine import Request
+    from repro_torch.serving.pages import PagedServingEngine
+
+    L = XLSTM_LONG
+    max_len = -(-(L["prompt"] + L["max_new"]) // 16) * 16
+    geo = dict(num_pages=L["n_requests"] * (max_len // 16) + 1,
+               page_size=16, max_reqs=L["n_requests"],
+               prompt_len=L["prompt"], max_len=max_len)
+    rng = np.random.default_rng(7)
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size, L["prompt"]),
+                    max_new=L["max_new"]) for i in range(L["n_requests"])]
+    eng = PagedServingEngine(cfg, params, device="cuda", **geo)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in reqs:
+        assert eng.admit(r)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    eager = PagedServingEngine.from_snapshot(
+        cfg, params, S._flatten(eng.snapshot_payload()["cache"]),
+        device="cuda", cuda_graph=False)
+    assert eager.prefill_tokens == eng.prefill_tokens
+    bitwise = True
+    for _ in range(L["steps"]):
+        eng.step()
+        eager.step()
+        bitwise &= torch.equal(eng.logits, eager.logits)
+    got = [a.out for a in eager.active if a is not None]
+    assert got == [r.out for r in reqs], (
+        "xlstm long: graphed and eager engines decoded different tokens")
+    assert all(len(r.out) == L["steps"] + 1 for r in reqs)
+    log(f"xlstm long ({L['n_requests']} x {L['prompt']}-token prompts): "
+        f"prefill {prefill_s:.2f} s for both; an eager engine from that "
+        f"state = the graphed one over {L['steps']} steps (logits bitwise: "
+        f"{bitwise})")
+    del eng, eager
+    _free_cuda()
+    return {"prompt": L["prompt"], "n_requests": L["n_requests"],
+            "prefill_s": prefill_s, "steps": L["steps"],
+            "graph_eager_logits_bitwise": bitwise}
+
+
+def xlstm_phase(build: Path) -> dict:
+    """The xLSTM family on the card (see the module docstring, phase 14).
+    No kernel runs on its path: every count is set to 0 first and must
+    read 0 after."""
+    import torch
+    from repro_torch.configs import base as configs
+    from repro_torch.core.pytree import leaves as tree_leaves
+    from repro_torch.launch.serve import weight_generator
+    from repro_torch.models import params as P
+    from repro_torch.models import transformer
+
+    _free_cuda()
+    _reset_all_launches()
+    t0 = time.perf_counter()
+    smoke = _xlstm_smoke(build / "smoke_xlstm_replica")
+    smoke_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serve = _xlstm_serve(build)
+    serve_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cfg = configs.get(XLSTM_ARCH)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    params = P.materialize(weight_generator(cfg, 0, torch.device("cuda"),
+                                            False),
+                           transformer.param_spec(cfg), "cuda")
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t1
+    n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    log(f"xlstm: drew {n_bytes / 1e9:.2f} GB of weights ({cfg.n_params()} "
+        f"parameters) on the card's generator in {draw_s:.2f} s")
+    t1 = time.perf_counter()
+    engine = _xlstm_engine(cfg, params, serve["eager_step_ms"])
+    engine_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    long = _xlstm_long(cfg, params)
+    long_s = time.perf_counter() - t1
+    del params
+    _free_cuda()
+    checks_s = time.perf_counter() - t0
+    launches = _all_launches()
+    assert not any(launches.values()), (
+        f"xlstm: a kernel ran on the xLSTM path: {launches}")
+    log(f"xlstm phase parts: smoke {smoke_s:.1f} s, full-width serve "
+        f"{serve_s:.1f} s, the step profiled and the long prefill "
+        f"{checks_s:.1f} s ({engine_s:.1f} + {long_s:.1f}); kernel launches "
+        f"over the phase: {launches}")
+    return {"smoke": smoke, "serve": serve, "weight_draw_s": draw_s,
+            "weight_bytes": n_bytes, **engine, "long": long,
+            "launches": launches,
+            "part_s": {"smoke": smoke_s, "serve": serve_s,
+                       "checks": checks_s, "engine": engine_s,
+                       "long": long_s}}
+
+
 def main() -> int:
     import torch
 
@@ -3623,7 +4172,13 @@ def main() -> int:
     hybrid["phase_s"] = time.perf_counter() - t0
     log(f"hybrid phase: {hybrid['phase_s']:.1f}s")
     assert hybrid["phase_s"] <= HYBRID_BUDGET_S, hybrid["phase_s"]
-    log(f"all phases: {time.perf_counter() - t_phases:.1f}s")
+    t0 = time.perf_counter()
+    xlstm = xlstm_phase(ROOT / "build")
+    xlstm["phase_s"] = time.perf_counter() - t0
+    log(f"xlstm phase: {xlstm['phase_s']:.1f}s")
+    assert xlstm["phase_s"] <= XLSTM_BUDGET_S, xlstm["phase_s"]
+    all_s = time.perf_counter() - t_phases
+    log(f"all phases: {all_s:.1f}s")
 
     main_path = kern["serve"]
     record = {
@@ -3653,7 +4208,8 @@ def main() -> int:
             "stream_replica": stream["hydrate"]["launches"],
             "moe_serve": moe["serve"]["launches"],
             "hybrid_serve": hybrid["serve"]["launches"],
-            "hybrid_long": hybrid["serve"]["long"]["launches"]},
+            "hybrid_long": hybrid["serve"]["long"]["launches"],
+            "xlstm_serve": xlstm["launches"]["paged_decode_attention"]},
     }
     records = [record]
     tpu = "src/repro/kernels/spectral_lossy.py"
@@ -3756,8 +4312,13 @@ def main() -> int:
     log(json.dumps({"insitu": insitu}))
     log(json.dumps({"moe": moe}))
     log(json.dumps({"hybrid": hybrid}))
+    log(json.dumps({"xlstm": xlstm}))
     log(json.dumps({"roofline": {k: v for k, v in roof.items()
                                  if k != "reports"}}))
+    for rec in records[1:]:
+        rec["launches_by_path"] = {**rec.get("launches_by_path", {}),
+                                   "xlstm_serve": xlstm["launches"][
+                                       rec["name"]]}
     log(card)
     log(json.dumps({"kernels": records}))
     log(json.dumps({"ok": True, "device": {

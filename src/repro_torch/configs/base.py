@@ -3,9 +3,9 @@
 Each architecture the port runs gets one module in this package defining
 ``CONFIG`` (the exact published numbers) and ``smoke()`` (a reduced config
 of the same family for CPU tests). ``get(name)`` resolves either. The port
-carries the dense, MoE and hybrid families; the other families of the JAX
-package are listed so that asking for one names the ROADMAP item that
-brings it.
+carries the dense, MoE, hybrid and ssm (xLSTM) families; the other
+families of the JAX package are listed so that asking for one names the
+ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -54,9 +54,18 @@ class SSMConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class XLSTMConfig:
+    slstm_every: int = 8          # one sLSTM block per this many blocks
+    m_proj_factor: float = 2.0
+    s_proj_factor: float = 4.0 / 3.0
+    chunk: int = 128
+    conv_kernel: int = 4
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                   # dense | moe | hybrid (ported so far)
+    family: str                   # dense | moe | hybrid | ssm (ported)
     n_layers: int
     d_model: int
     n_heads: int
@@ -74,6 +83,7 @@ class ModelConfig:
     mla: Optional[MLAConfig] = None
     mtp_weight: float = 0.0       # deepseek multi-token-prediction loss weight
     ssm: Optional[SSMConfig] = None
+    xlstm: Optional[XLSTMConfig] = None
     # hybrid attention (hymba): sliding window on all but the global layers
     swa_window: int = 0           # 0 -> full attention everywhere
     n_global_layers: int = 0      # leading/middle/trailing full-attn layers
@@ -154,13 +164,13 @@ _MODULES = {
     "deepseek-v3-671b": "deepseek_v3_671b",
     "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
     "hymba-1.5b": "hymba_1_5b",
+    "xlstm-1.3b": "xlstm_1_3b",
 }
 
 # archs whose family the port does not carry yet -> that family
 _NOT_PORTED = {
     "musicgen-medium": "audio",
     "internvl2-26b": "vlm",
-    "xlstm-1.3b": "ssm",
 }
 
 

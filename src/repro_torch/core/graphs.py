@@ -41,9 +41,11 @@ class CapturedStep:
     passes its functional form there, so that warming up advances
     nothing a caller reads (a serving engine's warm-up, with every row
     idle, writes only the scratch page and idle rows' state, which an
-    admission overwrites whole). Launch counts of the warm-up are dropped and those of the
-    capture come back once per replay (``_build.held_launches``). ``out``
-    is what ``body`` returned at capture.
+    admission overwrites whole; a step with no pool and no kernel, the
+    xLSTM family's, writes idle rows' state alone). Launch counts of the
+    warm-up are dropped and those of the capture come back once per
+    replay (``_build.held_launches``). ``out`` is what ``body`` returned
+    at capture.
 
     The capture runs in ``thread_local`` mode: the worker threads of an
     in-situ session may issue CUDA work on their own streams meanwhile,

@@ -15,9 +15,11 @@ scale-out/failover mechanism:
     local replica store until the chain replays end to end, then rebuilds
     — mid-serve, without stopping the producer.
 
-Either way the result is ``PagedServingEngine.from_snapshot``: page pool,
-per-row state (the hybrid family's SWA rings and SSM state), page tables,
-allocator free list + refcounts, in-flight requests, and
+Either way the result is ``PagedServingEngine.from_snapshot``: page pool
+(empty for the ssm family, whose chain holds state leaves only), per-row
+state (the hybrid family's SWA rings and SSM state, the ssm family's
+mLSTM/sLSTM state), page tables, allocator free list + refcounts,
+in-flight requests, and
 registered prefixes all restored bit-identically, so the replica's next
 decoded token matches the producer's — no prefill at all. Cold-replica
 time-to-first-token is then the restore plus one decode step instead of

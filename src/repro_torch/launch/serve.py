@@ -73,10 +73,11 @@ def default_serve_plan(*, insitu_mode: str = "async",
 def weight_generator(cfg, seed: int, device: torch.device,
                      smoke: bool) -> torch.Generator:
     """The generator ``serve_loop`` draws its random weights from: the
-    card's for a full-width MoE or hybrid model on the card (GBs, drawn in
-    seconds there and in minutes on the host), the CPU's for every other
-    config (whose bits the port's other callers draw the same way)."""
-    on_card = (cfg.family in ("moe", "hybrid") and not smoke
+    card's for a full-width MoE, hybrid or ssm (xLSTM) model on the card
+    (GBs, drawn in seconds there and in minutes on the host), the CPU's
+    for every other config (whose bits the port's other callers draw the
+    same way)."""
+    on_card = (cfg.family in ("moe", "hybrid", "ssm") and not smoke
                and device.type == "cuda")
     return torch.Generator(device if on_card else "cpu").manual_seed(seed)
 
@@ -93,9 +94,9 @@ def serve_loop(arch: str, *, n_requests: int = 8, max_new: int = 8,
 
     ``prefix_len > 0`` gives every request a common ``prefix_len``-token
     system prompt, registered on the paged engine so matching admits map
-    the shared chain copy-on-write and prefill only their own suffix (a
-    family with per-row recurrent state, hybrid, refuses it, as in the
-    JAX package).
+    the shared chain copy-on-write and prefill only their own suffix (the
+    families with per-row recurrent state, hybrid and ssm, refuse it, as
+    in the JAX package).
     ``hydrate_from`` (a chain directory, ``tcp://host:port`` listen
     address, or ``SnapshotStore``) skips cold start entirely: the paged
     engine is rebuilt from the snapshot chain — pool, tables, allocator,

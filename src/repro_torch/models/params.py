@@ -71,21 +71,26 @@ def _draw(gen: torch.Generator, spec: ParamSpec, shape: tuple
 
 def _init_leaf(gen: torch.Generator, spec: ParamSpec,
                device: torch.device) -> torch.Tensor:
-    """The leaf on ``device``. A leaf stacked on a leading ``layers`` axis
-    is drawn one layer slice at a time into its place, so no f32
-    temporary is larger than one layer's slice (full-width MoE expert
-    stacks hold tens of GB). On a CPU generator the slices draw the same
-    bits as one draw of the whole leaf: its uniform draws are serial and
-    the rest of the initializer is elementwise."""
+    """The leaf on ``device``. A leaf stacked on leading ``layers`` axes
+    (one, or two for the xLSTM family's mLSTM stack) is drawn one layer
+    slice at a time into its place, so no f32 temporary is larger than one
+    layer's slice (full-width MoE expert stacks hold tens of GB). The
+    slices are drawn in row-major order from the one generator, so one
+    seed gives one leaf; their bits differ from those of one draw of the
+    whole leaf."""
     if spec.init == "zeros":
         return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=spec.dtype, device=device)
-    if len(spec.shape) < 2 or spec.axes[0] != "layers":
+    lead = 0
+    while lead < len(spec.shape) - 1 and spec.axes[lead] == "layers":
+        lead += 1
+    if lead == 0:
         return _draw(gen, spec, spec.shape).to(device)
     out = torch.empty(spec.shape, dtype=spec.dtype, device=device)
-    for i in range(spec.shape[0]):
-        out[i].copy_(_draw(gen, spec, spec.shape[1:]))
+    flat = out.view(-1, *spec.shape[lead:])
+    for i in range(flat.shape[0]):
+        flat[i].copy_(_draw(gen, spec, spec.shape[lead:]))
     return out
 
 

@@ -1,10 +1,13 @@
-"""Decoder-LM assembly, dense, MoE and hybrid families.
+"""Decoder-LM assembly, dense, MoE, hybrid and ssm (xLSTM) families.
 
   dense  : [GQA attn + SwiGLU] x N
   moe    : [attn (MLA or GQA) + (dense | MoE) ffn], the leading
            ``first_dense`` layers dense; deepseek's MTP head in the loss
   hybrid : [parallel attn + SSM, fused + SwiGLU] x N (hymba), the
            global layers full attention and the rest a sliding window
+  ssm    : [(slstm_every - 1) x mLSTM + sLSTM] super-blocks (xLSTM), the
+           mLSTM leaves stacked (n_super, slstm_every - 1, ...) on two
+           ``layers`` axes and the sLSTM leaves (n_super, ...)
 
 Layer parameters are stacked on a leading ``layers`` axis, as in the JAX
 package, so a parameter tree crosses between the two packages unchanged.
@@ -28,6 +31,7 @@ from repro_torch.models import hymba
 from repro_torch.models import mla as mla_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
+from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.layers import (apply_rope, cross_entropy, embed,
                                        embed_spec, mlp, mlp_spec, rmsnorm,
                                        rmsnorm_spec, unembed)
@@ -131,10 +135,23 @@ def _hybrid_block_spec(cfg: ModelConfig, layers: int) -> dict:
     }
 
 
+def _xlstm_spec(cfg: ModelConfig) -> dict:
+    """The super-block stack: mLSTM leaves (n_super, slstm_every - 1, ...),
+    sLSTM leaves (n_super, ...)."""
+    x = cfg.xlstm
+    n_super = cfg.n_layers // x.slstm_every
+    restack = lambda lead, tree: tree_map(
+        lambda s: ParamSpec(lead + s.shape, ("layers",) * len(lead) + s.axes,
+                            s.dtype, s.init, s.scale), tree)
+    return {"mlstm": restack((n_super, x.slstm_every - 1),
+                             xlstm_lib.mlstm_spec(cfg)),
+            "slstm": restack((n_super,), xlstm_lib.slstm_spec(cfg))}
+
+
 def check_family(cfg: ModelConfig) -> None:
     """Raise for a family the port does not carry yet, naming the ROADMAP
     item that brings it."""
-    if cfg.family not in ("dense", "moe", "hybrid"):
+    if cfg.family not in ("dense", "moe", "hybrid", "ssm"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP.md, queue 1: "
             f"'Other model families')")
@@ -150,6 +167,8 @@ def param_spec(cfg: ModelConfig) -> dict:
         n_global = len(hymba.global_layer_ids(cfg))
         spec["global_blocks"] = _hybrid_block_spec(cfg, n_global)
         spec["swa_blocks"] = _hybrid_block_spec(cfg, cfg.n_layers - n_global)
+    elif cfg.family == "ssm":
+        spec["super"] = _xlstm_spec(cfg)
     else:
         m = cfg.moe
         if m.first_dense:
@@ -240,6 +259,8 @@ def forward(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor):
         h, _ = _run_blocks(params["blocks"], h, cfg, dense, aux)
     elif cfg.family == "hybrid":
         h = _hybrid_forward(params, cfg, h, positions)
+    elif cfg.family == "ssm":
+        h = _xlstm_forward(params, cfg, h)
     else:
         if cfg.moe.first_dense:
             h, _ = _run_blocks(params["dense_blocks"], h, cfg, dense, aux)
@@ -263,6 +284,21 @@ def _hybrid_forward(params: PyTree, cfg: ModelConfig, h: torch.Tensor,
             part, h, cfg,
             lambda x, p, window=window: (hybrid_block(
                 p, x, cfg, positions, window=window), None), None)
+    return h
+
+
+def _xlstm_forward(params: PyTree, cfg: ModelConfig,
+                   h: torch.Tensor) -> torch.Tensor:
+    """Each super-block's mLSTM layers, then its sLSTM layer, each block
+    recomputed in the backward pass under ``cfg.remat``."""
+    sup = params["super"]
+    mlstm = lambda x, p: (xlstm_lib.mlstm_mixer(p, x, cfg), None)
+    slstm = lambda x, p: (xlstm_lib.slstm_mixer(p, x, cfg)[0], None)
+    for i in range(leaves(sup["slstm"])[0].shape[0]):
+        h, _ = _run_blocks(tree_map(lambda t: t[i], sup["mlstm"]), h, cfg,
+                           mlstm, None)
+        h, _ = _run_blocks(tree_map(lambda t: t[i:i + 1], sup["slstm"]), h,
+                           cfg, slstm, None)
     return h
 
 

@@ -1,5 +1,5 @@
-"""Serving: requests, prefill, the decode step (dense, MoE and hybrid
-families) and the fixed-slot baseline engine.
+"""Serving: requests, prefill, the decode step (dense, MoE, hybrid and
+ssm families) and the fixed-slot baseline engine.
 
   prefill(params, tokens)                  -> (logits, cache, lengths)
   decode (params, cache, tokens, lengths)  -> (logits, cache, lengths+1)
@@ -11,9 +11,9 @@ for SWA layers), attends over ``lengths+1`` entries, and returns
 
 Where the JAX package scans one compiled block body over stacked layer
 parameters, the port runs a Python loop over the leading ``layers`` axis
-(the layer views cost no copy), and decode writes each new K/V row, and
-the hybrid family's SSM state, into the cache **in place** rather than
-returning a copy of it.
+(the layer views cost no copy), and decode writes each new K/V row, the
+hybrid family's SSM state and the ssm family's mLSTM/sLSTM state, into
+the cache **in place** rather than returning a copy of it.
 
 :class:`ServingEngine` is the JAX package's fixed-slot baseline: one
 contiguous ``(layers, slots, max_len, ...)`` cache, every slot decoded by
@@ -40,6 +40,7 @@ from repro_torch.models import hymba as hymba_lib
 from repro_torch.models import mla as mla_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
+from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.layers import (embed, mlp, rmsnorm, rope_table,
                                        unembed)
 from repro_torch.models.transformer import check_family, project_qkv
@@ -187,6 +188,34 @@ def hybrid_layers(cfg: ModelConfig, params, kv_global, kv_swa, ssm_global,
                    tree_map(at_i, st))
 
 
+def _copy_state(dst: dict, new: dict) -> None:
+    for k, t in dst.items():
+        t.copy_(new[k])
+
+
+def xlstm_decode(params, cfg: ModelConfig, state, h: torch.Tensor
+                 ) -> torch.Tensor:
+    """One token through every super-block: its mLSTM layers (each the
+    chunk at L = 1), then its sLSTM layer. Each layer's new ``c``, ``n``,
+    ``m`` and ``conv`` (mLSTM) or ``c``, ``n``, ``m`` and ``h`` (sLSTM) are
+    copied into its slice of ``state`` in place, so every buffer a replay
+    reads keeps its address."""
+    sup = params["super"]
+    per = cfg.xlstm.slstm_every - 1
+    for i in range(_n_layers(sup["slstm"])):
+        for j in range(per):
+            at = lambda t: t[i, j]
+            st = tree_map(at, state["mlstm"])
+            h, new = xlstm_lib.mlstm_decode(tree_map(at, sup["mlstm"]), h,
+                                            cfg, st)
+            _copy_state(st, new)
+        st = tree_map(lambda t: t[i], state["slstm"])
+        h, new = xlstm_lib.slstm_decode(tree_map(lambda t: t[i],
+                                                 sup["slstm"]), h, cfg, st)
+        _copy_state(st, new)
+    return h
+
+
 def split_layers(cfg: ModelConfig, kv: PyTree) -> tuple[PyTree, PyTree]:
     """An MoE model's cache stack as (leading dense layers, MoE layers):
     views, so in-place writes land in the one stack."""
@@ -199,7 +228,8 @@ def make_decode(cfg: ModelConfig) -> Callable:
     lengths+1); ``cache`` is updated in place and returned. An MoE model
     decodes its ``first_dense`` dense layers, then its MoE layers, over
     the two parts of its one cache stack; a hybrid model its global and
-    SWA layers in layer order."""
+    SWA layers in layer order; an ssm model its super-blocks
+    (:func:`xlstm_decode`)."""
     check_family(cfg)
 
     def decode(params, cache, tokens, lengths):
@@ -218,6 +248,8 @@ def make_decode(cfg: ModelConfig) -> Callable:
                     p, h, cfg, st,
                     lambda pa, xn, kv=kv, window=window: _gqa_decode_attn(
                         pa, xn, cfg, kv, lengths, at, window=window))
+        elif cfg.family == "ssm":
+            h = xlstm_decode(params, cfg, cache, h)
         else:
             kv_d, kv_m = split_layers(cfg, cache["kv"])
             if cfg.moe.first_dense:
@@ -301,8 +333,30 @@ def _hybrid_prefill(params, cfg: ModelConfig, h, positions, max_len: int):
                "ssm_swa": ssm_s}
 
 
+def _xlstm_prefill(params, cfg: ModelConfig, h: torch.Tensor):
+    """The super-blocks over a whole prompt: the hidden state and each
+    layer's final state, stacked as ``kvcache.cache_layout`` lays it out
+    (mLSTM leaves (n_super, per, B, ...), sLSTM leaves (n_super, B, ...))."""
+    sup = params["super"]
+    stack = lambda ys: tree_map(lambda *ls: torch.stack(ls), *ys)
+    m_states, s_states = [], []
+    for i in range(_n_layers(sup["slstm"])):
+        layer = []
+        for j in range(cfg.xlstm.slstm_every - 1):
+            h, st = xlstm_lib.mlstm_mixer(
+                tree_map(lambda t: t[i, j], sup["mlstm"]), h, cfg,
+                return_state=True)
+            layer.append(st)
+        m_states.append(stack(layer))
+        h, st = xlstm_lib.slstm_mixer(tree_map(lambda t: t[i], sup["slstm"]),
+                                      h, cfg)
+        s_states.append(st)
+    return h, {"mlstm": stack(m_states), "slstm": stack(s_states)}
+
+
 def stacks(cfg: ModelConfig, params) -> list:
-    """The model's stacked block trees in layer order."""
+    """The stacked block trees of a dense or MoE model in layer order (the
+    hybrid and ssm families interleave block kinds and walk their own)."""
     if cfg.family == "dense":
         return [params["blocks"]]
     return ([params["dense_blocks"]] if cfg.moe.first_dense else []) \
@@ -345,6 +399,8 @@ def make_prefill(cfg: ModelConfig, max_len: int,
 
         if cfg.family == "hybrid":
             h, cache = _hybrid_prefill(params, cfg, h, positions, max_len)
+        elif cfg.family == "ssm":
+            h, cache = _xlstm_prefill(params, cfg, h)
         else:
             parts = []
             for stacked in stacks(cfg, params):

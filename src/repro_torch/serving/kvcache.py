@@ -1,4 +1,4 @@
-"""Serving-state layouts, dense, MoE and hybrid families.
+"""Serving-state layouts, dense, MoE, hybrid and ssm (xLSTM) families.
 
   GQA : k/v (L, B, S, N, hd) — N = kv heads (GQA shrinks the cache by
         heads/N vs MHA).
@@ -6,12 +6,17 @@
         — (kv_lora + qk_rope) values per token and layer.
   SWA (hymba) : ring buffer (L, B, window, N, hd), bounded whatever the
         context; plus per-layer SSM state (h in f32, conv taps).
+  ssm (xLSTM) : O(1) recurrent state per block: the mLSTM matrix memory
+        ``c`` (n_super, per, B, nh, dh, dh), normalizer ``n``, stabilizer
+        ``m`` and conv taps, and the sLSTM ``c``/``n``/``m``/``h``
+        (n_super, B, nh, dh); the ``m`` leaves start at -1e30.
 
 An MoE model's dense and MoE layers share one stack of ``n_layers``.
 
 The paged engine turns every leaf whose sequence axis spans ``max_len``
 into a block-indexed page pool ``(L, num_pages, page_size, N, hd)``; the
-SWA rings and the SSM state stay per-row slabs.
+SWA rings and the recurrent state stay per-row slabs; the ssm family has
+no pool at all.
 ``init_cache`` / ``init_paged_cache`` return concrete zeros on a device.
 """
 from __future__ import annotations
@@ -24,6 +29,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.pytree import tree_map
 from repro_torch.models import hymba as hymba_lib
 from repro_torch.models import ssm as ssm_lib
+from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.transformer import check_family
 
 PyTree = Any
@@ -69,9 +75,45 @@ def _ssm_state(cfg: ModelConfig, layers: int, batch: int):
     }
 
 
+def _xlstm_state(cfg: ModelConfig, batch: int):
+    x = cfg.xlstm
+    n_super = cfg.n_layers // x.slstm_every
+    per = x.slstm_every - 1
+    _, m_inner, nh, m_dh = xlstm_lib._dims(cfg)
+    conv_k = x.conv_kernel
+    s_dh = cfg.d_model // nh
+    neg = xlstm_lib.NEG
+    return {
+        "mlstm": {
+            "c": ((n_super, per, batch, nh, m_dh, m_dh),
+                  ("layers", "layers", "batch", "heads", None, None),
+                  "float32"),
+            "n": ((n_super, per, batch, nh, m_dh),
+                  ("layers", "layers", "batch", "heads", None), "float32"),
+            "m": ((n_super, per, batch, nh),
+                  ("layers", "layers", "batch", "heads"), "float32", neg),
+            "conv": ((n_super, per, batch, conv_k - 1, m_inner),
+                     ("layers", "layers", "batch", "conv", "mlp"), cfg.dtype),
+        },
+        "slstm": {
+            "c": ((n_super, batch, nh, s_dh),
+                  ("layers", "batch", "heads", None), "float32"),
+            "n": ((n_super, batch, nh, s_dh),
+                  ("layers", "batch", "heads", None), "float32"),
+            "m": ((n_super, batch, nh, s_dh),
+                  ("layers", "batch", "heads", None), "float32", neg),
+            "h": ((n_super, batch, nh, s_dh),
+                  ("layers", "batch", "heads", None), cfg.dtype),
+        },
+    }
+
+
 def cache_layout(cfg: ModelConfig, batch: int, max_len: int) -> PyTree:
-    """Tree of (shape, logical_axes, dtype) descriptors."""
+    """Tree of (shape, logical_axes, dtype) descriptors (a fourth entry,
+    where there is one, is the leaf's fill value)."""
     check_family(cfg)
+    if cfg.family == "ssm":
+        return _xlstm_state(cfg, batch)
     if cfg.family == "hybrid":
         n_global = len(hymba_lib.global_layer_ids(cfg))
         n_swa = cfg.n_layers - n_global
@@ -95,8 +137,9 @@ def paged_cache_layout(cfg: ModelConfig, num_pages: int, page_size: int,
     pools shared by every request: ``(layers, batch, max_len, ...)`` turns
     into ``(layers, num_pages, page_size, ...)``. Everything else — SWA
     ring buffers (bounded at ``window``), SSM state (O(1) per request) —
-    stays a dense per-row slab with ``batch=max_reqs``. The dense and MoE
-    families have no such leaf, so their state side is ``{}``.
+    stays a dense per-row slab with ``batch=max_reqs``. Either side may be
+    ``{}``: the dense and MoE families have no state, the ssm family no
+    pool.
     """
     def page_desc(d):
         shape, axes = d[0], d[1]

@@ -29,7 +29,10 @@ Where the JAX package is functional, this engine updates its device state
 admission scatters the prompt's KV into its pages without copying the pool.
 The pool is the largest tensor of the serving state; a functional update
 would copy it per layer per step. The hybrid family's per-row state (SWA
-rings, SSM ``h`` and ``conv``) is written in place the same way.
+rings, SSM ``h`` and ``conv``) and the ssm family's (mLSTM ``c``, ``n``,
+``m``, ``conv``; sLSTM ``c``, ``n``, ``m``, ``h``) are written in place the
+same way. The ssm family's pool is empty: its pages are still reserved
+per request, as in the JAX package, and hold nothing.
 
 Attention over the pages is ``models.attention.paged_decode_attention``:
 the hand-written Hopper kernel for CUDA tensors, its plain version (gather +
@@ -149,7 +152,9 @@ def make_paged_decode(cfg: ModelConfig, page_size: int, *,
     layers gather their chains and attend in plain tensor code, as the JAX
     package does. A hybrid model's global layers attend over the pool and
     its SWA layers over their per-row rings in ``state``; both update
-    their SSM state in ``state`` in place.
+    their SSM state in ``state`` in place. An ssm (xLSTM) model has an
+    empty pool and no attention: its mLSTM and sLSTM layers update their
+    per-row state in ``state`` in place, and ``attend`` is never called.
     """
     check_family(cfg)
     ps = page_size
@@ -173,6 +178,8 @@ def make_paged_decode(cfg: ModelConfig, page_size: int, *,
                     attn = lambda pa, xn, kv=kv: E._gqa_decode_attn(
                         pa, xn, cfg, kv, lengths, at, window=cfg.swa_window)
                 h = E._hybrid_decode_block(p, h, cfg, st, attn)
+        elif cfg.family == "ssm":
+            h = E.xlstm_decode(params, cfg, state, h)
         else:
             kv_d, kv_m = E.split_layers(cfg, pool["kv"])
             if cfg.moe.first_dense:
@@ -393,9 +400,9 @@ class PagedServingEngine:
         # attention families right-pad every prompt to one canonical width
         # (prompt_len), as in the JAX package: a prefix a register_prefix
         # writes is then computed at the same shape as the KV an unshared
-        # admit of the same tokens would write. Recurrent families (hybrid)
-        # prefill at the prompt's exact length: pad tokens would advance
-        # their per-row state past the real prompt.
+        # admit of the same tokens would write. Recurrent families (hybrid,
+        # ssm) prefill at the prompt's exact length: pad tokens would
+        # advance their per-row state past the real prompt.
         self._pad_prompts = cfg.family in prefix_lib.SHAREABLE_FAMILIES
         self._cont_prefill = (prefix_lib.make_continue_prefill(cfg, page_size)
                               if self._pad_prompts else None)

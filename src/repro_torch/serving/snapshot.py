@@ -207,20 +207,25 @@ class SnapshotStore:
             body_parts.append(kb)
             body_parts.append(struct.pack("<q", len(blob)))
             body_parts.append(blob)
-        body = b"".join(body_parts)
         # the crc covers the header fields too (a flipped step/n_leaves
         # byte must not validate), so it is computed over prefix+body and
-        # appended as the header's last field
+        # appended as the header's last field. It runs over the parts in
+        # turn and the frame is joined once: a frame can hold GBs of
+        # state, and each whole-frame copy costs seconds
         prefix = struct.pack(_HEADER_PREFIX, _VERSION, kind, seq, chain_pos,
                              step, len(blobs))
-        crc = zlib.crc32(prefix + body)
-        return SNAP_MAGIC + prefix + struct.pack("<I", crc) + body
+        crc = zlib.crc32(prefix)
+        for part in body_parts:
+            crc = zlib.crc32(part, crc)
+        return b"".join([SNAP_MAGIC, prefix, struct.pack("<I", crc),
+                         *body_parts])
 
     def _unpack_frame(self, stream: str, seq_hint: Optional[int],
                       raw: bytes) -> tuple[int, int, int, int,
-                                           dict[str, bytes]]:
+                                           dict[str, memoryview]]:
         """-> (kind, seq, chain_pos, step, {key: blob}); raises
-        SnapshotCorruptError on any structural problem."""
+        SnapshotCorruptError on any structural problem. The blobs are
+        views into ``raw`` (no copy of a GB-sized frame)."""
         def bad(reason: str) -> SnapshotCorruptError:
             return SnapshotCorruptError(stream, seq_hint, reason)
 
@@ -232,16 +237,17 @@ class SnapshotStore:
             struct.unpack_from(_HEADER, raw, 4)
         if version != _VERSION:
             raise bad(f"unsupported frame version {version}")
-        body = raw[_HEADER_SIZE:]
-        if zlib.crc32(raw[4:_HEADER_SIZE - 4] + body) != crc:
+        view = memoryview(raw)
+        body = view[_HEADER_SIZE:]
+        if zlib.crc32(body, zlib.crc32(view[4:_HEADER_SIZE - 4])) != crc:
             raise bad("frame crc mismatch (truncated or corrupted)")
-        blobs: dict[str, bytes] = {}
+        blobs: dict[str, memoryview] = {}
         off = 0
         try:
             for _ in range(n_leaves):
                 (klen,) = struct.unpack_from("<H", body, off)
                 off += 2
-                key = body[off:off + klen].decode()
+                key = bytes(body[off:off + klen]).decode()
                 off += klen
                 (blen,) = struct.unpack_from("<q", body, off)
                 off += 8

@@ -79,6 +79,23 @@ def test_hybrid_decode_graph_equals_eager_over_40_steps(cuda):
     _graph_equals_eager(cfg, cuda, paged_layers=cfg.n_global_layers)
 
 
+def test_xlstm_decode_graph_equals_eager_over_40_steps(cuda):
+    """The same for xlstm's smoke config, whose rows carry only recurrent
+    state (mLSTM ``c``/``n``/``m``/``conv``, sLSTM ``c``/``n``/``m``/``h``,
+    written in place) and whose pool is empty: the kernel never runs, and
+    the state after the 40 steps is bitwise equal too."""
+    cfg = configs.get("xlstm-1.3b", smoke=True)
+    graphed, eager = _graph_equals_eager(cfg, cuda, paged_layers=0)
+    assert graphed.pool == {} and eager.pool == {}
+    rows = torch.tensor([r for r, a in enumerate(graphed.active)
+                         if a is not None], device=cuda)
+    want = _flat(eager.state)
+    for key, t in _flat(graphed.state).items():
+        ax = 2 if key.startswith("['mlstm']") else 1   # the batch axis
+        assert torch.equal(_bits(t.index_select(ax, rows)),
+                           _bits(want[key].index_select(ax, rows))), key
+
+
 def _graph_equals_eager(cfg, cuda, *, paged_layers):
     params = P.materialize(torch.Generator().manual_seed(0),
                            transformer.param_spec(cfg), cuda)
@@ -111,6 +128,7 @@ def _graph_equals_eager(cfg, cuda, *, paged_layers):
     assert sum(r.done for r in reqs[graphed]) >= 8
     torch.cuda.synchronize()
     assert PK.paged_decode_attention.launches == 2 * steps * paged_layers
+    return graphed, eager
 
 
 def _train_setup(dev, seed=0):

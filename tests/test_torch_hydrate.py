@@ -389,3 +389,44 @@ def test_attached_replica_follows_the_chain_with_no_failed_sends():
     assert info["step"] == 0
     assert out["follow"]["snapshot_frames"] == 5
     assert hyd.store.restore("kv_pages")[0] == 5
+
+
+def test_state_only_chain_hydrates_a_replica(tmp_path):
+    """An xlstm chain holds no pool leaf (its pool is empty) and only
+    per-row ``state``: the hydrator rebuilds a port replica from the
+    directory, which carries the in-flight requests and decodes them to
+    the producer's tokens with no prefill."""
+    cfg = tbase.get("xlstm-1.3b", smoke=True)
+    prm = TP.materialize(torch.Generator().manual_seed(3),
+                         TT.param_spec(cfg), "cpu")
+    d = str(tmp_path / "chain")
+    plan = TS.InSituPlan.from_dict({
+        "streams": ["kv_pages"],
+        "tasks": {"kv_snapshot": {
+            "stream": "kv_pages", "preset": "serve_snapshot", "every": 1,
+            "placement": "sync",
+            "options": {"base_every": 2, "directory": d}}}})
+    eng = _engine("torch", cfg, prm)
+    assert eng.pool == {}
+    rng = np.random.default_rng(5)
+    reqs = [TE.Request(i, rng.integers(0, cfg.vocab_size, 9 + i), max_new=10)
+            for i in range(3)]
+    for r in reqs:
+        assert eng.admit(r)
+    with TS.Session(plan, raise_on_error=True) as session:
+        for step in range(STEPS):
+            eng.step()
+            session.emit("kv_pages", step, eng.snapshot_payload)
+    _, leaves = SnapshotStore(d).restore("kv_pages")
+    assert not any(k.startswith("['pool']") for k in leaves)
+    rep, info = TH.hydrate_serving_engine(d, cfg, prm, device="cpu",
+                                          log=lambda *_: None)
+    assert info["mode"] == "local" and info["step"] == STEPS - 1
+    live = [a for a in rep.active if a is not None]
+    assert [r.out for r in live] == [r.out for r in reqs]
+    pre = rep.prefill_tokens
+    eng.run([], max_steps=20)
+    rep.run([], max_steps=20)
+    for a, b in zip(reqs, live):
+        assert a.done and b.done and a.out == b.out
+    assert rep.prefill_tokens == pre

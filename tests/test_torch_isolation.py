@@ -25,7 +25,8 @@ moe = sorted(n for n in names if n.endswith((".moe", ".mla",
                                               "deepseek_v3_671b")))
 hybrid = sorted(n for n in names if n.endswith((".ssm", ".hymba",
                                                  "hymba_1_5b")))
-print(len(names), len(moe), len(hybrid), bad)
+xlstm = sorted(n for n in names if n.endswith((".xlstm", "xlstm_1_3b")))
+print(len(names), len(moe), len(hybrid), len(xlstm), bad)
 """
 
 
@@ -33,12 +34,13 @@ def test_every_module_imports_without_jax_or_repro():
     out = subprocess.run([sys.executable, "-c", _PROBE], capture_output=True,
                          text=True, timeout=120,
                          env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"},
-                         check=True).stdout.split(maxsplit=3)
-    n_modules, n_moe, n_hybrid = int(out[0]), int(out[1]), int(out[2])
-    bad = out[3].strip()
-    assert n_modules >= 66          # every module (core.insitu included)
+                         check=True).stdout.split(maxsplit=4)
+    n_modules, n_moe, n_hybrid, n_xlstm = map(int, out[:4])
+    bad = out[4].strip()
+    assert n_modules >= 68          # every module (core.insitu included)
     assert n_moe == 4               # models.moe/mla and the two configs
     assert n_hybrid == 3            # models.ssm/hymba and hymba's config
+    assert n_xlstm == 2             # models.xlstm and xlstm's config
     assert bad == "[]", f"port pulled in {bad}"
 
 
@@ -87,6 +89,8 @@ def test_entry_points_default_to_the_card(tmp_path):
         serve_loop("moonshot-v1-16b-a3b", smoke=False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve_loop("hymba-1.5b", smoke=False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve_loop("xlstm-1.3b", smoke=False)
     cfg = base.get("smollm-135m", smoke=True)
     spec = transformer.param_spec(cfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

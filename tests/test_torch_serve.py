@@ -57,7 +57,7 @@ def test_prefix_requests_share_pages():
 
 def test_waiting_parts_say_so():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve_loop("xlstm-1.3b", device="cpu")
+        serve_loop("musicgen-medium", device="cpu")
     plan = default_serve_plan()
     plan["tasks"]["fault"] = {"stream": "kv_pages", "preset": "fault"}
     with pytest.raises(PlanError, match="not ported"):
@@ -94,3 +94,32 @@ def test_hymba_refuses_a_shared_prefix():
     with pytest.raises(ValueError, match="recurrent state"):
         jax_serve_loop("hymba-1.5b", n_requests=2, max_new=2, prefix_len=16,
                        log=lambda _: None)
+
+
+def test_serves_xlstm_with_a_persisted_chain(tmp_path):
+    """The ssm family through ``serve_loop``: every request served, every
+    reserved page back, and the default plan's chain (persisted here,
+    one chain kept) restores with the per-row mLSTM/sLSTM ``state`` leaves
+    and no ``pool`` key; the shared prefix is refused in both packages."""
+    from repro_torch.serving.snapshot import SnapshotStore
+
+    lines = []
+    plan = default_serve_plan(snapshot_dir=str(tmp_path / "chain"))
+    plan["tasks"]["kv_snapshot"]["options"]["keep_chains"] = 1
+    out = serve_loop("xlstm-1.3b", n_requests=5, max_new=6, slots=2,
+                     plan=plan, device="cpu", log=lines.append)
+    assert all(r.done and len(r.out) == 6 for r in out["requests"])
+    assert any(ln.startswith("page pool: 0/16 pages in use at exit")
+               for ln in lines), lines
+    rep = out["session_report"]
+    assert rep["n_errors"] == 0
+    assert rep["tasks"]["kv_snapshot"]["publishes"] > 0
+    _, leaves = SnapshotStore(str(tmp_path / "chain")).restore("kv_pages")
+    assert not any(k.startswith("['pool']") for k in leaves)
+    assert leaves["['state']['mlstm']['c']"].shape[:3] == (2, 1, 4)
+    assert "['state']['slstm']['h']" in leaves
+    for loop in (serve_loop, jax_serve_loop):
+        kw = {"device": "cpu"} if loop is serve_loop else {}
+        with pytest.raises(ValueError, match="recurrent state"):
+            loop("xlstm-1.3b", n_requests=2, max_new=2, prefix_len=16,
+                 log=lambda _: None, **kw)

@@ -3,7 +3,8 @@
 Every test runs for ``smollm-135m`` (dense), the two MoE archs,
 ``moonshot-v1-16b-a3b`` (GQA) and ``deepseek-v3-671b`` (MLA), and the
 hybrid ``hymba-1.5b`` (SWA rings and SSM state beside a global page
-pool). Both
+pool) and the ssm family's ``xlstm-1.3b`` (per-row mLSTM/sLSTM state and
+no page pool at all). Both
 packages start from the same weights: the JAX package materializes a
 smoke-size tree, and the port takes it through its weight bridge.
 Parameter specs are compared at the published widths, by shape and dtype,
@@ -24,12 +25,20 @@ without materializing them. Tolerances:
   logits reach 3.75, and from its second layer on the SSM branch and the
   fusion round at more places (conv taps, four projections, two norms);
   seeds 0-2 differ by at most 0.053 (its first, global layer's cache
-  bits equal). Every cache leaf is held at the logits' tolerance, and
-  has the JAX package's dtype (hymba's SSM ``h`` is f32 in both);
+  bits equal). xlstm's to atol 1.25e-1: its smoke logits reach about
+  3.5 over four blocks whose mLSTM divides by its normalizer and whose
+  sLSTM rounds every step's ``h`` to bf16; seeds 1-3 differ by at most
+  0.078. Every cache leaf is held at the logits' tolerance, and has the
+  JAX package's dtype (hymba's SSM ``h`` and xlstm's ``c``/``n``/``m``
+  are f32 in both). xlstm's bf16 state is held at that tolerance times
+  the leaf's largest |value|: the stabilizer ``m`` is a max over
+  bf16-rounded gates (up to ~25, where one bf16 step is 0.125), and
+  ``c``/``n`` scale with it; seeds 1-3 differ by at most 4.8 % of a
+  leaf's largest value (the sLSTM ``n``);
 * greedy token streams of the paged and dense engines are equal in f32
   (params and cache cast to f32 on both sides), with and without a
-  registered prefix (the hybrid family refuses a prefix in both
-  packages: its per-row state cannot be shared), across the smoke
+  registered prefix (the hybrid and ssm families refuse a prefix in both
+  packages: their per-row state cannot be shared), across the smoke
   window's wrap (40-token prompts, 30 new tokens, window 32), and with
   prompts prefilled at their exact length (5 and 17 tokens: the SSM
   state equals the JAX package's, and differs from a padded prefill's).
@@ -37,9 +46,11 @@ without materializing them. Tolerances:
   each expert's capacity, and an idle row's token competes for it as in
   the JAX package; so the streams are compared only where both packages
   run identical batches (the same engine, geometry and admissions);
-* an MoE or hybrid chain one package's engine wrote hydrates the other
-  package's engine, which decodes the in-flight requests to the same f32
-  tokens; a hybrid chain carries its ``state`` leaves.
+* an MoE, hybrid or xlstm chain one package's engine wrote hydrates the
+  other package's engine, which decodes the in-flight requests to the
+  same f32 tokens; a hybrid chain carries its ``state`` leaves, and an
+  xlstm chain only ``state`` leaves (its pool is empty and flattens to no
+  key in either package).
 """
 import functools
 import dataclasses
@@ -63,7 +74,8 @@ from repro_torch.serving import engine as TE
 from repro_torch.serving import pages as TPG
 
 ARCHS = ("smollm-135m", "moonshot-v1-16b-a3b", "deepseek-v3-671b",
-         "hymba-1.5b")
+         "hymba-1.5b", "xlstm-1.3b")
+RECURRENT = ("hybrid", "ssm")
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -150,6 +162,7 @@ def _bridged(arch):
     ("moonshot-v1-16b-a3b", "float32"), ("moonshot-v1-16b-a3b", "bfloat16"),
     ("deepseek-v3-671b", "float32"), ("deepseek-v3-671b", "bfloat16"),
     ("hymba-1.5b", "float32"), ("hymba-1.5b", "bfloat16"),
+    ("xlstm-1.3b", "float32"), ("xlstm-1.3b", "bfloat16"),
 ])
 def test_prefill_logits_match_jax(arch, dtype):
     jcfg, jprm, tcfg, tprm = _bridged(arch)
@@ -157,8 +170,8 @@ def test_prefill_logits_match_jax(arch, dtype):
         jcfg, jprm, tcfg, tprm = _f32(jcfg, jprm, tcfg, tprm)
         tol = dict(rtol=1e-4, atol=1e-4)
     else:
-        tol = dict(rtol=0, atol=8e-2 if jcfg.family in ("moe", "hybrid")
-                   else 2e-2)
+        tol = dict(rtol=0, atol={"moe": 8e-2, "hybrid": 8e-2,
+                                 "ssm": 1.25e-1}.get(jcfg.family, 2e-2))
     rng = np.random.default_rng(1)
     toks = rng.integers(0, jcfg.vocab_size, size=(2, 16)).astype(np.int32)
     jl, jcache, _ = JE.make_prefill(jcfg, 32)(jprm, jnp.asarray(toks))
@@ -172,8 +185,13 @@ def test_prefill_logits_match_jax(arch, dtype):
         assert tuple(tflat[name].shape) == jk.shape, name
         assert str(tflat[name].dtype).split(".")[-1] == \
             np.dtype(leaf.dtype).name, name
+        leaf_tol = tol
+        if jcfg.family == "ssm" and dtype == "bfloat16":
+            # stabilized state: its scale follows the bf16-rounded gates
+            leaf_tol = dict(rtol=0, atol=tol["atol"]
+                            * max(1.0, float(np.abs(jk).max())))
         np.testing.assert_allclose(tflat[name].float().numpy(), jk,
-                                   err_msg=name, **tol)
+                                   err_msg=name, **leaf_tol)
 
 
 def _requests(cls, vocab, seed, n, prefix=None, max_new=6):
@@ -198,7 +216,7 @@ def test_paged_engine_token_streams_match_jax(bridged, shared_prefix):
 
     jeng = JPG.PagedServingEngine(jcfg, jprm, **kw)
     teng = TPG.PagedServingEngine(tcfg, tprm, device="cpu", **kw)
-    if shared_prefix and jcfg.family == "hybrid":
+    if shared_prefix and jcfg.family in RECURRENT:
         # per-row recurrent state cannot be shared: both packages refuse
         for eng in (jeng, teng):
             with pytest.raises(ValueError, match="recurrent state"):
@@ -242,6 +260,9 @@ def test_engine_snapshot_payload_matches_jax_leaves(bridged):
     assert list(jl) == list(tl)
     if jcfg.family == "hybrid":
         assert any(k.startswith("['state']['ssm_swa']") for k in tl)
+    if jcfg.family == "ssm":
+        assert not any(k.startswith("['pool']") for k in tl)
+        assert "['state']['mlstm']['c']" in tl
     for k in jl:
         if k.startswith(("['pool']", "['state']")):
             assert tl[k].dtype == jl[k].dtype, k
@@ -438,3 +459,105 @@ def test_hybrid_prefills_prompts_at_their_exact_length():
     _, cache, _ = TE.make_prefill(tcfg, 64)(tprm, torch.from_numpy(padded))
     assert not torch.allclose(cache["ssm_swa"]["h"][:, 0],
                               teng.state["ssm_swa"]["h"][:, 0], atol=1e-3)
+
+
+@pytest.mark.parametrize("producer", ["jax", "torch"])
+def test_xlstm_chain_hydrates_the_other_package(producer, tmp_path):
+    """A paged xlstm engine's chain holds ``state`` leaves only (its pool is
+    ``{}``, which flattens to no key in either package); written by one
+    package, it hydrates the other's engine, which decodes the in-flight
+    requests to the producer's f32 tokens with no prefill."""
+    from repro.core import session as JS
+    from repro.serving.snapshot import SnapshotStore as JStore
+    from repro_torch.core import session as TS
+    from repro_torch.serving.snapshot import SnapshotStore as TStore
+
+    jcfg, jprm, tcfg, tprm = _f32(*_bridged("xlstm-1.3b"))
+    kw = dict(num_pages=17, page_size=16, max_reqs=3, prompt_len=16,
+              max_len=64)
+    d = str(tmp_path / "chain")
+    if producer == "jax":
+        prod = JPG.PagedServingEngine(jcfg, jprm, **kw)
+        reqs = _requests(JE.Request, jcfg.vocab_size, 9, 3, max_new=10)
+        step, leaves = _chain(prod, reqs, d, JStore, JS)
+        rep = TPG.PagedServingEngine.from_snapshot(tcfg, tprm, leaves,
+                                                   device="cpu")
+    else:
+        prod = TPG.PagedServingEngine(tcfg, tprm, device="cpu", **kw)
+        reqs = _requests(TE.Request, tcfg.vocab_size, 9, 3, max_new=10)
+        step, leaves = _chain(prod, reqs, d, TStore, TS)
+        rep = JPG.PagedServingEngine.from_snapshot(jcfg, jprm, leaves)
+    assert step == 2
+    assert not any(k.startswith("['pool']") for k in leaves)
+    assert sorted(k for k in leaves if k.startswith("['state']")) == [
+        "['state']['mlstm']['c']", "['state']['mlstm']['conv']",
+        "['state']['mlstm']['m']", "['state']['mlstm']['n']",
+        "['state']['slstm']['c']", "['state']['slstm']['h']",
+        "['state']['slstm']['m']", "['state']['slstm']['n']"]
+    assert leaves["['state']['mlstm']['c']"].shape == (2, 1, 3, 2, 64, 64)
+    live = [a for a in rep.active if a is not None]
+    assert [r.out for r in live] == [r.out for r in reqs]
+    pre = rep.prefill_tokens
+    for _ in range(10):
+        for eng in (prod, rep):
+            if any(a is not None for a in eng.active):
+                eng.step()
+    for a, b in zip(reqs, live):
+        assert a.done and b.done
+        assert a.out == b.out, f"replica diverged on request {a.rid}"
+    assert rep.prefill_tokens == pre
+
+
+def _per3(jcfg, jprm, tcfg, tprm):
+    """The xlstm smoke config at 8 blocks, one sLSTM per 4 (three mLSTM
+    layers a super-block), f32 weights bridged from the JAX package."""
+    jc = dataclasses.replace(
+        jcfg, n_layers=8, dtype="float32",
+        xlstm=dataclasses.replace(jcfg.xlstm, slstm_every=4))
+    tc = dataclasses.replace(
+        tcfg, n_layers=8, dtype="float32",
+        xlstm=dataclasses.replace(tcfg.xlstm, slstm_every=4))
+    jp = JP.cast_tree(JP.materialize(jax.random.PRNGKey(3),
+                                     JT.param_spec(jc)), jnp.float32)
+    return jc, jp, tc, TP.from_numpy_tree(jax.device_get(jp), "cpu")
+
+
+@pytest.mark.parametrize("kind", ["paged", "dense"])
+def test_xlstm_streams_match_jax_at_three_mlstm_layers_a_block(kind):
+    """Admission writes a request's state into its row of leaves
+    (n_super, per, B, ...) with per = 3: the batch axis is the third.
+    Prompts of 5 to 20 tokens (prefilled at their exact length), 8 new
+    tokens, two rows for five requests: the f32 token streams equal the
+    JAX package's, and the state after the first admissions agrees to
+    the 8-block forward's bound (rtol 1e-4, atol 5e-4)."""
+    jcfg, jprm, tcfg, tprm = _per3(*_bridged("xlstm-1.3b"))
+    rng = np.random.default_rng(17)
+    prompts = [rng.integers(0, 257, size=n).astype(np.int32)
+               for n in (5, 20, 9, 13, 16)]
+    ja = [JE.Request(i, p, max_new=8) for i, p in enumerate(prompts)]
+    tb = [TE.Request(i, p, max_new=8) for i, p in enumerate(prompts)]
+    if kind == "paged":
+        kw = dict(num_pages=9, page_size=16, max_reqs=2, prompt_len=24,
+                  max_len=64)
+        jeng = JPG.PagedServingEngine(jcfg, jprm, **kw)
+        teng = TPG.PagedServingEngine(tcfg, tprm, device="cpu", **kw)
+        state = lambda e: e.state
+    else:
+        kw = dict(slots=2, prompt_len=24, max_len=64)
+        jeng = JE.ServingEngine(jcfg, jprm, **kw)
+        teng = TE.ServingEngine(tcfg, tprm, device="cpu", **kw)
+        state = lambda e: e.cache
+    for eng, reqs in ((jeng, ja), (teng, tb)):
+        assert eng.admit(reqs[0]) and eng.admit(reqs[1])
+    jst, tst = _flat(state(jeng)), _flat(state(teng))
+    assert sorted(jst) == sorted(tst)
+    assert tst["/mlstm/c"].shape[:3] == (2, 3, 2)
+    for k, leaf in jst.items():
+        # the 8-block forward's bound (tests/test_torch_xlstm.py)
+        np.testing.assert_allclose(tst[k].numpy(), np.asarray(leaf),
+                                   rtol=1e-4, atol=5e-4, err_msg=k)
+    jeng.run(ja[2:], max_steps=64)
+    teng.run(tb[2:], max_steps=64)
+    for ra, rb in zip(ja, tb):
+        assert ra.done and rb.done and len(rb.out) == 8
+        assert ra.out == rb.out, f"request {ra.rid} diverged"
