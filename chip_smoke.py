@@ -219,8 +219,9 @@ Phases (any failure exits non-zero; none is swallowed):
    plan (the eager run with snapshots was cut for the time limit): the
    three runs decode the same streams, every request is served and the
    pool empty at exit, the graphed run's chain (persisted under ``build/``, beside
-   a probe of what was emitted) restores bit-identically, and that run
-   launches the kernel 48 times a replayed decode step. Then a graphed and an eager engine step 8 times
+   a probe of what was emitted) restores bit-identically (the bytes a
+   firing publishes printed, raw, zlib base and zlib delta), and each run
+   launches the kernel 48 times a decode step. Then a graphed and an eager engine step 8 times
    from one state (logits the same bits) while the graphed one publishes
    a SYNC chain; a replica built in process with
    ``PagedServingEngine.from_snapshot`` from that chain decodes the 8
@@ -256,12 +257,13 @@ Phases (any failure exits non-zero; none is swallowed):
    async ``serve_snapshot`` plan (the eager run with snapshots cut, as in
    12): the three runs decode the same streams,
    every request served and the pool empty, the graphed run's chain
-   restores bit-identically, and that run launches the kernel 3 times (the
-   global layers) a replayed decode step. Printed: the bytes a firing
+   restores bit-identically, and each run launches the kernel 3 times (the
+   global layers) a decode step. Printed: the bytes a firing
    publishes of ``pool`` and of ``state`` (raw, zlib base, zlib delta);
-   one decode step with the kernel held against the plain attention at
-   the 3 global layers on their inputs (atol 3.2e-2); the graphed decode
-   step profiled and the eager one's host wall. Then 8 requests of
+   a graphed and an eager engine of 8 rows: two steps with the same
+   logits bits, then one decode step with the kernel held against the
+   plain attention at the 3 global layers on their inputs (atol 3.2e-2);
+   the graphed decode step profiled and the eager one's host wall. Then 8 requests of
    1000-token prompts and 64 new tokens (max_len 1088, the SWA rings of
    1024 slots wrapping in decode, the kernel over ~66 pages a row): the
    graphed engine = an eager one's tokens over the first 8 steps, the
@@ -301,6 +303,46 @@ Phases (any failure exits non-zero; none is swallowed):
    steps a layer) prefilled once; an eager engine from that state decodes
    the same tokens as the graphed one over 8 steps. The phase must take
    at most 150 s.
+15. frontend — the frontend families (``internvl2-26b``, vlm: 48
+   layers, d_model 6144, 48 query heads over 8 kv heads of 128; and
+   ``musicgen-medium``, audio: 48 layers, d_model 1536, MHA of 24 heads of
+   64), the dense backbone behind a stub that prepends precomputed patch
+   or frame embeddings in training; serving is token-only. (a) The paged
+   decode-attention kernel at both head shapes (B = 8, page 16, the
+   serving table of 4 pages and a 256-page one) against its plain
+   version in bf16 (atol 3.2e-2) and f32 (1e-5), every head group's
+   shared-memory bytes equal to the source's; timed per call and on the
+   device (from a profiler window that recorded the launches it divides
+   by: launches recorded are printed beside launches made) beside the
+   plain version, SDPA on the gathered cache and the bound; hymba's
+   heads timed the same way. (b) Both smoke configs in f32: the dense
+   4-slot engine and a 4-row paged engine token for token; a graphed and
+   an eager 8-row paged engine from one state decode the same tokens, the
+   graphed one publishing a SYNC chain; a replica restored from it into a
+   captured engine decodes in lockstep with no prefill; internvl's 8
+   requests behind a registered shared prefix decode the tokens of the
+   same prompts unshared; a smoke ``forward`` with a prefix on the card
+   against the same call on the CPU (rtol/atol 1e-4). (c)
+   ``serve_loop("internvl2-26b", smoke=False)`` (19.9 G parameters, 39.7
+   GB in bf16, drawn on the card's generator from seed 0) on the serve
+   traffic, eager and graphed bare and graphed with the default async
+   ``serve_snapshot`` plan: the runs decode the same streams, every
+   request served and the pool empty, each run launches the kernel 48
+   times a decode step, the chain restores bit-identically. (d)
+   ``serve_loop("musicgen-medium", smoke=False)`` graphed bare (its eager
+   run cut for the phase's time), with the same gates. After each of (c)
+   and (d) the weights are drawn once more for a graphed and an eager
+   engine of 8 rows: two steps with the same logits bits, then one
+   decode step with the kernel held against the plain attention at all
+   48 layers on their inputs; the graphed decode step profiled, the eager
+   one's host wall. (e) ``train_loop("musicgen-medium", smoke=False)``
+   eagerly, then graphed, 2 steps each (4 x 4096 tokens and 64 prefix
+   frames a row, bf16, seed 0, no checkpoint task): the graphed losses
+   equal the eager ones bit for bit, finite; every forward ran on 4 x
+   4160 positions; no kernel launched. Printed: capture seconds, step
+   medians, the replayed step's device busy ms and idle share, peak
+   memory, the model FLOPs a step over the median step as a share of 989
+   TFLOP/s. The phase must take at most 150 s.
 
 The last lines are the card line, one JSON object with every kernel's
 numbers, and ``{"ok": true, "device": {...}}``.
@@ -2692,16 +2734,239 @@ def _kernel_against_plain(cfg, eng, n_paged: int) -> tuple:
                                             PK.paged_decode_attention)
 
 
-def _hybrid_kernel_checks(cfg, eng) -> dict:
-    """:func:`_kernel_against_plain` at hymba's global layers."""
-    err, with_plain, with_kernel = _kernel_against_plain(
-        cfg, eng, cfg.n_global_layers)
+def _kernel_checks(cfg, eng, n_paged: int) -> dict:
+    """:func:`_kernel_against_plain` at the ``n_paged`` layers that attend
+    over the pages: the per-layer errors, and the step's logits through
+    the kernel against those through the plain attention."""
+    err, with_plain, with_kernel = _kernel_against_plain(cfg, eng, n_paged)
     return {"layer_attention_max_abs_err": err,
             "logits_max_abs_kernel_plain":
                 (with_kernel - with_plain).abs().max().item(),
             "argmax_agreement": (with_kernel.argmax(-1)
                                  == with_plain.argmax(-1)).float()
             .mean().item()}
+
+
+def _published_bytes(emitted: dict, hints: dict) -> dict:
+    """What the snapshot plan publishes a firing, by part of the payload
+    (``pool``: the global layers' pages; ``state``: SWA rings and SSM
+    state; the rest: tables, lengths, tokens, meta): the raw bytes, and
+    the zlib frames of the last firing the probe kept, as a base and as a
+    delta against the firing before it (what ``SnapshotStore.publish``
+    encodes; the pool's chunks one (layer, page) slab, as the engine's
+    ``chunk_hints`` give them)."""
+    from repro_torch.core import codecs, delta
+
+    steps = sorted(emitted)
+    last, prev = emitted[steps[-1]], emitted[steps[-2]]
+    out: dict = {}
+    pool = codecs.codec_pool()
+    for key, arr in last.items():
+        part = ("pool" if key.startswith("['pool']") else "state"
+                if key.startswith("['state']") else "rest")
+        chunk = int(hints.get(key, codecs.DEFAULT_CHUNK))
+        base, _ = delta.encode(arr, None, codec="zlib", chunk_bytes=chunk,
+                               pool=pool)
+        dlt, _ = delta.encode(arr, prev[key], codec="zlib",
+                              chunk_bytes=chunk, pool=pool)
+        row = out.setdefault(part, {"raw": 0, "base": 0, "delta": 0})
+        row["raw"] += arr.nbytes
+        row["base"] += len(base)
+        row["delta"] += len(dlt)
+    out["firings"] = [steps[-2], steps[-1]]
+    return out
+
+
+def _serve_runs(tag: str, arch: str, runs, build: Path, n_paged: int
+                ) -> dict:
+    """``serve_loop(arch, smoke=False)`` on SERVE's traffic, once for each
+    ``(plan, graphed)`` of ``runs``; plan "plan" is the default async
+    ``serve_snapshot`` plan, its chain persisted under ``build/`` beside a
+    probe of what was emitted. Gates: the runs decode the same streams,
+    every request served and every page back, each run's kernel launches
+    = its decode steps x ``n_paged``, and the chain restores
+    bit-identically."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import base as configs
+    from repro_torch.core.session import Every, InSituPlan, Placement, \
+        TaskSpec
+    from repro_torch.kernels import paged_attention as PK
+    from repro_torch.launch.serve import default_serve_plan, serve_loop
+    from repro_torch.serving import snapshot as S
+
+    cfg = configs.get(arch)
+    chain = build / f"smoke_{tag}_chain"
+    res, emitted, lines, out = {}, {}, [], {}
+    for key in runs:
+        name = f"{'graph' if key[1] else 'eager'}_{key[0]}"
+        if key[0] == "plan":
+            if chain.exists():
+                shutil.rmtree(chain)
+            base = InSituPlan.from_dict(
+                default_serve_plan(snapshot_dir=str(chain)))
+            probe = TaskSpec(name="probe", stream="kv_pages",
+                             trigger=Every(4), placement=Placement.SYNC,
+                             sink=lambda step, p: emitted.__setitem__(
+                                 step, S._flatten(p["cache"])))
+            plan = InSituPlan(streams=base.streams,
+                              tasks=[*base.tasks, probe],
+                              workers=base.workers,
+                              staging_capacity=base.staging_capacity)
+        else:
+            plan = {"streams": ["kv_pages"]}
+        torch.cuda.reset_peak_memory_stats()
+        PK.paged_decode_attention.launches = 0
+        r = res[name] = serve_loop(arch, smoke=False, device="cuda", seed=0,
+                                   plan=plan, cuda_graph=key[1],
+                                   log=lines.append, **SERVE)
+        torch.cuda.synchronize()
+        rep = r["session_report"]
+        steps = len(r["telemetry"].spans("step/compute"))
+        launches = PK.paged_decode_attention.launches
+        assert launches == steps * n_paged, (
+            f"{tag} {name}: kernel launches {launches} != {steps} decode "
+            f"steps x {n_paged} layers")
+        assert rep["n_errors"] == 0, rep["errors"]
+        out[name] = {"tok_per_s": r["tok_per_s"],
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                     "wall_s": _serve_wall_s(r),
+                     "admit_s": r["telemetry"].total("serve/admit"),
+                     "step_compute_s": rep["step_compute_s"],
+                     "decode_steps": steps, "launches": launches}
+        if key[0] == "plan":
+            out[name].update(
+                snapshots=rep["tasks"]["kv_snapshot"]["publishes"],
+                snapshot_drops=rep["drops"].get("kv_snapshot", 0))
+            assert out[name]["snapshots"] > 0, "no snapshot"
+        log(f"{tag}: serve {name}: {r['tok_per_s']:.1f} tok/s, wall "
+            f"{out[name]['wall_s']:.2f} s = admissions "
+            f"{out[name]['admit_s']:.2f} + decode steps "
+            f"{rep['step_compute_s']:.2f} + hand-off dispatch "
+            f"{rep['handoff_dispatch_s']:.2f} + the rest; {launches} "
+            f"kernel launches = {steps} steps x {n_paged}; peak "
+            f"{out[name]['peak_gib']:.2f} GiB")
+        _free_cuda(empty=False)
+    streams = {k: [q.out for q in r["requests"]] for k, r in res.items()}
+    first = next(iter(streams.values()))
+    for name, got in streams.items():
+        assert got == first, f"{tag}: serve run {name} decoded other tokens"
+    for r in res.values():
+        for q in r["requests"]:
+            assert q.done and len(q.out) == q.max_new, q.rid
+            assert all(0 <= t < cfg.vocab_size for t in q.out), q.rid
+    pools = [m for m in (re.match(r"page pool: (\d+)/", ln) for ln in lines)
+             if m]
+    assert len(pools) == len(runs) and all(
+        int(m.group(1)) == 0 for m in pools), "page pool not empty at exit"
+    log(f"{tag}: the {len(runs)} runs decode the same "
+        f"{SERVE['n_requests']} streams; every request served, every page "
+        f"back")
+    if emitted:
+        step, leaves = S.SnapshotStore(str(chain)).restore("kv_pages")
+        want = emitted[step]
+        assert list(leaves) == list(want), "restored leaf keys differ"
+        for key, arr in leaves.items():
+            if not np.array_equal(arr.reshape(-1).view(np.uint8),
+                                  want[key].reshape(-1).view(np.uint8)):
+                raise AssertionError(f"{chain.name}: restored leaf {key} "
+                                     f"differs at step {step}")
+        out["restored"] = {"step": step,
+                           "bytes": sum(a.nbytes for a in leaves.values())}
+        del leaves, want
+        hints = {k: int(np.prod(a.shape[2:])) * a.itemsize
+                 for k, a in emitted[step].items()
+                 if k.startswith("['pool']")}
+        out["published_bytes"] = _published_bytes(emitted, hints)
+        emitted.clear()
+        log(f"{tag}: the graphed run's chain restores bit-identically to "
+            f"what was emitted at step {step} ({out['restored']['bytes']} "
+            f"bytes); bytes a firing (raw / zlib base / zlib delta): "
+            f"{out['published_bytes']}")
+    del res
+    _free_cuda()
+    return out
+
+
+def _draw_full(tag: str, cfg) -> tuple:
+    """``cfg``'s full-width weights from seed 0 on the card's generator
+    (``params.weight_generator``), timed: ``(params, {"weight_draw_s",
+    "weight_bytes"})``."""
+    import torch
+    from repro_torch.core.pytree import leaves as tree_leaves
+    from repro_torch.models import params as P
+    from repro_torch.models import transformer
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = P.materialize(P.weight_generator(cfg, 0, torch.device("cuda"),
+                                              False),
+                           transformer.param_spec(cfg), "cuda")
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    log(f"{tag}: drew {n_bytes / 1e9:.2f} GB of weights ({cfg.n_params()} "
+        f"parameters) on the card's generator in {draw_s:.2f} s")
+    return params, {"weight_draw_s": draw_s, "weight_bytes": n_bytes}
+
+
+def _full_engines(tag: str, cfg, params, n_paged: int) -> dict:
+    """A graphed and an eager full-width engine with 8 rows admitted: two
+    steps with the same logits bits, then the kernel against the plain
+    attention at each of the ``n_paged`` layers that attend over the pages
+    (on that layer's inputs), and where a decode step's time goes."""
+    import numpy as np
+    import torch
+    from repro_torch.serving.engine import Request
+    from repro_torch.serving.pages import PagedServingEngine
+
+    geo = dict(num_pages=33, page_size=16, max_reqs=8, prompt_len=16,
+               max_len=64)
+    engines = {}
+    for graph in (True, False):
+        e = engines[graph] = PagedServingEngine(cfg, params, device="cuda",
+                                                cuda_graph=graph, **geo)
+        rng = np.random.default_rng(5)
+        for i in range(8):
+            assert e.admit(Request(i, rng.integers(0, cfg.vocab_size, 16),
+                                   max_new=40))
+    eng, eng_eager = engines[True], engines[False]
+    for _ in range(2):
+        eng.step()
+        eng_eager.step()
+        assert torch.equal(eng.logits, eng_eager.logits), (
+            f"{tag}: graphed and eager decode logits differ")
+    checks = _kernel_checks(cfg, eng, n_paged)
+    log(f"{tag}: 2 full-width decode steps (8 rows), graph replay and "
+        f"eager step: logits bitwise equal; one more: the kernel against the "
+        f"plain attention at each of the {n_paged} paged layers, max "
+        f"{max(checks['layer_attention_max_abs_err']):.3e} (<= "
+        f"{BF16_ATOL}); "
+        f"logits max |kernel - plain| "
+        f"{checks['logits_max_abs_kernel_plain']:.3e}, argmax agreement "
+        f"{checks['argmax_agreement']}")
+    prof = device_profile(eng.step, 5)
+    prof["wall_ms_unprofiled"] = host_wall_ms(eng.step, 5)
+    prof["device_idle_share_unprofiled"] = (
+        1 - prof["device_busy_ms"] / prof["wall_ms_unprofiled"]
+        if prof["device_busy_ms"] else None)
+    prof["paged_launches_recorded"] = sum(
+        c for op, c in prof["launches"].items()
+        if "paged_decode_kernel" in op)
+    prof["eager_wall_ms"] = host_wall_ms(eng_eager.step, 5)
+    log(f"{tag}: decode step (graph, 8 rows, full width): "
+        f"{prof['wall_ms_unprofiled']:.3f} ms host wall (eager "
+        f"{prof['eager_wall_ms']:.3f}), device busy {prof['device_busy_ms']} "
+        f"ms, idle share {prof['device_idle_share_unprofiled']}, "
+        f"{prof['host_aten_ops']:.0f} aten ops, kernel launches recorded "
+        f"{prof['paged_launches_recorded']} of {5 * n_paged} made")
+    for op, ms in prof["top"][:6]:
+        log(f"{tag}:   {ms * 1e3:9.1f} us/step  {op[:90]}")
+    prof.pop("launches")
+    prof.pop("per_launch_ms")
+    del engines, eng, eng_eager
+    _free_cuda()
+    return {**checks, "decode_profile": prof}
 
 
 def _moe_engines(cfg, params, chain: Path) -> dict:
@@ -2819,134 +3084,17 @@ def _moe_engines(cfg, params, chain: Path) -> dict:
 
 def _moe_serve(build: Path) -> dict:
     """(a): full-width serving of moonshot-v1-16b-a3b on SERVE's traffic,
-    three runs (:data:`SERVE_RUNS`), the chain restored, then the engine
-    checks."""
-    import numpy as np
-    import torch
+    three runs (:data:`SERVE_RUNS`) through :func:`_serve_runs`, then the
+    engine checks."""
     from repro_torch.configs import base as configs
-    from repro_torch.core.session import Every, InSituPlan, Placement, \
-        TaskSpec
-    from repro_torch.kernels import paged_attention as PK
-    from repro_torch.launch.serve import (default_serve_plan, serve_loop,
-                                          weight_generator)
-    from repro_torch.core.pytree import leaves as tree_leaves
-    from repro_torch.models import params as P
-    from repro_torch.models import transformer
-    from repro_torch.serving import snapshot as S
 
     cfg = configs.get(MOE_ARCH)
-    chain = build / "smoke_moe_chain"
-
-    def snapshot_plan(directory: Path, emitted: dict) -> InSituPlan:
-        if directory.exists():
-            shutil.rmtree(directory)
-        base = InSituPlan.from_dict(
-            default_serve_plan(snapshot_dir=str(directory)))
-        probe = TaskSpec(name="probe", stream="kv_pages", trigger=Every(4),
-                         placement=Placement.SYNC,
-                         sink=lambda step, p: emitted.__setitem__(
-                             step, S._flatten(p["cache"])))
-        return InSituPlan(streams=base.streams, tasks=[*base.tasks, probe],
-                          workers=base.workers,
-                          staging_capacity=base.staging_capacity)
-
-    runs, emitted, lines, peak = {}, {}, [], {}
-    launches = decode_steps = None
-    # eager and graphed bare, graphed with snapshots (the eager run with
-    # snapshots was cut for the time limit: PERF.md section 4)
-    for key in SERVE_RUNS:
-        graph = key[1]
-        name = f"{'graph' if graph else 'eager'}_{key[0]}"
-        if key[0] == "plan":    # the chain on disk, checked below
-            plan = snapshot_plan(chain, emitted)
-        else:
-            plan = {"streams": ["kv_pages"]}
-        torch.cuda.reset_peak_memory_stats()
-        PK.paged_decode_attention.launches = 0
-        runs[key] = serve_loop(
-            MOE_ARCH, smoke=False, device="cuda", seed=0, plan=plan,
-            cuda_graph=graph, log=lines.append, **SERVE)
-        torch.cuda.synchronize()
-        peak[name] = torch.cuda.max_memory_allocated() / 2**30
-        if key == ("plan", True):
-            launches = PK.paged_decode_attention.launches
-            decode_steps = len(runs[key]["telemetry"].spans(
-                "step/compute"))
-        r = runs[key]
-        rep = r["session_report"]
-        log(f"moe: serve {name}: {r['tok_per_s']:.1f} tok/s, wall "
-            f"{_serve_wall_s(r):.2f} s = admissions "
-            f"{r['telemetry'].total('serve/admit'):.2f} + decode steps "
-            f"{rep['step_compute_s']:.2f} + hand-off dispatch "
-            f"{rep['handoff_dispatch_s']:.2f} + sync stall "
-            f"{rep['sync_stall_s']:.2f} + the rest; peak "
-            f"{peak[name]:.1f} GiB")
-        _free_cuda(empty=False)
-    streams = {k: [r.out for r in run["requests"]] for k, run in runs.items()}
-    for key, got in streams.items():
-        assert got == streams["plan", True], (
-            f"moe serve run {key} decoded other tokens than the graphed run "
-            f"with snapshots")
-    out = runs["plan", True]
-    for r in out["requests"]:
-        assert r.done and len(r.out) == r.max_new, r.rid
-        assert all(0 <= t < cfg.vocab_size for t in r.out), r.rid
-    pools = [m for m in (re.match(r"page pool: (\d+)/", ln) for ln in lines)
-             if m]
-    assert len(pools) == len(SERVE_RUNS) and all(
-        int(m.group(1)) == 0 for m in pools), "page pool not empty at exit"
-    rep = out["session_report"]
-    assert rep["n_errors"] == 0, rep["errors"]
-    assert rep["tasks"]["kv_snapshot"]["publishes"] > 0, "no snapshot"
-    assert launches == decode_steps * cfg.n_layers, (
-        f"kernel launches {launches} != {decode_steps} decode steps x "
-        f"{cfg.n_layers} layers")
-    log(f"moe: the three runs decode the same {SERVE['n_requests']} streams; "
-        f"{launches} kernel launches = {decode_steps} replayed decode steps "
-        f"x {cfg.n_layers} layers")
-    step, leaves = S.SnapshotStore(str(chain)).restore("kv_pages")
-    want = emitted[step]
-    assert list(leaves) == list(want), "restored leaf keys differ"
-    for key, arr in leaves.items():
-        if not np.array_equal(arr.reshape(-1).view(np.uint8),
-                              want[key].reshape(-1).view(np.uint8)):
-            raise AssertionError(f"{chain.name}: restored leaf {key} "
-                                 f"differs at step {step}")
-    restored = {"step": step,
-                "bytes": sum(a.nbytes for a in leaves.values())}
-    emitted.clear()
-    del leaves, want
-    log(f"moe: the graphed run's chain restores bit-identically to what was "
-        f"emitted at step {step} ({restored['bytes']} bytes)")
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    params = P.materialize(weight_generator(cfg, 0, torch.device("cuda"),
-                                            False),
-                           transformer.param_spec(cfg), "cuda")
-    torch.cuda.synchronize()
-    draw_s = time.perf_counter() - t0
-    n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
-    log(f"moe: drew {n_bytes / 1e9:.1f} GB of weights on the card's "
-        f"generator in {draw_s:.2f} s")
+    out = _serve_runs("moe", MOE_ARCH, SERVE_RUNS, build, cfg.n_layers)
+    params, draw = _draw_full("moe", cfg)
     checks = _moe_engines(cfg, params, build / "smoke_moe_replica")
     del params
     _free_cuda()
-    tok_s = {f"{'graph' if g else 'eager'}_{k}": r["tok_per_s"]
-             for (k, g), r in runs.items()}
-    log(f"moe: tok/s {tok_s}")
-    return {"tok_per_s_by_run": tok_s, "peak_gib_by_run": peak,
-            "wall_s_by_run": {f"{'graph' if g else 'eager'}_{k}":
-                              _serve_wall_s(r) for (k, g), r in runs.items()},
-            "step_compute_s_by_run": {
-                f"{'graph' if g else 'eager'}_{k}":
-                    r["session_report"]["step_compute_s"]
-                for (k, g), r in runs.items()},
-            "decode_steps": decode_steps, "launches": launches,
-            "snapshots": rep["tasks"]["kv_snapshot"]["publishes"],
-            "snapshot_drops": rep["drops"].get("kv_snapshot", 0),
-            "restored": restored, "weight_draw_s": draw_s,
-            "weight_bytes": n_bytes, **checks}
+    return {**out, **draw, **checks}
 
 
 def _moe_kernel() -> dict:
@@ -3314,226 +3462,21 @@ def _hybrid_smoke(chain: Path) -> dict:
     return out
 
 
-def _published_bytes(emitted: dict, hints: dict) -> dict:
-    """What the snapshot plan publishes a firing, by part of the payload
-    (``pool``: the global layers' pages; ``state``: SWA rings and SSM
-    state; the rest: tables, lengths, tokens, meta): the raw bytes, and
-    the zlib frames of the last firing the probe kept, as a base and as a
-    delta against the firing before it (what ``SnapshotStore.publish``
-    encodes; the pool's chunks one (layer, page) slab, as the engine's
-    ``chunk_hints`` give them)."""
-    from repro_torch.core import codecs, delta
-
-    steps = sorted(emitted)
-    last, prev = emitted[steps[-1]], emitted[steps[-2]]
-    out: dict = {}
-    pool = codecs.codec_pool()
-    for key, arr in last.items():
-        part = ("pool" if key.startswith("['pool']") else "state"
-                if key.startswith("['state']") else "rest")
-        chunk = int(hints.get(key, codecs.DEFAULT_CHUNK))
-        base, _ = delta.encode(arr, None, codec="zlib", chunk_bytes=chunk,
-                               pool=pool)
-        dlt, _ = delta.encode(arr, prev[key], codec="zlib",
-                              chunk_bytes=chunk, pool=pool)
-        row = out.setdefault(part, {"raw": 0, "base": 0, "delta": 0})
-        row["raw"] += arr.nbytes
-        row["base"] += len(base)
-        row["delta"] += len(dlt)
-    out["firings"] = [steps[-2], steps[-1]]
-    return out
-
-
 def _hybrid_serve(build: Path) -> dict:
     """(c): full-width serving of hymba-1.5b on SERVE's traffic, three
-    runs (:data:`SERVE_RUNS`), the chain restored; then the engine checks
-    and the long run."""
-    import numpy as np
-    import torch
+    runs (:data:`SERVE_RUNS`) through :func:`_serve_runs` (the kernel at
+    its 3 global layers), then the engine checks and the long run."""
     from repro_torch.configs import base as configs
-    from repro_torch.core.session import Every, InSituPlan, Placement, \
-        TaskSpec
-    from repro_torch.core.pytree import leaves as tree_leaves
-    from repro_torch.kernels import paged_attention as PK
-    from repro_torch.launch.serve import (default_serve_plan, serve_loop,
-                                          weight_generator)
-    from repro_torch.models import params as P
-    from repro_torch.models import transformer
-    from repro_torch.serving import snapshot as S
 
     cfg = configs.get(HYBRID_ARCH)
-    chain = build / "smoke_hybrid_chain"
-    n_global = cfg.n_global_layers
-
-    def snapshot_plan(directory: Path, emitted: dict) -> InSituPlan:
-        if directory.exists():
-            shutil.rmtree(directory)
-        base = InSituPlan.from_dict(
-            default_serve_plan(snapshot_dir=str(directory)))
-        probe = TaskSpec(name="probe", stream="kv_pages", trigger=Every(4),
-                         placement=Placement.SYNC,
-                         sink=lambda step, p: emitted.__setitem__(
-                             step, S._flatten(p["cache"])))
-        return InSituPlan(streams=base.streams, tasks=[*base.tasks, probe],
-                          workers=base.workers,
-                          staging_capacity=base.staging_capacity)
-
-    runs, emitted, lines, peak = {}, {}, [], {}
-    launches = decode_steps = None
-    # eager and graphed bare, graphed with snapshots (the eager run with
-    # snapshots was cut for the time limit: PERF.md section 4)
-    for key in SERVE_RUNS:
-        graph = key[1]
-        name = f"{'graph' if graph else 'eager'}_{key[0]}"
-        if key[0] == "plan":    # the chain on disk, checked below
-            plan = snapshot_plan(chain, emitted)
-        else:
-            plan = {"streams": ["kv_pages"]}
-        torch.cuda.reset_peak_memory_stats()
-        PK.paged_decode_attention.launches = 0
-        runs[key] = serve_loop(
-            HYBRID_ARCH, smoke=False, device="cuda", seed=0, plan=plan,
-            cuda_graph=graph, log=lines.append, **SERVE)
-        torch.cuda.synchronize()
-        peak[name] = torch.cuda.max_memory_allocated() / 2**30
-        if key == ("plan", True):
-            launches = PK.paged_decode_attention.launches
-            decode_steps = len(runs[key]["telemetry"].spans(
-                "step/compute"))
-        r = runs[key]
-        rep = r["session_report"]
-        log(f"hybrid: serve {name}: {r['tok_per_s']:.1f} tok/s, wall "
-            f"{_serve_wall_s(r):.2f} s = admissions "
-            f"{r['telemetry'].total('serve/admit'):.2f} + decode steps "
-            f"{rep['step_compute_s']:.2f} + hand-off dispatch "
-            f"{rep['handoff_dispatch_s']:.2f} + sync stall "
-            f"{rep['sync_stall_s']:.2f} + the rest; peak "
-            f"{peak[name]:.2f} GiB")
-        _free_cuda(empty=False)
-    streams = {k: [r.out for r in run["requests"]] for k, run in runs.items()}
-    for key, got in streams.items():
-        assert got == streams["plan", True], (
-            f"hybrid serve run {key} decoded other tokens than the graphed "
-            f"run with snapshots")
-    out = runs["plan", True]
-    for r in out["requests"]:
-        assert r.done and len(r.out) == r.max_new, r.rid
-        assert all(0 <= t < cfg.vocab_size for t in r.out), r.rid
-    pools = [m for m in (re.match(r"page pool: (\d+)/", ln) for ln in lines)
-             if m]
-    assert len(pools) == len(SERVE_RUNS) and all(
-        int(m.group(1)) == 0 for m in pools), "page pool not empty at exit"
-    rep = out["session_report"]
-    assert rep["n_errors"] == 0, rep["errors"]
-    assert rep["tasks"]["kv_snapshot"]["publishes"] > 0, "no snapshot"
-    assert launches == decode_steps * n_global, (
-        f"kernel launches {launches} != {decode_steps} decode steps x "
-        f"{n_global} global layers")
-    log(f"hybrid: the three runs decode the same {SERVE['n_requests']} "
-        f"streams; {launches} kernel launches = {decode_steps} replayed "
-        f"decode steps x {n_global} global layers")
-    step, leaves = S.SnapshotStore(str(chain)).restore("kv_pages")
-    want = emitted[step]
-    assert list(leaves) == list(want), "restored leaf keys differ"
-    for key, arr in leaves.items():
-        if not np.array_equal(arr.reshape(-1).view(np.uint8),
-                              want[key].reshape(-1).view(np.uint8)):
-            raise AssertionError(f"{chain.name}: restored leaf {key} "
-                                 f"differs at step {step}")
-    restored = {"step": step,
-                "bytes": sum(a.nbytes for a in leaves.values())}
-    del leaves, want
-    hints = {k: int(np.prod(a.shape[2:])) * a.itemsize
-             for k, a in emitted[step].items() if k.startswith("['pool']")}
-    published = _published_bytes(emitted, hints)
-    emitted.clear()
-    log(f"hybrid: the graphed run's chain restores bit-identically to what "
-        f"was emitted at step {step} ({restored['bytes']} bytes); bytes a "
-        f"firing (raw / zlib base / zlib delta): {published}")
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    params = P.materialize(weight_generator(cfg, 0, torch.device("cuda"),
-                                            False),
-                           transformer.param_spec(cfg), "cuda")
-    torch.cuda.synchronize()
-    draw_s = time.perf_counter() - t0
-    n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
-    log(f"hybrid: drew {n_bytes / 1e9:.2f} GB of weights on the card's "
-        f"generator in {draw_s:.2f} s")
-    checks = _hybrid_engines(cfg, params)
+    out = _serve_runs("hybrid", HYBRID_ARCH, SERVE_RUNS, build,
+                      cfg.n_global_layers)
+    params, draw = _draw_full("hybrid", cfg)
+    checks = _full_engines("hybrid", cfg, params, cfg.n_global_layers)
     long = _hybrid_long(cfg, params)
     del params
     _free_cuda()
-    tok_s = {f"{'graph' if g else 'eager'}_{k}": r["tok_per_s"]
-             for (k, g), r in runs.items()}
-    log(f"hybrid: tok/s {tok_s}")
-    return {"tok_per_s_by_run": tok_s, "peak_gib_by_run": peak,
-            "wall_s_by_run": {f"{'graph' if g else 'eager'}_{k}":
-                              _serve_wall_s(r) for (k, g), r in runs.items()},
-            "admit_s_by_run": {f"{'graph' if g else 'eager'}_{k}":
-                               r["telemetry"].total("serve/admit")
-                               for (k, g), r in runs.items()},
-            "step_compute_s_by_run": {
-                f"{'graph' if g else 'eager'}_{k}":
-                    r["session_report"]["step_compute_s"]
-                for (k, g), r in runs.items()},
-            "decode_steps": decode_steps, "launches": launches,
-            "snapshots": rep["tasks"]["kv_snapshot"]["publishes"],
-            "snapshot_drops": rep["drops"].get("kv_snapshot", 0),
-            "restored": restored, "published_bytes": published,
-            "weight_draw_s": draw_s, "weight_bytes": n_bytes,
-            "long": long, **checks}
-
-
-def _hybrid_engines(cfg, params) -> dict:
-    """A graphed and an eager full-width engine with 8 rows admitted: the
-    kernel against the plain attention at each global layer of one step,
-    and where a decode step's time goes."""
-    import numpy as np
-    from repro_torch.serving.engine import Request
-    from repro_torch.serving.pages import PagedServingEngine
-
-    geo = dict(num_pages=33, page_size=16, max_reqs=8, prompt_len=16,
-               max_len=64)
-    engines = {}
-    for graph in (True, False):
-        e = engines[graph] = PagedServingEngine(cfg, params, device="cuda",
-                                                cuda_graph=graph, **geo)
-        rng = np.random.default_rng(5)
-        for i in range(8):
-            assert e.admit(Request(i, rng.integers(0, cfg.vocab_size, 16),
-                                   max_new=40))
-    eng, eng_eager = engines[True], engines[False]
-    eng.step()
-    eng_eager.step()
-    checks = _hybrid_kernel_checks(cfg, eng)
-    log(f"hybrid: one full-width decode step: the kernel against the plain "
-        f"attention at the {cfg.n_global_layers} global layers "
-        f"{checks['layer_attention_max_abs_err']} (<= {BF16_ATOL}); logits "
-        f"max |kernel - plain| {checks['logits_max_abs_kernel_plain']:.3e}, "
-        f"argmax agreement {checks['argmax_agreement']}")
-    prof = device_profile(eng.step, 5)
-    prof["wall_ms_unprofiled"] = host_wall_ms(eng.step, 5)
-    prof["device_idle_share_unprofiled"] = (
-        1 - prof["device_busy_ms"] / prof["wall_ms_unprofiled"]
-        if prof["device_busy_ms"] else None)
-    prof["paged_launches_recorded"] = sum(
-        c for op, c in prof["launches"].items()
-        if "paged_decode_kernel" in op)
-    prof["eager_wall_ms"] = host_wall_ms(eng_eager.step, 5)
-    log(f"hybrid: decode step (graph, 8 rows, full width): "
-        f"{prof['wall_ms_unprofiled']:.3f} ms host wall (eager "
-        f"{prof['eager_wall_ms']:.3f}), device busy {prof['device_busy_ms']} "
-        f"ms, idle share {prof['device_idle_share_unprofiled']}, "
-        f"{prof['host_aten_ops']:.0f} aten ops")
-    for op, ms in prof["top"][:6]:
-        log(f"hybrid:   {ms * 1e3:9.1f} us/step  {op[:90]}")
-    prof.pop("launches")
-    prof.pop("per_launch_ms")
-    del engines, eng, eng_eager
-    _free_cuda()
-    return {**checks, "decode_profile": prof}
+    return {**out, **draw, **checks, "long": long}
 
 
 def _hybrid_long(cfg, params) -> dict:
@@ -3582,7 +3525,7 @@ def _hybrid_long(cfg, params) -> dict:
         "hybrid long: graphed and eager engines decoded different tokens")
     del engines[False], eng_eager
     _free_cuda()
-    checks = _hybrid_kernel_checks(cfg, eng)
+    checks = _kernel_checks(cfg, eng, cfg.n_global_layers)
     PK.paged_decode_attention.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -4050,12 +3993,7 @@ def xlstm_phase(build: Path) -> dict:
     """The xLSTM family on the card (see the module docstring, phase 14).
     No kernel runs on its path: every count is set to 0 first and must
     read 0 after."""
-    import torch
     from repro_torch.configs import base as configs
-    from repro_torch.core.pytree import leaves as tree_leaves
-    from repro_torch.launch.serve import weight_generator
-    from repro_torch.models import params as P
-    from repro_torch.models import transformer
 
     _free_cuda()
     _reset_all_launches()
@@ -4067,16 +4005,7 @@ def xlstm_phase(build: Path) -> dict:
     serve_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     cfg = configs.get(XLSTM_ARCH)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    params = P.materialize(weight_generator(cfg, 0, torch.device("cuda"),
-                                            False),
-                           transformer.param_spec(cfg), "cuda")
-    torch.cuda.synchronize()
-    draw_s = time.perf_counter() - t1
-    n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
-    log(f"xlstm: drew {n_bytes / 1e9:.2f} GB of weights ({cfg.n_params()} "
-        f"parameters) on the card's generator in {draw_s:.2f} s")
+    params, draw = _draw_full("xlstm", cfg)
     t1 = time.perf_counter()
     engine = _xlstm_engine(cfg, params, serve["eager_step_ms"])
     engine_s = time.perf_counter() - t1
@@ -4093,12 +4022,409 @@ def xlstm_phase(build: Path) -> dict:
         f"{serve_s:.1f} s, the step profiled and the long prefill "
         f"{checks_s:.1f} s ({engine_s:.1f} + {long_s:.1f}); kernel launches "
         f"over the phase: {launches}")
-    return {"smoke": smoke, "serve": serve, "weight_draw_s": draw_s,
-            "weight_bytes": n_bytes, **engine, "long": long,
+    return {"smoke": smoke, "serve": serve, **draw, **engine, "long": long,
             "launches": launches,
             "part_s": {"smoke": smoke_s, "serve": serve_s,
                        "checks": checks_s, "engine": engine_s,
                        "long": long_s}}
+
+
+# ---------------------------------------------------------------------------
+# frontend phase
+# ---------------------------------------------------------------------------
+
+FRONTEND_SERVE_ARCH = "internvl2-26b"
+FRONTEND_TRAIN_ARCH = "musicgen-medium"
+FRONTEND_BUDGET_S = 150.0
+# kernel 1 at the frontend families' heads, and at hymba's (whose device
+# ms whole-smoke windows never recorded): query heads, kv heads, head dim
+FRONTEND_HEADS = {"internvl2-26b": dict(hq=48, n_kv=8, d=128),
+                  "musicgen-medium": dict(hq=24, n_kv=24, d=64),
+                  "hymba-1.5b": dict(hq=25, n_kv=5, d=64)}
+# the musicgen-medium serve runs (plan, graphed): the graphed bare run only
+# (its eager run was cut for the phase's 150 s; the engine checks hold an
+# eager step against the graphed one: PERF.md section 4)
+FRONTEND_AUDIO_RUNS = (("bare", True),)
+# the musicgen-medium train runs, eager then graphed: steps each, cut from
+# 3 for the phase's 150 s (the graphed run's replays after its first are
+# profiled)
+FRONTEND_TRAIN = dict(steps=2)
+# a smoke forward with a prefix, f32, on the card against the CPU
+FORWARD_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _recorded_device_ms(fn, launches_made: dict, n: int = 20,
+                        tries: int = 3) -> dict:
+    """Device ms of one call of ``fn`` from a profiler window that recorded
+    launches of every kernel of ``launches_made`` (symbol -> launches a
+    call): the sum of each kernel's device time over the launches that
+    window recorded. A window that recorded none of some kernel is run
+    again, up to ``tries`` windows; ``device_ms`` is None if none did."""
+    for attempt in range(1, tries + 1):
+        ms, ops = kernel_device_ms(fn, tuple(launches_made), n)
+        recorded = {sym: sum(c for op, (_, c) in ops.items() if sym in op)
+                    for sym in launches_made}
+        if all(recorded.values()):
+            break
+    return {"device_ms": ms if all(recorded.values()) else None,
+            "recorded": recorded,
+            "made": {sym: per * n for sym, per in launches_made.items()},
+            "windows": attempt, "device_ops": ops}
+
+
+def _frontend_kernel() -> dict:
+    """(a): kernel 1 at internvl2-26b's heads (48 query heads over 8 kv
+    heads of 128) and musicgen-medium's (24 over 24 of 64): B = 8, page
+    16, the serving table of 4 pages and a 256-page one, held against the
+    plain version in bf16 and f32, the head group's shared memory equal to
+    the source's; timed per call and on the device beside the plain
+    version, SDPA on the gathered cache and the bound. hymba's heads are
+    timed the same way (the hybrid phase holds them)."""
+    import torch
+    from repro_torch.kernels import paged_attention as PK
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(2525)
+    _, c_bytes = PK._entry()
+    out: dict = {}
+    for arch, heads in FRONTEND_HEADS.items():
+        hq, n_kv, d = heads["hq"], heads["n_kv"], heads["d"]
+        group = hq // n_kv
+        row = out[arch] = {}
+        for name, pps in (("serve", 4), ("long", 256)):
+            shp = dict(b=8, hq=hq, n_kv=n_kv, d=d, ps=16, pps=pps)
+            full = 16 * pps
+            splits, per = PK.split_plan(pps, 16, 8, n_kv)
+            lengths = [0, 1, 16, 17, full, full, full // 2 + 3, full - 1]
+            for dtype in ((torch.bfloat16, torch.float32)
+                          if arch != "hymba-1.5b" else ()):
+                args = _paged_case(gen, lengths=lengths, dtype=dtype,
+                                   dev=dev, **shp)
+                got = PK.paged_decode_attention(*args)
+                torch.cuda.synchronize()
+                ref = PK.paged_decode_attention_plain(*args)
+                tol = (F32_TOL if dtype == torch.float32
+                       else dict(rtol=0.0, atol=BF16_ATOL))
+                torch.testing.assert_close(got.float(), ref.float(), **tol)
+                err = (got.float() - ref.float()).abs().max().item()
+                elem = args[0].element_size()
+                for g in range(1, n_kv + 1):
+                    if n_kv % g == 0:
+                        a = (g, group, d, d, 16, elem, per)
+                        assert c_bytes(*a) == PK.smem_bytes(*a), a
+                n_h = PK.head_group(n_kv, group, d, d, 16, elem, per)
+                smem = PK.smem_bytes(n_h, group, d, d, 16, elem, per)
+                ctas = 8 * splits * (n_kv // n_h)
+                row[f"{name}_{str(dtype)[6:]}"] = {
+                    "max_abs_err": err, "splits": splits, "per": per,
+                    "kv_heads_per_cta": n_h, "smem_bytes": smem,
+                    "ctas": ctas}
+                log(f"frontend kernel {arch} {name} {str(dtype)[6:]}: "
+                    f"{splits} splits of {per} pages x {n_kv // n_h} "
+                    f"groups of {n_h} kv heads ({n_h * group} query heads "
+                    f"and {smem} B of shared memory a CTA, {ctas} CTAs), "
+                    f"max |kernel - plain| = {err:.3e}")
+            args = _paged_case(gen, lengths=[full] * 8,
+                               dtype=torch.bfloat16, dev=dev, **shp)
+            ref = PK.paged_decode_attention_plain(*args)
+            err = (PK.paged_decode_attention(*args).float()
+                   - ref.float()).abs().max().item()
+            call = lambda: PK.paged_decode_attention(*args)
+            k_ms = time_ms(call)
+            p_ms = time_ms(lambda: PK.paged_decode_attention_plain(*args))
+            lib_ms = time_ms(_sdpa_call(*args))
+            b_ms, b_by = bound_ms("paged_decode_attention", *args)
+            made = {"paged_decode_kernel": 1}
+            if splits > 1:
+                made["paged_combine_kernel"] = 1
+            devt = _recorded_device_ms(call, made)
+            row[name] = {"shape": dict(shp, len=full, dtype="bfloat16"),
+                         "max_abs_err": err, "ms": k_ms,
+                         "device_ms": devt["device_ms"],
+                         "launches_recorded": devt["recorded"],
+                         "launches_made": devt["made"],
+                         "profiler_windows": devt["windows"],
+                         "device_ops": devt["device_ops"], "plain_ms": p_ms,
+                         "library_ms": lib_ms, "bound_ms": b_ms,
+                         "bound_by": b_by, "splits": splits,
+                         "pages_per_split": per}
+            log(f"frontend kernel {arch} {name} timing (bf16, B=8, "
+                f"len={full}): kernel {k_ms:.4f} ms per call (device "
+                f"{devt['device_ms']} ms: launches recorded "
+                f"{devt['recorded']} of {devt['made']} made, "
+                f"{devt['windows']} window(s)), plain {p_ms:.4f} ms, sdpa "
+                f"{lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+    return out
+
+
+def _frontend_smoke(build: Path) -> dict:
+    """(b): both archs at smoke size in f32 through
+    :func:`_smoke_in_lockstep`; for internvl, 8 requests behind a
+    registered shared prefix decode the tokens of the same prompts
+    unshared; a smoke ``forward`` with a prefix on the card against the
+    same call on the CPU (:data:`FORWARD_TOL`)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import base as configs
+    from repro_torch.core.pytree import tree_map
+    from repro_torch.models import params as P
+    from repro_torch.models import transformer
+    from repro_torch.serving.engine import Request
+    from repro_torch.serving.pages import PagedServingEngine
+
+    def check_leaves(leaves):
+        assert sorted(k for k in leaves if k.startswith("['pool']")) == \
+            ["['pool']['kv']['k']", "['pool']['kv']['v']"], list(leaves)
+        assert not any(k.startswith("['state']") for k in leaves)
+
+    out = {}
+    for arch in (FRONTEND_SERVE_ARCH, FRONTEND_TRAIN_ARCH):
+        cfg = dataclasses.replace(configs.get(arch, smoke=True),
+                                  dtype="float32")
+        cpu_params = P.cast_tree(P.materialize(
+            torch.Generator().manual_seed(0), transformer.param_spec(cfg),
+            "cpu"), torch.float32)
+        params = tree_map(lambda t: t.to("cuda"), cpu_params)
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, cfg.vocab_size, 16)
+                   for _ in range(SERVE["n_requests"])]
+        row = _smoke_in_lockstep(arch, cfg, params, prompts,
+                                 dict(prompt_len=16, max_len=64),
+                                 build / f"smoke_{cfg.family}_replica",
+                                 check_leaves)
+        brng = np.random.default_rng(1)
+        toks = brng.integers(0, cfg.vocab_size, (2, 16)).astype(np.int32)
+        pre = brng.standard_normal((2, cfg.frontend_tokens, cfg.d_model)
+                                   ).astype(np.float32)
+        on_card, _, mask = transformer.forward(
+            params, cfg, torch.from_numpy(toks).cuda(),
+            prefix_embeds=torch.from_numpy(pre).cuda())
+        on_cpu, _, _ = transformer.forward(
+            cpu_params, cfg, torch.from_numpy(toks),
+            prefix_embeds=torch.from_numpy(pre))
+        assert tuple(on_card.shape[:2]) == (2, cfg.frontend_tokens + 16)
+        assert float(mask[:, :cfg.frontend_tokens].sum()) == 0.0
+        torch.testing.assert_close(on_card.cpu(), on_cpu, **FORWARD_TOL)
+        row["forward_card_cpu_max_abs"] = (on_card.cpu()
+                                           - on_cpu).abs().max().item()
+        if arch == FRONTEND_SERVE_ARCH:
+            prefix = rng.integers(0, cfg.vocab_size, 16)
+            asks = [np.concatenate([prefix,
+                                    rng.integers(0, cfg.vocab_size, 8)])
+                    for _ in range(8)]
+            streams = {}
+            for shared in (True, False):
+                eng = PagedServingEngine(cfg, params, num_pages=4 * 4 + 2,
+                                         page_size=16, max_reqs=4,
+                                         prompt_len=24, max_len=64,
+                                         device="cuda")
+                if shared:
+                    eng.register_prefix(prefix)
+                reqs = [Request(i, p, max_new=SERVE["max_new"])
+                        for i, p in enumerate(asks)]
+                eng.run(reqs, max_steps=1024)
+                assert all(r.done and len(r.out) == r.max_new for r in reqs)
+                streams[shared] = [r.out for r in reqs]
+                if shared:
+                    row["prefix_stats"] = eng.prefix_stats()
+            assert row["prefix_stats"]["hits"] == len(asks), row
+            assert streams[True] == streams[False], (
+                f"{arch}: the shared-prefix streams differ from the "
+                f"unshared ones")
+            del eng
+        log(f"frontend smoke {arch} (f32): dense and paged engines decode "
+            f"{row['tokens']} tokens token for token; graphed = eager over "
+            f"8 rows (logits bitwise: {row['graph_eager_logits_bitwise']}); "
+            f"a SYNC chain restored at step {row['restored_step']} into a "
+            f"captured replica decodes in lockstep, no prefill; forward "
+            f"with a {cfg.frontend_tokens}-embedding prefix, card against "
+            f"CPU: max |dlogit| {row['forward_card_cpu_max_abs']:.3e} "
+            f"(tolerance {FORWARD_TOL})"
+            + (f"; shared prefix {row['prefix_stats']}, the streams equal "
+               f"the unshared ones" if "prefix_stats" in row else ""))
+        out[arch] = row
+        del params, cpu_params
+        _free_cuda()
+    return out
+
+
+def _frontend_serve(build: Path) -> dict:
+    """(c) and (d): full-width internvl2-26b in :data:`SERVE_RUNS` and
+    musicgen-medium in :data:`FRONTEND_AUDIO_RUNS` through
+    :func:`_serve_runs`, each then through :func:`_full_engines` (all 48
+    layers attend over the pages)."""
+    import torch
+    from repro_torch.configs import base as configs
+
+    out = {}
+    for part, tag, arch, runs in (
+            ("vlm", "frontend", FRONTEND_SERVE_ARCH, SERVE_RUNS),
+            ("audio", "frontend audio", FRONTEND_TRAIN_ARCH,
+             FRONTEND_AUDIO_RUNS)):
+        cfg = configs.get(arch)
+        row = out[part] = _serve_runs(tag, arch, runs, build, cfg.n_layers)
+        torch.cuda.reset_peak_memory_stats()
+        params, draw = _draw_full(tag, cfg)
+        row.update(draw, **_full_engines(tag, cfg, params, cfg.n_layers),
+                   engines_peak_gib=torch.cuda.max_memory_allocated()
+                   / 2**30)
+        del params
+        _free_cuda()
+    return out
+
+
+def _frontend_train() -> dict:
+    """(e): ``train_loop("musicgen-medium", smoke=False)`` eager, then
+    graphed, from seed 0 with no checkpoint task; every batch carries its
+    64 prefix frames. Gates: the graphed losses are the eager ones bit for
+    bit, finite; every forward of the step ran on prefix + tokens; no
+    kernel launched. The graphed run's replays after its first are
+    profiled (a SYNC task on the ``grads`` stream starts and stops the
+    window)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import base as configs
+    from repro_torch.core.session import Every, InSituPlan, Placement, \
+        TaskSpec
+    from repro_torch.launch import train as T
+    from repro_torch.models import transformer
+    from repro_torch.roofline.analysis import PEAK_FLOPS_BF16, model_flops
+
+    cfg = configs.get(FRONTEND_TRAIN_ARCH)
+    steps = FRONTEND_TRAIN["steps"]
+    seq = T.FULL_SHAPE.seq_len + cfg.frontend_tokens
+    want_shape = (T.FULL_SHAPE.global_batch, seq, cfg.padded_vocab)
+    shapes: list = []
+    forward = transformer.forward
+
+    def recording(*args, **kw):
+        out = forward(*args, **kw)
+        shapes.append((tuple(out[0].shape),
+                       kw.get("prefix_embeds") is not None))
+        return out
+
+    runs: dict = {}
+    _reset_all_launches()
+    transformer.forward = recording
+    try:
+        for name, graph in (("eager", False), ("graph", True)):
+            window: dict = {}
+
+            def hook(step, _payload, graph=graph, window=window):
+                if not graph:
+                    return
+                torch.cuda.synchronize()
+                if step == 0:
+                    window["prof"] = profile(activities=[
+                        ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                    window["prof"].start()
+                    window["t0"] = time.perf_counter()
+                elif step == steps - 1:
+                    window["wall_s"] = time.perf_counter() - window["t0"]
+                    window["prof"].stop()
+
+            plan = InSituPlan(streams=["grads", "train_state"], tasks=[
+                TaskSpec(name="window", stream="grads", trigger=Every(1),
+                         placement=Placement.SYNC, sink=hook)])
+            lines: list = []
+            shapes.clear()
+            _free_cuda()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            run = T.train_loop(FRONTEND_TRAIN_ARCH, smoke=False, steps=steps,
+                               plan=plan, device="cuda", seed=0,
+                               cuda_graph=graph, log=lines.append)
+            torch.cuda.synchronize()
+            row = runs[name] = {
+                "losses": run["losses"], "wall_s": time.perf_counter() - t0,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "step_s": [sp.dt for sp in
+                           run["telemetry"].spans("step/compute")],
+                "forward_shapes": sorted(set(shapes))}
+            row["step_median_s"] = statistics.median(row["step_s"])
+            assert np.isfinite(run["losses"]).all(), (name, run["losses"])
+            assert run["session_report"]["n_errors"] == 0
+            assert shapes and all(s == (want_shape, True)
+                                  for s in shapes), (name, set(shapes))
+            cap = [float(m.group(1)) for m in
+                   (re.match(r"captured the train step in ([\d.]+)s", ln)
+                    for ln in lines) if m]
+            if graph:
+                assert len(cap) == 1, lines
+                row["capture_s"] = cap[0]
+                n = steps - 1
+                ops, busy = {}, 0.0
+                for e in window["prof"].key_averages():
+                    if str(getattr(e, "device_type", "")).endswith("CUDA"):
+                        us = getattr(e, "self_device_time_total", None)
+                        if us is None:
+                            us = getattr(e, "self_cuda_time_total", 0)
+                        if us:
+                            ops[e.key] = us / 1e3 / n
+                busy = sum(ops.values())
+                wall_ms = window["wall_s"] * 1e3 / n
+                row.update(
+                    profiled_steps=n, window_wall_ms=wall_ms,
+                    device_busy_ms=busy if ops else None,
+                    device_idle_share=(1 - busy / wall_ms) if ops else None,
+                    top=sorted(ops.items(), key=lambda kv: -kv[1])[:6])
+            log(f"frontend train {name}: {steps} steps of "
+                f"{T.FULL_SHAPE.global_batch} x ({cfg.frontend_tokens} + "
+                f"{T.FULL_SHAPE.seq_len}) tokens, losses {run['losses']}, "
+                f"step/compute s {row['step_s']}, peak "
+                f"{row['peak_gib']:.2f} GiB"
+                + (f", capture {row['capture_s']:.2f} s" if graph else ""))
+            del run
+    finally:
+        transformer.forward = forward
+    g = runs["graph"]
+    assert g["losses"] == runs["eager"]["losses"], (
+        f"frontend train: graphed losses {g['losses']} != eager "
+        f"{runs['eager']['losses']}")
+    launches = _all_launches()
+    assert not any(launches.values()), (
+        f"frontend train: a kernel ran on the train path: {launches}")
+    shape = configs.ShapeConfig("train_4k_b4_prefix", "train", seq,
+                                T.FULL_SHAPE.global_batch)
+    flops = model_flops(cfg, shape)
+    share = flops / g["step_median_s"] / PEAK_FLOPS_BF16
+    log(f"frontend train: graphed losses = eager bit for bit over {steps} "
+        f"steps; every forward ran on {want_shape} logits (prefix + "
+        f"tokens); kernel launches {launches}; graphed step median "
+        f"{g['step_median_s']:.4f} s, device busy {g['device_busy_ms']} ms "
+        f"a replay, idle share {g['device_idle_share']} "
+        f"({g['profiled_steps']} replays profiled); model FLOPs a step "
+        f"(roofline.model_flops at {shape.global_batch} x {seq} tokens) "
+        f"{flops:.4e}, over the median step: {share:.4f} of 989 TFLOP/s "
+        f"bf16")
+    for op, ms in g["top"]:
+        log(f"frontend train:   {ms:9.2f} ms/step  {op[:90]}")
+    return {"runs": runs, "launches": launches, "model_flops": flops,
+            "model_flops_share_of_bf16_peak": share, "seq": seq}
+
+
+def frontend_phase(build: Path) -> dict:
+    """The frontend families on the card (see the module docstring, phase
+    15)."""
+    _free_cuda()
+    part_s = {}
+    t0 = time.perf_counter()
+    kern = _frontend_kernel()
+    part_s["kernel"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    smoke = _frontend_smoke(build)
+    part_s["smoke"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serve = _frontend_serve(build)
+    part_s["serve"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train = _frontend_train()
+    part_s["train"] = time.perf_counter() - t0
+    log(f"frontend phase parts: " + ", ".join(f"{k} {v:.1f} s"
+                                              for k, v in part_s.items()))
+    return {"kernel": kern, "smoke": smoke, "serve": serve, "train": train,
+            "part_s": part_s}
 
 
 def main() -> int:
@@ -4177,6 +4503,11 @@ def main() -> int:
     xlstm["phase_s"] = time.perf_counter() - t0
     log(f"xlstm phase: {xlstm['phase_s']:.1f}s")
     assert xlstm["phase_s"] <= XLSTM_BUDGET_S, xlstm["phase_s"]
+    t0 = time.perf_counter()
+    frontend = frontend_phase(ROOT / "build")
+    frontend["phase_s"] = time.perf_counter() - t0
+    log(f"frontend phase: {frontend['phase_s']:.1f}s")
+    assert frontend["phase_s"] <= FRONTEND_BUDGET_S, frontend["phase_s"]
     all_s = time.perf_counter() - t_phases
     log(f"all phases: {all_s:.1f}s")
 
@@ -4202,14 +4533,25 @@ def main() -> int:
         "long_context": kern["long"],
         "at_moonshot": {k: moe["kernel"][k] for k in ("serve", "long")},
         "at_hymba": {k: hybrid["kernel"][k] for k in ("serve", "long")},
+        "at_hymba_recorded_window": frontend["kernel"]["hymba-1.5b"],
+        "at_internvl": {k: frontend["kernel"]["internvl2-26b"][k]
+                        for k in ("serve", "long")},
+        "at_musicgen": {k: frontend["kernel"]["musicgen-medium"][k]
+                        for k in ("serve", "long")},
         "launches_by_path": {
             "serve": serve["launches"],
             "stream_producer": stream["hydrate"]["producer_launches"],
             "stream_replica": stream["hydrate"]["launches"],
-            "moe_serve": moe["serve"]["launches"],
-            "hybrid_serve": hybrid["serve"]["launches"],
+            "moe_serve": moe["serve"]["graph_plan"]["launches"],
+            "hybrid_serve": hybrid["serve"]["graph_plan"]["launches"],
             "hybrid_long": hybrid["serve"]["long"]["launches"],
-            "xlstm_serve": xlstm["launches"]["paged_decode_attention"]},
+            "xlstm_serve": xlstm["launches"]["paged_decode_attention"],
+            "frontend_serve": frontend["serve"]["vlm"]["graph_plan"][
+                "launches"],
+            "frontend_audio_serve": frontend["serve"]["audio"]["graph_bare"][
+                "launches"],
+            "frontend_train": frontend["train"]["launches"][
+                "paged_decode_attention"]},
     }
     records = [record]
     tpu = "src/repro/kernels/spectral_lossy.py"
@@ -4313,12 +4655,15 @@ def main() -> int:
     log(json.dumps({"moe": moe}))
     log(json.dumps({"hybrid": hybrid}))
     log(json.dumps({"xlstm": xlstm}))
+    log(json.dumps({"frontend": frontend}))
     log(json.dumps({"roofline": {k: v for k, v in roof.items()
                                  if k != "reports"}}))
     for rec in records[1:]:
         rec["launches_by_path"] = {**rec.get("launches_by_path", {}),
                                    "xlstm_serve": xlstm["launches"][
-                                       rec["name"]]}
+                                       rec["name"]],
+                                   "frontend_train": frontend["train"][
+                                       "launches"][rec["name"]]}
     log(card)
     log(json.dumps({"kernels": records}))
     log(json.dumps({"ok": True, "device": {

@@ -3,9 +3,9 @@
 Each architecture the port runs gets one module in this package defining
 ``CONFIG`` (the exact published numbers) and ``smoke()`` (a reduced config
 of the same family for CPU tests). ``get(name)`` resolves either. The port
-carries the dense, MoE, hybrid and ssm (xLSTM) families; the other
-families of the JAX package are listed so that asking for one names the
-ROADMAP item that brings it.
+carries every family of the JAX package: dense, MoE, hybrid, ssm (xLSTM),
+and the frontend families (audio, vlm: the dense backbone behind a stub
+that prepends precomputed frame or patch embeddings).
 """
 from __future__ import annotations
 
@@ -65,7 +65,7 @@ class XLSTMConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                   # dense | moe | hybrid | ssm (ported)
+    family: str                   # dense | moe | ssm | hybrid | vlm | audio
     n_layers: int
     d_model: int
     n_heads: int
@@ -87,6 +87,9 @@ class ModelConfig:
     # hybrid attention (hymba): sliding window on all but the global layers
     swa_window: int = 0           # 0 -> full attention everywhere
     n_global_layers: int = 0      # leading/middle/trailing full-attn layers
+    # modality frontend stub: number of precomputed embedding tokens prepended
+    frontend: Optional[str] = None   # None | 'vit' | 'audio'
+    frontend_tokens: int = 0
     # attention chunking (flash) — bounds prefill's live score memory
     q_chunk: int = 512
     kv_chunk: int = 1024
@@ -161,27 +164,18 @@ _MODULES = {
     "qwen3-4b": "qwen3_4b",
     "smollm-135m": "smollm_135m",
     "qwen1.5-110b": "qwen1_5_110b",
+    "musicgen-medium": "musicgen_medium",
     "deepseek-v3-671b": "deepseek_v3_671b",
     "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
+    "internvl2-26b": "internvl2_26b",
     "hymba-1.5b": "hymba_1_5b",
     "xlstm-1.3b": "xlstm_1_3b",
-}
-
-# archs whose family the port does not carry yet -> that family
-_NOT_PORTED = {
-    "musicgen-medium": "audio",
-    "internvl2-26b": "vlm",
 }
 
 
 def get(name: str, smoke: bool = False) -> ModelConfig:
     import importlib
 
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {name!r} is of the {_NOT_PORTED[name]!r} family, which "
-            f"the PyTorch port does not carry yet (ROADMAP.md, queue 1: "
-            f"'Other model families')")
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCH_IDS)}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")

@@ -36,9 +36,8 @@ class BatchSpec:
 
 
 def batch_spec_for(cfg: ModelConfig, shape: ShapeConfig) -> BatchSpec:
-    # the port carries no frontend families yet: no prefix embeddings
     return BatchSpec(shape.global_batch, shape.seq_len, cfg.vocab_size,
-                     0, cfg.d_model)
+                     cfg.frontend_tokens if cfg.frontend else 0, cfg.d_model)
 
 
 def synth_batch(spec: BatchSpec, step: int, seed: int = 0) -> dict[str, np.ndarray]:

@@ -27,6 +27,7 @@ from repro_torch.core import InSituPlan, Session, Telemetry
 from repro_torch.core.host import resolve_device
 from repro_torch.models import params as P_lib
 from repro_torch.models import transformer
+from repro_torch.models.params import weight_generator
 from repro_torch.serving.engine import Request, ServingEngine
 from repro_torch.serving.pages import PagedServingEngine
 
@@ -68,18 +69,6 @@ def default_serve_plan(*, insitu_mode: str = "async",
                             "options": options},
         },
     }
-
-
-def weight_generator(cfg, seed: int, device: torch.device,
-                     smoke: bool) -> torch.Generator:
-    """The generator ``serve_loop`` draws its random weights from: the
-    card's for a full-width MoE, hybrid or ssm (xLSTM) model on the card
-    (GBs, drawn in seconds there and in minutes on the host), the CPU's
-    for every other config (whose bits the port's other callers draw the
-    same way)."""
-    on_card = (cfg.family in ("moe", "hybrid", "ssm") and not smoke
-               and device.type == "cuda")
-    return torch.Generator(device if on_card else "cpu").manual_seed(seed)
 
 
 def serve_loop(arch: str, *, n_requests: int = 8, max_new: int = 8,

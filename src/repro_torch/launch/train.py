@@ -9,7 +9,11 @@ the CPU at smoke size.
 Shapes: ``smoke=True`` is the CPU smoke shape (2 x 64 tokens);
 ``smoke=False`` is :data:`FULL_SHAPE`, ``train_4k``'s sequence length of
 4096 with the global batch of 256 cut to 4, so that one card and the
-smoke's time limit hold it.
+smoke's time limit hold it. A frontend arch (audio, vlm) adds its
+``frontend_tokens`` precomputed embeddings in front of each row (the
+batch's f32 ``prefix``, ``(B, frontend_tokens, d_model)``: 4 x 64 x 1536
+for ``musicgen-medium``), so its logits span ``frontend_tokens + 4096``
+positions a row; the loss skips the prefix.
 
 The step: :func:`make_train_step` is the functional step (the eager
 oracle and the CPU path). On CUDA the loop runs :func:`graph_train_step`,
@@ -60,7 +64,8 @@ FULL_SHAPE = configs.ShapeConfig(
 def init_state(cfg: configs.ModelConfig, seed: int | torch.Generator,
                opt_cfg: optim.AdamWConfig, *,
                device: str | torch.device = "cuda") -> dict:
-    """Seeded random parameters and zero AdamW moments on ``device``."""
+    """Seeded random parameters (from ``seed``'s CPU generator, or the
+    generator given) and zero AdamW moments on ``device``."""
     dev = host.resolve_device(device)
     gen = (seed if isinstance(seed, torch.Generator)
            else torch.Generator().manual_seed(int(seed)))
@@ -239,7 +244,11 @@ def train_loop(arch: str, *, steps: int = 50, smoke: bool = True,
     package's loop does, counts its steps from 0 again.
 
     The state is bf16 parameters (f32 norms) with bf16 moments, random
-    from ``seed``; the shapes are in the module docstring. On CUDA the
+    from ``seed`` (through ``params.weight_generator``: a full-width model
+    of any family but dense draws on the card's generator); the shapes
+    are in the module docstring. A frontend arch's batch carries its
+    ``prefix`` embeddings, a static f32 buffer of the captured step like
+    the tokens. On CUDA the
     step is :func:`graph_train_step`, captured at the first step (after a
     restore, so that the restored state becomes its static buffers);
     ``cuda_graph=False`` steps eagerly there, and the CPU always does.
@@ -263,7 +272,8 @@ def train_loop(arch: str, *, steps: int = 50, smoke: bool = True,
     if not isinstance(plan, InSituPlan):
         plan = InSituPlan.from_dict(plan)
 
-    state = init_state(cfg, seed, step_cfg.opt, device=dev)
+    state = init_state(cfg, P_lib.weight_generator(cfg, seed, dev, smoke),
+                       step_cfg.opt, device=dev)
     step_fn = make_train_step(cfg, step_cfg)
     use_graph = cuda_graph and dev.type == "cuda"
     graph_step = None

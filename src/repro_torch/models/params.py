@@ -108,6 +108,18 @@ def materialize(generator: torch.Generator, spec_tree: PyTree,
     return tree_map(lambda s: _init_leaf(generator, s, dev), spec_tree)
 
 
+def weight_generator(cfg, seed: int, device: torch.device,
+                     smoke: bool) -> torch.Generator:
+    """The generator ``serve_loop`` and ``train_loop`` draw their random
+    weights from: the card's for a full-width model of any family but
+    dense (MoE, hybrid, ssm, audio, vlm) on the card (GBs, drawn in
+    seconds there and in minutes on the host), the CPU's for every other
+    config (whose bits the port's other callers draw the same way)."""
+    on_card = (cfg.family != "dense" and not smoke
+               and device.type == "cuda")
+    return torch.Generator(device if on_card else "cpu").manual_seed(seed)
+
+
 def from_numpy_tree(tree: PyTree, device: str | torch.device = "cuda"
                     ) -> PyTree:
     """A JAX-package parameter tree (numpy leaves, e.g. after

@@ -1,6 +1,8 @@
-"""Decoder-LM assembly, dense, MoE, hybrid and ssm (xLSTM) families.
+"""Decoder-LM assembly, every family of the JAX package.
 
-  dense  : [GQA attn + SwiGLU] x N
+  dense / audio / vlm : [GQA attn + SwiGLU] x N (audio and vlm prepend
+           precomputed frame or patch embeddings in training,
+           ``frontends.splice_prefix``)
   moe    : [attn (MLA or GQA) + (dense | MoE) ffn], the leading
            ``first_dense`` layers dense; deepseek's MTP head in the loss
   hybrid : [parallel attn + SSM, fused + SwiGLU] x N (hymba), the
@@ -22,12 +24,13 @@ from __future__ import annotations
 from typing import Any, Optional
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.pytree import leaves, tree_map
 from repro_torch.models import attention as attn_lib
-from repro_torch.models import hymba
+from repro_torch.models import frontends, hymba
 from repro_torch.models import mla as mla_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
@@ -38,6 +41,10 @@ from repro_torch.models.layers import (apply_rope, cross_entropy, embed,
 from repro_torch.models.params import ParamSpec
 
 PyTree = Any
+
+#: the families whose backbone is the dense stack (audio and vlm add a
+#: training-time prefix of frontend embeddings, and nothing else)
+DENSE_FAMILIES = ("dense", "audio", "vlm")
 
 
 # ---------------------------------------------------------------------------
@@ -149,11 +156,11 @@ def _xlstm_spec(cfg: ModelConfig) -> dict:
 
 
 def check_family(cfg: ModelConfig) -> None:
-    """Raise for a family the port does not carry yet, naming the ROADMAP
-    item that brings it."""
-    if cfg.family not in ("dense", "moe", "hybrid", "ssm"):
+    """Raise for a family that no package carries, naming the ROADMAP item
+    that would bring one."""
+    if cfg.family not in DENSE_FAMILIES + ("moe", "hybrid", "ssm"):
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP.md, queue 1: "
+            f"family {cfg.family!r} is not ported (ROADMAP.md, queue 1: "
             f"'Other model families')")
 
 
@@ -161,7 +168,7 @@ def param_spec(cfg: ModelConfig) -> dict:
     check_family(cfg)
     spec: dict = {"embed": embed_spec(cfg.padded_vocab, cfg.d_model,
                                       cfg.tie_embeddings)}
-    if cfg.family == "dense":
+    if cfg.family in DENSE_FAMILIES:
         spec["blocks"] = _dense_block_spec(cfg, cfg.n_layers, cfg.d_ff)
     elif cfg.family == "hybrid":
         n_global = len(hymba.global_layer_ids(cfg))
@@ -244,18 +251,26 @@ def _run_blocks(stacked, h: torch.Tensor, cfg: ModelConfig, body, aux):
     return h, aux
 
 
-def forward(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor):
-    """tokens: (B, S) int. Returns (logits, aux_loss, loss_mask)."""
+def forward(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor, *,
+            prefix_embeds: Optional[torch.Tensor] = None):
+    """tokens: (B, S_tok) int. Returns (logits, aux_loss, loss_mask).
+
+    A frontend arch given ``prefix_embeds`` (B, S_pre, d_model) runs them
+    in front of the tokens: logits and loss mask span S_pre + S_tok, the
+    mask zero over the prefix. Any other arch ignores them, as the JAX
+    package does."""
     check_family(cfg)
     h = embed(params["embed"], tokens.long())
     loss_mask = torch.ones(tokens.shape, dtype=torch.float32,
                            device=tokens.device)
+    if cfg.frontend is not None and prefix_embeds is not None:
+        h, loss_mask = frontends.splice_prefix(h, prefix_embeds)
     b, s, _ = h.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device).expand(b, s)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     dense = lambda x, p: (dense_block(p, x, cfg, positions), None)
-    if cfg.family == "dense":
+    if cfg.family in DENSE_FAMILIES:
         h, _ = _run_blocks(params["blocks"], h, cfg, dense, aux)
     elif cfg.family == "hybrid":
         h = _hybrid_forward(params, cfg, h, positions)
@@ -304,10 +319,21 @@ def _xlstm_forward(params: PyTree, cfg: ModelConfig,
 
 def train_loss(params: PyTree, cfg: ModelConfig,
                batch: dict) -> torch.Tensor:
-    logits, aux, mask = forward(params, cfg, batch["tokens"])
+    logits, aux, mask = forward(params, cfg, batch["tokens"],
+                                prefix_embeds=batch.get("prefix"))
+    labels = batch["labels"]
+    # with a modality prefix the hidden sequence is longer than the token
+    # sequence: left-pad the labels (and any user mask) over the prefix,
+    # whose loss mask is already zero
+    s_pre = logits.shape[1] - labels.shape[1]
+    if s_pre:
+        labels = F.pad(labels, (s_pre, 0))
     if "mask" in batch:
-        mask = mask * batch["mask"]
-    loss = cross_entropy(logits, batch["labels"], mask)
+        m = batch["mask"]
+        if s_pre:
+            m = F.pad(m, (s_pre, 0))
+        mask = mask * m
+    loss = cross_entropy(logits, labels, mask)
     if cfg.family == "moe" and cfg.mtp_weight > 0:
         loss = loss + cfg.mtp_weight * _mtp_loss(params, cfg, batch)
     return loss + aux

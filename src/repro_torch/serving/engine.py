@@ -1,5 +1,6 @@
 """Serving: requests, prefill, the decode step (dense, MoE, hybrid and
-ssm families) and the fixed-slot baseline engine.
+ssm families; audio and vlm serve their dense backbone token-only, as in
+the JAX package) and the fixed-slot baseline engine.
 
   prefill(params, tokens)                  -> (logits, cache, lengths)
   decode (params, cache, tokens, lengths)  -> (logits, cache, lengths+1)
@@ -43,7 +44,8 @@ from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.layers import (embed, mlp, rmsnorm, rope_table,
                                        unembed)
-from repro_torch.models.transformer import check_family, project_qkv
+from repro_torch.models.transformer import (DENSE_FAMILIES, check_family,
+                                            project_qkv)
 from repro_torch.serving import kvcache
 
 PyTree = Any
@@ -237,7 +239,7 @@ def make_decode(cfg: ModelConfig) -> Callable:
         at = StepAt(cfg, lengths)
         dense = lambda x, p, kv: _dense_decode_block(p, x, cfg, kv, lengths,
                                                      at)
-        if cfg.family == "dense":
+        if cfg.family in DENSE_FAMILIES:
             h, _ = _scan_decode(params["blocks"], cache["kv"], h, dense)
         elif cfg.family == "hybrid":
             for is_g, p, kv, st in hybrid_layers(
@@ -357,7 +359,7 @@ def _xlstm_prefill(params, cfg: ModelConfig, h: torch.Tensor):
 def stacks(cfg: ModelConfig, params) -> list:
     """The stacked block trees of a dense or MoE model in layer order (the
     hybrid and ssm families interleave block kinds and walk their own)."""
-    if cfg.family == "dense":
+    if cfg.family in DENSE_FAMILIES:
         return [params["blocks"]]
     return ([params["dense_blocks"]] if cfg.moe.first_dense else []) \
         + [params["moe_blocks"]]

@@ -76,7 +76,8 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import mla as mla_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import embed, mlp, rmsnorm, unembed
-from repro_torch.models.transformer import check_family, project_qkv
+from repro_torch.models.transformer import (DENSE_FAMILIES, check_family,
+                                            project_qkv)
 from repro_torch.serving import engine as E
 from repro_torch.serving import kvcache
 from repro_torch.serving import prefix as prefix_lib
@@ -165,7 +166,7 @@ def make_paged_decode(cfg: ModelConfig, page_size: int, *,
                       attn_lib.token_slots(page_table, lengths, ps))
         dense = lambda x, p, kv: _paged_dense_block(
             p, x, cfg, kv, page_table, lengths, ps, attend, at)
-        if cfg.family == "dense":
+        if cfg.family in DENSE_FAMILIES:
             h, _ = E._scan_decode(params["blocks"], pool["kv"], h, dense)
         elif cfg.family == "hybrid":
             for is_g, p, kv, st in E.hybrid_layers(

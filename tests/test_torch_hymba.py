@@ -157,9 +157,16 @@ def test_remat_gives_the_same_loss():
 
 @pytest.mark.parametrize("arch", ["musicgen-medium", "internvl2-26b"])
 def test_unported_families_still_name_their_item(arch):
-    with pytest.raises(NotImplementedError, match="Other model families"):
-        tbase.get(arch)
-    cfg = dataclasses.replace(tbase.get(ARCH, smoke=True),
-                              family=jbase.get(arch).family)
-    with pytest.raises(NotImplementedError, match="Other model families"):
-        TT.param_spec(cfg)
+    """The frontend archs, the last the port refused, now load with every
+    field equal to the JAX package's (full and smoke); a family that no
+    package carries is still refused, naming the ROADMAP item."""
+    for smoke in (False, True):
+        tc, jc = tbase.get(arch, smoke=smoke), jbase.get(arch, smoke=smoke)
+        for f in dataclasses.fields(tc):
+            assert getattr(tc, f.name) == getattr(jc, f.name), f.name
+        TT.check_family(tc)
+    cfg = dataclasses.replace(tbase.get(arch, smoke=True), family="speech")
+    for fn in (TT.check_family, TT.param_spec):
+        with pytest.raises(NotImplementedError,
+                           match="Other model families"):
+            fn(cfg)

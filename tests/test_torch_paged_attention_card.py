@@ -284,3 +284,52 @@ def test_smem_bytes_mirror_the_source(cuda):
                     for per in (1, 2, 4, 8, 256):
                         args = (n_h, group, d_k, d_v, ps, elem, per)
                         assert c_bytes(*args) == PK.smem_bytes(*args), args
+
+
+# the frontend families' heads: internvl2-26b's 48 query heads over 8 kv
+# heads of 128 (group 6; in bf16 one CTA stages all 8 and carries 48 query
+# heads on its 16 warps, three a warp) and musicgen-medium's MHA, 24 query
+# heads over 24 kv heads of 64 (one CTA stages all 24)
+INTERNVL = dict(hq=48, n_kv=8, d_k=128, d_v=128)
+MUSICGEN = dict(hq=24, n_kv=24, d_k=64, d_v=64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("width", [4, 64, 256])
+@pytest.mark.parametrize("shape", ["internvl", "musicgen"])
+def test_frontend_shapes_match_plain_on_card(cuda, shape, width, dtype):
+    heads = INTERNVL if shape == "internvl" else MUSICGEN
+    rng = np.random.default_rng(29)
+    ps, full = 16, 16 * width
+    lengths = [0, 1, ps, ps + 1, full // 2 + 3, full - 1, full, full]
+    args = _case(rng, b=8, ps=ps, pps=width, lengths=lengths,
+                 dtype=getattr(torch, dtype), dev=cuda, **heads)
+    out = PK.paged_decode_attention(*args)
+    torch.cuda.synchronize()
+    ref = PK.paged_decode_attention_plain(*args)
+    tol = F32_TOL if dtype == "float32" else dict(rtol=0, atol=BF16_ATOL)
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    assert torch.equal(_bits(PK.paged_decode_attention(*args)), _bits(out))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [4, 64, 256])
+def test_frontend_head_group_and_smem_mirror_the_source(cuda, width):
+    """In bf16 both frontend shapes keep one group of all their kv heads
+    (internvl's 183.7 KB a CTA, musicgen's 210.6 KB); f32 takes groups (2
+    of internvl's 8 heads, 6 of musicgen's 24); the Python staging has the
+    source's shared-memory bytes for every group that divides the heads."""
+    _, c_bytes = PK._entry()
+    for heads, f32_group in ((INTERNVL, 2), (MUSICGEN, 6)):
+        n_kv, d = heads["n_kv"], heads["d_k"]
+        group = heads["hq"] // n_kv
+        _, per = PK.split_plan(width, 16, 8, n_kv)
+        assert PK.head_group(n_kv, group, d, d, 16, 2, per) == n_kv
+        assert PK.head_group(n_kv, group, d, d, 16, 4, per) == f32_group
+        for elem in (2, 4):
+            for n_h in range(1, n_kv + 1):
+                if n_kv % n_h:
+                    continue
+                args = (n_h, group, d, d, 16, elem, per)
+                assert c_bytes(*args) == PK.smem_bytes(*args), args

@@ -146,16 +146,28 @@ def test_one_seed_gives_one_set_of_weights():
 
 
 def test_serve_loop_draws_on_the_cpu_unless_full_width_moe_on_the_card():
+    """The CPU's generator everywhere but a full-width model of a non-dense
+    family on the card: MoE, and the frontend families (vlm, audio), whose
+    19.9 G / 1.8 G parameters would take minutes on the host's."""
     cpu = torch.device("cpu")
-    for arch in ("smollm-135m", "moonshot-v1-16b-a3b", "deepseek-v3-671b"):
+    for arch in ("smollm-135m", "moonshot-v1-16b-a3b", "deepseek-v3-671b",
+                 "internvl2-26b", "musicgen-medium"):
         for smoke in (True, False):
             gen = weight_generator(tbase.get(arch, smoke=smoke), 0, cpu,
                                    smoke)
             assert gen.device.type == "cpu"
-    # smollm on the card still draws on the CPU's generator
+    # smollm on the card still draws on the CPU's generator, and so does
+    # a smoke config
     gen = weight_generator(tbase.get("smollm-135m"), 0,
                            torch.device("cuda"), False)
     assert gen.device.type == "cpu"
+    for arch in ("internvl2-26b", "musicgen-medium"):
+        assert weight_generator(tbase.get(arch, smoke=True), 0,
+                                torch.device("cuda"),
+                                True).device.type == "cpu"
+        if torch.cuda.is_available():
+            assert weight_generator(tbase.get(arch), 0, torch.device("cuda"),
+                                    False).device.type == "cuda"
 
 
 def test_hybrid_spec_and_count_match_jax():

@@ -56,12 +56,32 @@ def test_prefix_requests_share_pages():
 
 
 def test_waiting_parts_say_so():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve_loop("musicgen-medium", device="cpu")
+    """What still waits on ROADMAP queue 1's 'Distribution and faults'
+    says so: the ``fault`` preset, and an elastic restore (a re-mesh onto
+    surviving devices)."""
+    with Session(default_serve_plan()) as session:
+        with pytest.raises(PlanError, match="Distribution and faults"):
+            session.restore({}, elastic=True)
     plan = default_serve_plan()
     plan["tasks"]["fault"] = {"stream": "kv_pages", "preset": "fault"}
     with pytest.raises(PlanError, match="not ported"):
         Session(plan)
+
+
+@pytest.mark.parametrize("arch", ["musicgen-medium", "internvl2-26b"])
+def test_serves_the_frontend_archs(arch):
+    """The frontend families serve their dense backbone token-only (no
+    prefix embeddings, as in the JAX package): every request served, every
+    page back but the pinned prefix's one, no in-situ error, and the
+    shared prefix mapped for each request."""
+    lines = []
+    out = serve_loop(arch, n_requests=3, max_new=4, slots=2, prefix_len=16,
+                     device="cpu", log=lines.append)
+    assert all(r.done and len(r.out) == 4 for r in out["requests"])
+    assert any(ln.startswith("page pool: 1/16 pages in use at exit")
+               for ln in lines), lines
+    assert out["session_report"]["n_errors"] == 0
+    assert out["prefix_stats"]["hits"] == 3
 
 
 def test_serves_hymba_with_a_snapshot_chain(tmp_path):
