@@ -143,7 +143,9 @@ Phases (any failure exits non-zero; none is swallowed):
    and weights cast) through the dense 4-slot engine and a 4-row paged
    engine, both graphed: every stream equal token for token.
 9. train   — the port's ``train_loop("smollm-135m", smoke=False)``:
-   full published widths, batch 4 x 4096 tokens (``train_4k``'s length,
+   published widths at 10 of its 30 layers (``SMOLLM_TRAIN_LAYERS``, cut
+   for the time limit; phases 9 and 10 only), batch 4 x 4096 tokens
+   (``train_4k``'s length,
    its global batch of 256 cut to 4 for one card), bf16 state from seed
    0, each step a replay of the captured train step (the default). First
    the bare loop (no in-situ task), 3 steps from seed 0, eagerly twice
@@ -343,6 +345,46 @@ Phases (any failure exits non-zero; none is swallowed):
    medians, the replayed step's device busy ms and idle share, peak
    memory, the model FLOPs a step over the median step as a share of 989
    TFLOP/s. The phase must take at most 150 s.
+16. family_train — the train path of the hybrid, xLSTM and MoE/MLA
+   families, through ``tools/torch_family_train.py``'s ``run`` (module
+   docstring there; the full depths run there, not here). (a)
+   ``train_loop("hymba-1.5b", smoke=False)`` at full width and 4 of its
+   32 layers (``FAMILY_HYMBA``: a global layer 0, then 3 sliding-window
+   layers; ``configs.get`` patched for the call; 4 x 4096 tokens, bf16,
+   seed 0 on the card's generator): 2 steps eagerly, then 2 graphed with
+   a HYBRID checkpoint that saves at step 0 (frames raw) and a SYNC probe
+   keeping the state emitted there, then a second graphed ``train_loop``
+   on the same directory that logs "resumed from step 0" and takes 1
+   step.
+   Gates: the graphed losses equal the eager ones bit for bit, all
+   finite; the restored params and count equal those emitted at step 0
+   bit for bit and each moment leaf is within ``error_bound(1e-2)``
+   (or, below the selectors' absolute energy slack of 1e-30, within an
+   error norm of 1e-15; checked on the card); kernels 2-4 once a packed
+   group of the save (``ops.GROUP_BYTES``), kernel 5 once a restored
+   moment leaf, no other
+   kernel (counts set to 0 before each run, read after); after the
+   resume, kernels 2-5 against their plain versions (``spectral_check``,
+   the spectral phase's tolerances) on the packed buffer of the save's
+   largest group and of its largest leaf past ``ops.GROUP_BYTES`` where
+   one is, made from the moments emitted at step 0 (those launches not
+   counted). Printed: step
+   seconds and medians, capture seconds, peak memory, the last replay's
+   device busy ms and idle share (a SYNC task opens the profiler window
+   after the step-0 save and closes it at the last step), model FLOPs
+   over the median step as a share of 989 TFLOP/s, the save's groups,
+   loop blocking and bytes raw and stored, the restore's seconds and
+   worst moment error. (b) ``xlstm-1.3b`` at full width in one
+   super-block (8 blocks: 7 mLSTM, 1 sLSTM), the same runs and gates
+   with one eager step (the graphed losses equal it over that step) and
+   its resumed step eager (a capture there takes ~60 s). (c) The smoke
+   configs of ``moonshot-v1-16b-a3b`` and ``deepseek-v3-671b`` (smoke
+   shape, bf16):
+   3 steps eagerly and 3 graphed, each run with a HYBRID save at step 0,
+   and the resume; the same gates, and the eager losses within 2e-2 (the
+   MoE family's bf16 bound) of the port's own CPU run of the same seed.
+   The phase must take at most 280 s (xlstm's 4096-step sLSTM loop takes
+   12-18 s an eager step and ~60 s a capture at one super-block).
 
 The last lines are the card line, one JSON object with every kernel's
 numbers, and ``{"ok": true, "device": {...}}``.
@@ -350,6 +392,7 @@ numbers, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -386,6 +429,10 @@ MOE_BUDGET_S = 150.0
 SERVE_RUNS = (("bare", False), ("bare", True), ("plan", True))
 HYBRID_BUDGET_S = 150.0
 XLSTM_BUDGET_S = 150.0
+# the train and train (sync/async) phases run smollm-135m at 10 of its 30
+# layers (widths unchanged) for the time limit (PERF.md section 4); the
+# spectral, single-tensor and roofline phases keep the full-width shapes
+SMOLLM_TRAIN_LAYERS = 10
 
 
 def log(msg: str) -> None:
@@ -1557,42 +1604,14 @@ def serve_phase(chain_dir: Path) -> dict:
             "argmax_agreement": agree.item()}
 
 
-def _check_restored(restored, emitted: dict, what: str) -> float:
-    """A restored training state against the one emitted at its step:
-    params and count bitwise, moments within ``error_bound(EPS)`` relative
-    L2 per leaf. Returns the worst moment error."""
-    import numpy as np
-    import torch
-    from repro_torch.core import pytree
-    from repro_torch.kernels import ref
-
-    worst = 0.0
-    for path, t in pytree.flatten_with_path(restored):
-        key = pytree.keystr(path)
-        want = emitted[key]
-        if key.startswith("['mu']") or key.startswith("['nu']"):
-            w = torch.from_numpy(want.view(np.int16)).view(torch.bfloat16) \
-                if want.dtype.kind == "u" else torch.from_numpy(want)
-            err = ref.rel_l2_error(w.float(), t.float().cpu())
-            worst = max(worst, err)
-            assert err <= ref.error_bound(EPS), (what, key, err)
-        else:
-            got = (t.view(torch.int16) if t.dtype == torch.bfloat16
-                   else t).cpu().numpy()
-            if not np.array_equal(got.reshape(-1).view(np.uint8),
-                                  want.reshape(-1).view(np.uint8)):
-                raise AssertionError(f"{what}: restored {key} differs from "
-                                     f"the state emitted at its step")
-    return worst
-
-
 # ---------------------------------------------------------------------------
 # stream phase
 # ---------------------------------------------------------------------------
 
+@functools.cache
 def _load_tool(name: str):
     """A module of ``tools/`` by path (the tools are scripts, not a
-    package)."""
+    package), loaded once."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(name,
@@ -1600,6 +1619,15 @@ def _load_tool(name: str):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def _family_tool():
+    """``tools/torch_family_train.py``: the one definition of the restore
+    check (``check_restored``), the checkpoint's loop blocking
+    (``ckpt_blocking_s``), the launch counts (``launches`` /
+    ``reset_launches``) and the depth cuts (``config_as``) every phase
+    uses."""
+    return _load_tool("torch_family_train")
 
 
 def _sha256(path: Path) -> str:
@@ -1767,7 +1795,8 @@ def stream_phase(build: Path) -> dict:
     restore_launches = K.dequant_idct.launches
     assert restore_launches == n_lossy, (restore_launches, n_lossy)
     assert emitted.get("step") == 3, emitted.get("step")
-    worst = _check_restored(restored, emitted["state"], "consumed step 3")
+    worst = _family_tool().check_restored(
+        restored, emitted["state"], "consumed step 3")["worst_rel_l2"]
     del restored, template, emitted
     torch.cuda.empty_cache()
     result["mirror"] = {
@@ -2037,7 +2066,8 @@ def train_phase(ckpt_dir: Path) -> dict:
     restore_launches = K.dequant_idct.launches
     assert restore_launches == n_lossy, (restore_launches, n_lossy)
     assert emitted.get("step") == newest, emitted.get("step")
-    worst = _check_restored(restored, emitted["state"], f"step {newest}")
+    worst = _family_tool().check_restored(
+        restored, emitted["state"], f"step {newest}")["worst_rel_l2"]
     log(f"train: restored step {newest} in {restore_s:.2f}s: params bitwise, "
         f"moments worst rel L2 {worst:.4e} (bound "
         f"{ref.error_bound(EPS):.4e}), {restore_launches} dequant_idct "
@@ -2105,12 +2135,12 @@ def train_phase(ckpt_dir: Path) -> dict:
 
     with_ckpt = _per_step(rep, steps, out["telemetry"])
     without = _per_step(bare_rep, steps, bare["telemetry"])
-    blocking = _ckpt_blocking_s(out["telemetry"])
+    blocking = _family_tool().ckpt_blocking_s(out["telemetry"])
     result = {
         "ckpt_blocking_s": blocking,
         "ckpt_blocking_s_per_save": blocking / n_saves,
-        "ckpt_blocking_s_first_save": _ckpt_blocking_s(out["telemetry"],
-                                                       first_save=True),
+        "ckpt_blocking_s_first_save": _family_tool().ckpt_blocking_s(
+            out["telemetry"], first_save=True),
         "losses_without_ckpt": bare["losses"], "losses": out["losses"],
         "resume_losses": res["losses"],
         "step_s_without_ckpt": without["step_s"],
@@ -2145,22 +2175,6 @@ def train_phase(ckpt_dir: Path) -> dict:
     del state, restored, template
     torch.cuda.empty_cache()
     return result
-
-
-def _ckpt_blocking_s(tm, first_save: bool = False) -> float:
-    """Seconds the checkpoint task held the loop: its SYNC chain, its
-    device stage (HYBRID), its hand-off dispatch and any blocking
-    hand-off. ``first_save`` counts only the save at step 0 (the spans
-    before step 1's compute), which carries the one-time costs."""
-    end = math.inf
-    if first_save:
-        end = next(sp.t0 for sp in tm.spans("step/compute") if sp.step == 1)
-    return sum(sp.dt for sp in tm.spans()
-               if sp.t0 < end
-               and (sp.name in ("insitu-sync/checkpoint",
-                                "insitu-device/checkpoint")
-                    or (sp.name in ("handoff/dispatch", "step/handoff")
-                        and sp.meta.get("task") == "checkpoint")))
 
 
 def placements_phase(ckpt_root: Path, hybrid: dict) -> dict:
@@ -2222,7 +2236,7 @@ def placements_phase(ckpt_root: Path, hybrid: dict) -> dict:
                      "dequant_idct"):
             assert launches[name] == 0, (mode, launches)
         tm = run["telemetry"]
-        blocking = _ckpt_blocking_s(tm)
+        blocking = _family_tool().ckpt_blocking_s(tm)
         worker_s = tm.total("insitu-async/checkpoint")
 
         template = T.init_state(cfg, 1, T.StepConfig().opt, device="cuda")
@@ -2234,8 +2248,9 @@ def placements_phase(ckpt_root: Path, hybrid: dict) -> dict:
         restore_s = time.perf_counter() - t0
         assert K.dequant_idct.launches == n_lossy, K.dequant_idct.launches
         assert emitted.get("step") == newest, emitted.get("step")
-        worst = _check_restored(restored, emitted["state"],
-                                f"{mode} step {newest}")
+        worst = _family_tool().check_restored(
+            restored, emitted["state"], f"{mode} step {newest}")[
+                "worst_rel_l2"]
         del restored, template, emitted
         torch.cuda.empty_cache()
         loop = _per_step(rep, steps, tm)
@@ -2245,7 +2260,7 @@ def placements_phase(ckpt_root: Path, hybrid: dict) -> dict:
             "loop": loop,
             "ckpt_blocking_s": blocking,
             "ckpt_blocking_s_per_save": blocking / n_saves,
-            "ckpt_blocking_s_first_save": _ckpt_blocking_s(
+            "ckpt_blocking_s_first_save": _family_tool().ckpt_blocking_s(
                 tm, first_save=True),
             "ckpt_worker_s": worker_s,
             "probe_sync_s": tm.total("insitu-sync/probe"),
@@ -2333,12 +2348,12 @@ def placements_phase(ckpt_root: Path, hybrid: dict) -> dict:
             assert off <= spread["eager_spread"], (mode, run["losses"], want)
         tm = run["telemetry"]
         loop = _per_step(rep, steps, tm)
-        blocking = _ckpt_blocking_s(tm)
+        blocking = _family_tool().ckpt_blocking_s(tm)
         out["eager"][mode] = {
             "losses": run["losses"], "wall_s": wall,
             "step_median_s": loop["step_median_s"], "loop": loop,
             "ckpt_blocking_s_per_save": blocking / eager_saves,
-            "ckpt_blocking_s_first_save": _ckpt_blocking_s(
+            "ckpt_blocking_s_first_save": _family_tool().ckpt_blocking_s(
                 tm, first_save=True),
             "ckpt_worker_s": tm.total("insitu-async/checkpoint"),
             "graph_loss_max_abs_diff": off}
@@ -2560,7 +2575,8 @@ def checkpoint_writes(ckpt_root: Path, n_lossy: int) -> dict:
             assert n == (1 if tiled else 0), (name, launches)
         rep = mgr.reports[-1]
         tm = mgr.telemetry
-        out[name] = {"wall_s": wall, "blocking_s": _ckpt_blocking_s(tm),
+        out[name] = {"wall_s": wall,
+                     "blocking_s": _family_tool().ckpt_blocking_s(tm),
                      "worker_s": tm.total("insitu-async/checkpoint"),
                      "raw_bytes": rep.raw_bytes,
                      "stored_bytes": rep.stored_bytes, "launches": launches}
@@ -2596,8 +2612,8 @@ def checkpoint_writes(ckpt_root: Path, n_lossy: int) -> dict:
         assert step == 0
         assert K.dequant_idct.launches == n_lossy, K.dequant_idct.launches
         out[name]["restore_launches"] = K.dequant_idct.launches
-        out[name]["moments_worst_rel_l2"] = _check_restored(restored,
-                                                            emitted, name)
+        out[name]["moments_worst_rel_l2"] = _family_tool().check_restored(
+            restored, emitted, name)["worst_rel_l2"]
         del restored
     del state, emitted
     torch.cuda.empty_cache()
@@ -3587,24 +3603,6 @@ DIGEST_PIECE = 256 << 20          # bytes a sha256 covers in a leaf's digest
 ZLIB_PROBE = 64 << 20             # bytes of c the zlib rate is measured on
 
 
-def _all_launches() -> dict:
-    """Every kernel wrapper's launch count, by name."""
-    from repro_torch.kernels import paged_attention as PK
-    from repro_torch.kernels import spectral_lossy as K
-
-    out = {k.__name__: k.launches for k in K.KERNELS}
-    out["paged_decode_attention"] = PK.paged_decode_attention.launches
-    return out
-
-
-def _reset_all_launches() -> None:
-    from repro_torch.kernels import paged_attention as PK
-    from repro_torch.kernels import spectral_lossy as K
-
-    K.reset_launches()
-    PK.paged_decode_attention.launches = 0
-
-
 def _mem_available_gib() -> float:
     with open("/proc/meminfo") as f:
         for ln in f:
@@ -3778,7 +3776,7 @@ def _xlstm_serve(build: Path) -> dict:
         return rec
 
     runs, lines, peak, mem, tail = {}, [], {}, {}, {}
-    launches_before = _all_launches()
+    launches_before = _family_tool().launches()
     t_runs = time.perf_counter()
     for key in SERVE_RUNS:
         graph = key[1]
@@ -3812,7 +3810,8 @@ def _xlstm_serve(build: Path) -> dict:
             f"{mem[name]}")
         _free_cuda(empty=False)
     hasher.shutdown()
-    launches = {k: v - launches_before[k] for k, v in _all_launches().items()}
+    launches = {k: v - launches_before[k]
+                for k, v in _family_tool().launches().items()}
     streams = {k: [r.out for r in run["requests"]] for k, run in runs.items()}
     for key, got in streams.items():
         assert got == streams["plan", True], (
@@ -3996,7 +3995,7 @@ def xlstm_phase(build: Path) -> dict:
     from repro_torch.configs import base as configs
 
     _free_cuda()
-    _reset_all_launches()
+    _family_tool().reset_launches()
     t0 = time.perf_counter()
     smoke = _xlstm_smoke(build / "smoke_xlstm_replica")
     smoke_s = time.perf_counter() - t0
@@ -4015,7 +4014,7 @@ def xlstm_phase(build: Path) -> dict:
     del params
     _free_cuda()
     checks_s = time.perf_counter() - t0
-    launches = _all_launches()
+    launches = _family_tool().launches()
     assert not any(launches.values()), (
         f"xlstm: a kernel ran on the xLSTM path: {launches}")
     log(f"xlstm phase parts: smoke {smoke_s:.1f} s, full-width serve "
@@ -4305,7 +4304,7 @@ def _frontend_train() -> dict:
         return out
 
     runs: dict = {}
-    _reset_all_launches()
+    _family_tool().reset_launches()
     transformer.forward = recording
     try:
         for name, graph in (("eager", False), ("graph", True)):
@@ -4382,7 +4381,7 @@ def _frontend_train() -> dict:
     assert g["losses"] == runs["eager"]["losses"], (
         f"frontend train: graphed losses {g['losses']} != eager "
         f"{runs['eager']['losses']}")
-    launches = _all_launches()
+    launches = _family_tool().launches()
     assert not any(launches.values()), (
         f"frontend train: a kernel ran on the train path: {launches}")
     shape = configs.ShapeConfig("train_4k_b4_prefix", "train", seq,
@@ -4425,6 +4424,98 @@ def frontend_phase(build: Path) -> dict:
                                               for k, v in part_s.items()))
     return {"kernel": kern, "smoke": smoke, "serve": serve, "train": train,
             "part_s": part_s}
+
+
+# ---------------------------------------------------------------------------
+# family_train phase
+# ---------------------------------------------------------------------------
+
+FAMILY_BUDGET_S = 280.0
+FAMILY_FULL = dict(eager_steps=2, graph_steps=2)      # (a)
+FAMILY_SMOKE = dict(eager_steps=3, graph_steps=3)     # (c)
+# depth cut for the time limit (PERF.md section 4): hymba-1.5b's step
+# takes ~30 s at 32 layers, ~0.94 s a layer (its full depth runs in
+# tools/torch_family_train.py). 4 layers, one of them global (layer 0,
+# then 3 sliding-window layers): the full model's 3 global layers of 32
+# kept at 4 layers would make 3 of the 4 global
+FAMILY_HYMBA = dict(n_layers=4, n_global_layers=1)
+# (b) one super-block: 7 mLSTM + 1 sLSTM; one eager step (12-18 s) and a
+# resumed step run eagerly (a capture takes ~60 s there: two eager
+# warm-up steps of the 4096-step sLSTM loop and the recording)
+FAMILY_XLSTM_BLOCKS = 8
+FAMILY_XLSTM = dict(eager_steps=1, graph_steps=2, resume_graph=False)
+FAMILY_MOE_ARCHS = ("moonshot-v1-16b-a3b", "deepseek-v3-671b")
+# the card's smoke-config bf16 losses against the port's CPU run: the MoE
+# family's bf16 bound (tests/test_torch_moe.py)
+FAMILY_CPU_LOSS_ATOL = 2e-2
+
+
+def _family_kernel_check(xb, rows, label) -> dict:
+    """Kernels 2-5 against their plain versions (``spectral_check``, the
+    spectral phase's tolerances) on a packed buffer of a family's save."""
+    res = spectral_check(xb, rows, EPS, label)
+    return {"blocks": sum(rows), "leaves": res["leaves"], "err": res["err"],
+            "thresholds_differing": res["thresholds_differing"]}
+
+
+def family_train_phase(build: Path) -> dict:
+    """The hybrid, xLSTM and MoE/MLA families' train path (see the module
+    docstring, phase 16), through ``tools/torch_family_train.py``'s
+    ``run``."""
+    import numpy as np
+    from repro_torch.configs import base as configs
+    from repro_torch.launch import train as T
+
+    tool = _family_tool()
+    root = build / "smoke_family_ckpt"
+    out: dict = {"part_s": {}}
+    total: dict = {}
+
+    def one(name, arch, **kw):
+        t0 = time.perf_counter()
+        res = out[name] = tool.run(arch, ckpt_dir=str(root / name),
+                                  tag=f"family {name}", log=log,
+                                  kernel_check=_family_kernel_check, **kw)
+        assert "largest group" in res["kernel_check"], res["kernel_check"]
+        out["part_s"][name] = time.perf_counter() - t0
+        for k, n in res["launches"].items():
+            total[k] = total.get(k, 0) + n
+        return res
+
+    _free_cuda()
+    hcfg = dataclasses.replace(configs.get(HYBRID_ARCH), **FAMILY_HYMBA)
+    with tool.config_as(HYBRID_ARCH, hcfg):
+        one("hymba", HYBRID_ARCH, **FAMILY_FULL)
+    _free_cuda()
+    xcfg = dataclasses.replace(configs.get(XLSTM_ARCH),
+                               n_layers=FAMILY_XLSTM_BLOCKS)
+    with tool.config_as(XLSTM_ARCH, xcfg):
+        one("xlstm", XLSTM_ARCH, **FAMILY_XLSTM)
+    for arch in FAMILY_MOE_ARCHS:
+        _free_cuda()
+        name = arch.split("-")[0]
+        res = one(name, arch, smoke=True, save_eager=True, **FAMILY_SMOKE)
+        t0 = time.perf_counter()
+        cpu = T.train_loop(arch, smoke=True, steps=FAMILY_SMOKE["eager_steps"],
+                           plan={"streams": ["grads", "train_state"]},
+                           device="cpu", seed=0, log=lambda m: None)
+        out["part_s"][name + "_cpu"] = time.perf_counter() - t0
+        card = res["runs"]["eager"]["losses"]
+        diff = float(np.max(np.abs(np.asarray(card) - cpu["losses"])))
+        res["cpu_losses"], res["cpu_max_abs_diff"] = cpu["losses"], diff
+        assert diff <= FAMILY_CPU_LOSS_ATOL, (arch, card, cpu["losses"])
+        log(f"family {name}: card losses {card}, the port's CPU run "
+            f"{cpu['losses']}: max |d| {diff:.3e} (atol "
+            f"{FAMILY_CPU_LOSS_ATOL})")
+    for k in ("dct_hist_coarse_tiled", "hist_refine_tiled",
+              "threshold_quant", "dequant_idct"):
+        assert total[k] > 0, (k, total)
+    assert total["paged_decode_attention"] == 0, total
+    out["launches"] = total
+    log(f"family_train phase parts: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in out["part_s"].items())
+        + f"; launches {total}")
+    return out
 
 
 def main() -> int:
@@ -4476,13 +4567,20 @@ def main() -> int:
     t0 = time.perf_counter()
     stream = stream_phase(ROOT / "build")
     log(f"stream phase: {time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
-    train = train_phase(ROOT / "build" / "smoke_ckpt")
-    log(f"train phase: {time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
-    placements = placements_phase(ROOT / "build" / "smoke_ckpt_placements",
-                                  train)
-    log(f"train (sync/async ckpt) phase: {time.perf_counter() - t0:.1f}s")
+    from repro_torch.configs import base as configs
+    family_tool = _family_tool()
+    smollm_cut = dataclasses.replace(configs.get("smollm-135m"),
+                                     n_layers=SMOLLM_TRAIN_LAYERS)
+    with family_tool.config_as("smollm-135m", smollm_cut):
+        t0 = time.perf_counter()
+        train = train_phase(ROOT / "build" / "smoke_ckpt")
+        log(f"train phase: {time.perf_counter() - t0:.1f}s "
+            f"(smollm-135m at {SMOLLM_TRAIN_LAYERS} layers)")
+        t0 = time.perf_counter()
+        placements = placements_phase(
+            ROOT / "build" / "smoke_ckpt_placements", train)
+        log(f"train (sync/async ckpt) phase: "
+            f"{time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     insitu = insitu_phase(ROOT / "build" / "smoke_insitu")
     insitu["phase_s"] = time.perf_counter() - t0
@@ -4508,6 +4606,11 @@ def main() -> int:
     frontend["phase_s"] = time.perf_counter() - t0
     log(f"frontend phase: {frontend['phase_s']:.1f}s")
     assert frontend["phase_s"] <= FRONTEND_BUDGET_S, frontend["phase_s"]
+    t0 = time.perf_counter()
+    fam = family_train_phase(ROOT / "build")
+    fam["phase_s"] = time.perf_counter() - t0
+    log(f"family_train phase: {fam['phase_s']:.1f}s")
+    assert fam["phase_s"] <= FAMILY_BUDGET_S, fam["phase_s"]
     all_s = time.perf_counter() - t_phases
     log(f"all phases: {all_s:.1f}s")
 
@@ -4551,7 +4654,8 @@ def main() -> int:
             "frontend_audio_serve": frontend["serve"]["audio"]["graph_bare"][
                 "launches"],
             "frontend_train": frontend["train"]["launches"][
-                "paged_decode_attention"]},
+                "paged_decode_attention"],
+            "family_train": fam["launches"]["paged_decode_attention"]},
     }
     records = [record]
     tpu = "src/repro/kernels/spectral_lossy.py"
@@ -4656,6 +4760,7 @@ def main() -> int:
     log(json.dumps({"hybrid": hybrid}))
     log(json.dumps({"xlstm": xlstm}))
     log(json.dumps({"frontend": frontend}))
+    log(json.dumps({"family_train": fam}))
     log(json.dumps({"roofline": {k: v for k, v in roof.items()
                                  if k != "reports"}}))
     for rec in records[1:]:
@@ -4663,7 +4768,9 @@ def main() -> int:
                                    "xlstm_serve": xlstm["launches"][
                                        rec["name"]],
                                    "frontend_train": frontend["train"][
-                                       "launches"][rec["name"]]}
+                                       "launches"][rec["name"]],
+                                   "family_train": fam["launches"][
+                                       rec["name"]]}
     log(card)
     log(json.dumps({"kernels": records}))
     log(json.dumps({"ok": True, "device": {

@@ -16,7 +16,8 @@ What a capture asks of its caller:
   the graph's private memory pool and the next replay overwrites it;
 * no host sync and no host branch on a device value inside the step;
 * warm-up calls first, on a side stream: they build the kernels, create
-  the libraries' handles and settle the allocator before the capture.
+  the libraries' handles and settle the allocator before the capture;
+  what they leave cached is handed back before the capture starts.
 
 A capture that fails raises; nothing falls back to the eager step.
 """
@@ -63,6 +64,11 @@ class CapturedStep:
                 for _ in range(WARMUP_STEPS):
                     (warmup or body)()
             loop.wait_stream(side)
+            # the capture allocates from the graph's private pool, and the
+            # allocator frees no cached block while a capture is under way:
+            # hand the warm-up's cached blocks back first (a full-width
+            # train step's warm-up caches tens of GB)
+            torch.cuda.empty_cache()
             self.graph = torch.cuda.CUDAGraph()
             with _build.held_launches() as self.launches:
                 with torch.cuda.graph(self.graph,

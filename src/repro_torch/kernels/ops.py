@@ -1,8 +1,10 @@
 """Public entry points of the spectral lossy codec.
 
 ``spectral_compress_tree(state, eps, policy)`` is the device stage of the
-hybrid checkpoint pipeline: every leaf the policy selects is compressed in
-ONE fused dispatch over a packed buffer, through the tiled kernels of
+hybrid checkpoint pipeline: the leaves the policy selects are compressed
+in fused dispatches over packed buffers of at most :data:`GROUP_BYTES`
+(one dispatch for every leaf of full-width smollm-135m), through the
+tiled kernels of
 :mod:`repro_torch.kernels.spectral_lossy` on a CUDA state and through
 their plain versions on a CPU state. ``spectral_compress`` (and its
 chunked variant, and ``compress_in_graph``) compresses one tensor: the
@@ -133,6 +135,50 @@ def _compress_packed(packed: torch.Tensor, rows: list[int], eps: float):
     return K.threshold_quant(y, per_block(t_leaf))
 
 
+#: f32 bytes of one fused dispatch's packed buffer (kernel 2 writes a
+#: second buffer, ``y``, of the same size). Full-width smollm-135m's
+#: moments, 1,050,928 blocks (1.08 GB), are one group; hymba-1.5b's (13.3
+#: GB) and xlstm-1.3b's (28.9 GB) are several, each packed and compressed
+#: in turn, so a save holds one group's two buffers at a time.
+GROUP_BYTES = 2 << 30
+
+
+def _groups(rows: list[int], group_bytes: int) -> list[list[int]]:
+    """Consecutive leaves (by index) in groups of at most ``group_bytes``
+    f32 bytes; a leaf larger than the bound is a group of its own."""
+    groups: list[list[int]] = []
+    size = 0
+    for i, r in enumerate(rows):
+        nbytes = r * BLOCK * 4
+        if groups and size + nbytes <= group_bytes:
+            groups[-1].append(i)
+            size += nbytes
+        else:
+            groups.append([i])
+            size = nbytes
+    return groups
+
+
+def _pack(leaves: list[torch.Tensor], rows: list[int]) -> torch.Tensor:
+    """``leaves`` in one f32 (sum(rows), BLOCK) buffer, each leaf in its
+    slice of ``rows`` blocks (the tails stay 0)."""
+    packed = torch.zeros((sum(rows), BLOCK), dtype=torch.float32,
+                         device=leaves[0].device)
+    flat_buf = packed.view(-1)
+    off = 0
+    for leaf, r in zip(leaves, rows):
+        flat_buf[off:off + leaf.numel()].copy_(leaf.reshape(-1))
+        off += r * BLOCK
+    return packed
+
+
+def _compress_group(leaves: list[torch.Tensor], rows: list[int],
+                    eps: float):
+    """Pack ``leaves`` (:func:`_pack`) and compress the buffer in one fused
+    dispatch; the buffer is freed on return."""
+    return _compress_packed(_pack(leaves, rows), rows, eps)
+
+
 def spectral_compress_tree(state: PyTree, eps: float = 1e-2,
                            policy: Optional[Callable[[str], bool]] = None, *,
                            fused: bool = True) -> PyTree:
@@ -140,15 +186,18 @@ def spectral_compress_tree(state: PyTree, eps: float = 1e-2,
     leaf ``policy(keystr)`` selects; other leaves pass through untouched.
 
     Returns the same tree structure with ``Compressed`` leaves where the
-    policy fired. ``fused`` (default) packs all selected leaves into one
-    flat blocked buffer and compresses the whole tree in a single fused
-    dispatch; ``fused=False`` takes the per-leaf single-tensor path. Each
-    leaf is zero-padded only to a multiple of the
-    histogram tile — the JAX package's further pow2 bucketing exists for
-    its trace cache, which the port has no use for; zero pad blocks carry
-    no energy, so the thresholds, q and scales are the same bits either
-    way (a test holds this) — and the pad blocks past the tile multiple
-    are never made.
+    policy fired. ``fused`` (default) packs the selected leaves into flat
+    blocked buffers of at most :data:`GROUP_BYTES` f32 bytes each (a
+    larger leaf is a buffer of its own) and
+    compresses each buffer in a single fused dispatch, one after the
+    other; ``fused=False`` takes the per-leaf single-tensor path.
+    Thresholds are per leaf, so the grouping changes no bit of q or
+    scale (a test holds this). Each leaf is zero-padded only to a
+    multiple of the histogram tile — the JAX package's further pow2
+    bucketing exists for its trace cache, which the port has no use for;
+    zero pad blocks carry no energy, so the thresholds, q and scales are
+    the same bits either way (a test holds this) — and the pad blocks past
+    the tile multiple are never made.
     """
     flat = pytree.flatten_with_path(state)
     keys = [pytree.keystr(p) for p, _ in flat]
@@ -161,24 +210,17 @@ def spectral_compress_tree(state: PyTree, eps: float = 1e-2,
         for leaf in leaves:
             nb = -(-leaf.numel() // BLOCK)
             rows.append(nb + (-nb) % K.HIST_TILE)
-        dev = leaves[0].device
-        # one f32 buffer, each leaf copied into its slice (the tails stay 0)
-        packed = torch.zeros((sum(rows), BLOCK), dtype=torch.float32,
-                             device=dev)
-        flat_buf = packed.view(-1)
-        off = 0
-        for leaf, r in zip(leaves, rows):
-            flat_buf[off:off + leaf.numel()].copy_(leaf.reshape(-1))
-            off += r * BLOCK
-        del flat_buf
-        q, scale = _compress_packed(packed, rows, float(eps))
-        del packed
-        off = 0
-        for i, leaf, r in zip(selected, leaves, rows):
-            new_leaves[keys[i]] = Compressed(
-                q[off:off + r], scale[off:off + r], int(leaf.numel()),
-                tuple(leaf.shape), leaf.dtype)
-            off += r
+        for group in _groups(rows, GROUP_BYTES):
+            g_rows = [rows[j] for j in group]
+            q, scale = _compress_group([leaves[j] for j in group], g_rows,
+                                       float(eps))
+            off = 0
+            for j, r in zip(group, g_rows):
+                leaf = leaves[j]
+                new_leaves[keys[selected[j]]] = Compressed(
+                    q[off:off + r], scale[off:off + r], int(leaf.numel()),
+                    tuple(leaf.shape), leaf.dtype)
+                off += r
     else:
         for i in selected:
             new_leaves[keys[i]] = spectral_compress(flat[i][1], eps)

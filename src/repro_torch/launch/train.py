@@ -28,6 +28,17 @@ each on its own CUDA stream) or HYBRID (the lossy stage runs on the loop's
 stream before the hand-off, one fused dispatch). All three run on the
 card.
 
+Families trained on the card at ``FULL_SHAPE``, eager and graphed: the
+dense ``smollm-135m`` (30 layers; the smoke cuts it to 10),
+``musicgen-medium`` (48 layers), ``hymba-1.5b`` (32 layers in
+``tools/torch_family_train.py``, 4 in the smoke) and ``xlstm-1.3b``
+(one super-block of 8 blocks; at its 48 blocks it trains eagerly, and
+its captured step does not instantiate on one card), the last two with
+a HYBRID save and a resume. The MoE/MLA archs (``moonshot-v1-16b-a3b``,
+``deepseek-v3-671b``) train on the card at their smoke configs only, and
+``internvl2-26b`` not at all: their full-width states do not fit one
+card (ROADMAP item 5).
+
 Not ported here (ROADMAP.md): the mesh, the sharded step and the cross-pod
 compressed gradient ring (``grad_compress``), and the ``fault`` preset.
 """
@@ -252,6 +263,8 @@ def train_loop(arch: str, *, steps: int = 50, smoke: bool = True,
     step is :func:`graph_train_step`, captured at the first step (after a
     restore, so that the restored state becomes its static buffers);
     ``cuda_graph=False`` steps eagerly there, and the CPU always does.
+    Every arch runs here; the module docstring names those that have
+    trained on the card, and at which depth.
     """
     from repro_torch.core.session import InSituPlan, Session
     from repro_torch.core.telemetry import Telemetry

@@ -12,6 +12,14 @@ carried across chunks. Decode is the exact single-step recurrence on the
 carried state. The scan adds in another order than XLA's, so the two
 packages agree to a tolerance, not bitwise.
 
+Under grad with ``cfg.remat`` each chunk's scan is recomputed in the
+backward pass (``torch.utils.checkpoint``, as ``transformer._run_blocks``
+does per block): a chunk's doubling steps keep ~14 f32 tensors of
+(B, chunk, d_inner, d_state) for its backward, 1.5 GB a chunk at
+hymba-1.5b's width and 4 x 128 tokens, so one block's backward holds one
+chunk's scan instead of all of them. The arithmetic and its order are
+the same, so the loss and the gradients are the same bits.
+
 Casts sit where the JAX package puts them: ``silu`` in f32, then back to
 x's dtype; ``h`` and the scan in f32; the ``conv`` state in x's dtype.
 """
@@ -22,6 +30,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.params import ParamSpec
@@ -136,11 +145,19 @@ def ssm_mixer(p, x: torch.Tensor, cfg: ModelConfig,
     if l % chunk:
         chunk = l
     h = torch.zeros((b, di, s.d_state), dtype=torch.float32, device=x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
     ys = []
     for i in range(l // chunk):
         xck = xc[:, i * chunk:(i + 1) * chunk]
         dt, bmat, cmat, a = _ssm_inputs(p, xck, cfg)
-        y_i, h = _scan_chunk(h, dt, bmat, cmat, a, xck)
+        if remat:
+            # no random numbers; saving the RNG state would read the CUDA
+            # generator, which a graph capture refuses
+            y_i, h = checkpoint(_scan_chunk, h, dt, bmat, cmat, a, xck,
+                                use_reentrant=False,
+                                preserve_rng_state=False)
+        else:
+            y_i, h = _scan_chunk(h, dt, bmat, cmat, a, xck)
         ys.append(y_i)
     y = torch.cat(ys, dim=1) if len(ys) > 1 else ys[0]
     y = y + xc.float() * p["d_skip"]

@@ -81,8 +81,12 @@ def update(grads: PyTree, state: AdamWState, params: PyTree,
         if cfg.weight_decay > 0:
             upd = upd + cfg.weight_decay * p32
         p32_new = p32 - lr * upd
+        # the f32 parameter is kept only as the new master weight: without
+        # master weights it is dropped here, not held for every leaf until
+        # the whole tree is updated (4 bytes a parameter: 14.4 GB at
+        # full-width xlstm-1.3b)
         return (p32_new.to(p.dtype), m32.to(m.dtype), v32.to(v.dtype),
-                p32_new)
+                p32_new if pm is not None else None)
 
     masters = state.master
     if masters is None:

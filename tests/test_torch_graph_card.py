@@ -162,6 +162,35 @@ def test_train_graph_equals_eager_three_steps(cuda):
         step({k: v[:1] for k, v in batches[0].items()})
 
 
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "xlstm-1.3b",
+                                  "moonshot-v1-16b-a3b", "deepseek-v3-671b"])
+def test_family_train_graph_equals_eager_three_steps(cuda, arch):
+    """The hybrid, xLSTM and MoE/MLA smoke configs: three replays of the
+    captured train step equal three eager steps bit for bit (metrics and
+    every state leaf), the state keeping its storage."""
+    cfg = configs.get(arch, smoke=True)
+    step_cfg = T.StepConfig()
+    spec = batch_spec_for(cfg, configs.SMOKE_SHAPE)
+    batches = [synth_batch(spec, i) for i in range(3)]
+    state = T.init_state(cfg, 0, step_cfg.opt, device=cuda)
+    ref = pytree.tree_map(lambda t: t.clone(), state)
+    ptrs = {k: t.data_ptr() for k, t in _flat(state).items()}
+    fn = T.make_train_step(cfg, step_cfg)
+    step = T.graph_train_step(cfg, step_cfg, state, batches[0])
+    assert int(state["count"]) == 0
+    for b in batches:
+        m = step(b)
+        ref, m_ref = fn(ref, {k: torch.from_numpy(v).to(cuda)
+                              for k, v in b.items()})
+        for k in ("loss", "grad_norm", "lr"):
+            assert torch.equal(m[k], m_ref[k]), (arch, k)
+    assert {k: t.data_ptr() for k, t in _flat(state).items()} == ptrs
+    got, want = _flat(state), _flat(ref)
+    for k in want:
+        assert torch.equal(_bits(got[k]), _bits(want[k])), (arch, k)
+    assert int(state["count"]) == 3
+
+
 @pytest.mark.parametrize("snapshot", [True, False])
 def test_handoff_is_not_overtaken_by_replays(cuda, snapshot):
     """Emit the state after a step, replay twice, then materialize: the

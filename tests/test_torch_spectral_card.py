@@ -220,6 +220,47 @@ def test_fused_tree_roundtrip_within_bound(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("group_bytes", [8 * 256 * 4, 48 * 256 * 4,
+                                         200 * 256 * 4])
+def test_grouped_packing_is_bitwise_one_dispatch(cuda, group_bytes,
+                                                 monkeypatch):
+    """The HYBRID device stage in groups of at most ``ops.GROUP_BYTES``
+    f32 bytes (a leaf past the bound alone) gives each moment leaf's q and
+    scale bit for bit as one dispatch over every leaf; kernels 2-4 once a
+    group."""
+    rng = np.random.default_rng(5)
+    sizes = (300, 5000, 70_000, 2048, 256 * 8 * 3 + 1, 40_000)
+    mk = lambda n, s: torch.from_numpy(
+        (rng.standard_normal(n) * s).astype(np.float32)).to(cuda).to(
+        torch.bfloat16)
+    state = {"mu": {f"l{i}": mk(n, 10.0 ** -i) for i, n in enumerate(sizes)},
+             "nu": {f"l{i}": mk(n, 1.0).abs() for i, n in enumerate(sizes)}}
+    policy = lambda k: "'mu'" in k or "'nu'" in k
+    rows = []
+    for _ in ("mu", "nu"):
+        for n in sizes:
+            nb = -(-n // ref.BLOCK)
+            rows.append(nb + (-nb) % K.HIST_TILE)
+    n_groups = len(ops._groups(rows, group_bytes))
+    assert n_groups > 1
+    K.reset_launches()
+    monkeypatch.setattr(ops, "GROUP_BYTES", 1 << 40)
+    one = ops.spectral_compress_tree(state, 1e-2, policy)
+    assert K.threshold_quant.launches == 1
+    K.reset_launches()
+    monkeypatch.setattr(ops, "GROUP_BYTES", group_bytes)
+    grouped = ops.spectral_compress_tree(state, 1e-2, policy)
+    assert [K.dct_hist_coarse_tiled.launches, K.hist_refine_tiled.launches,
+            K.threshold_quant.launches] == [n_groups] * 3
+    for grp in ("mu", "nu"):
+        for name in state[grp]:
+            a, b = one[grp][name], grouped[grp][name]
+            assert torch.equal(a.q, b.q), (grp, name)
+            assert torch.equal(a.scale.view(torch.int32),
+                               b.scale.view(torch.int32)), (grp, name)
+
+
+@pytest.mark.cuda
 def test_kernels_refuse_what_they_do_not_take(cuda):
     xb = torch.zeros((12, ref.BLOCK), device=cuda)
     with pytest.raises(ValueError, match="multiple"):

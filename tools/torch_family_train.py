@@ -1,0 +1,668 @@
+"""One family's ``train_loop`` on the card: eager, graphed with a save, resumed
+
+    python3 tools/torch_family_train.py [--arch xlstm-1.3b] [--eager-steps 1]
+        [--graph-steps 2] [--ckpt-dir build/family_ckpt]
+    python3 tools/torch_family_train.py --arch hymba-1.5b --scan-remat-peak
+
+Runs ``launch/train.py::train_loop(arch, smoke=False, device="cuda")`` at
+``FULL_SHAPE`` (4 x 4096 tokens) and full depth, from seed 0 on the
+card's generator, three times:
+
+1. eagerly (``cuda_graph=False``), ``--eager-steps`` steps, no in-situ
+   task;
+2. graphed, ``--graph-steps`` steps, with a HYBRID checkpoint task that
+   saves at step 0 only (``every`` past the run) under ``--ckpt-dir``,
+   frames stored raw (``lossless="none"``: zlib would add minutes a save
+   at these sizes), a SYNC probe that keeps the state emitted at step 0
+   on the host, and a SYNC profiler window around the last replay (opened
+   after the save at the step before, closed when the last step's
+   ``grads`` are emitted);
+3. graphed again on the same directory: it must log "resumed from step
+   0"; the restored state is held against the probe's on the card
+   (params and count bitwise; each moment leaf within ``error_bound(1e-2)``
+   relative L2, or, for a leaf whose energy is below the selectors'
+   absolute slack of 1e-30 — both packages may drop such a leaf whole —
+   an error norm within 1e-15), then one step runs.
+
+Gates (a broken one exits 1): every loss finite; the graphed losses equal
+the eager ones bit for bit over the steps both ran; the save launches each
+of kernels 2-4 (``dct_hist_coarse_tiled``, ``hist_refine_tiled``,
+``threshold_quant``) once a packed group (``ops.GROUP_BYTES``) and kernel
+5 (``dequant_idct``) not at all; the restore launches kernel 5 once a
+moment leaf; no other kernel runs, and the eager run without a save
+launches none (launch counts set to 0 before each run and read after; on
+the CPU, where the plain versions run, every count is 0).
+
+Prints one line ``FAMILY_TRAIN_RESULT {json}``: the card's name and power
+limit, per run its losses, ``step/compute`` seconds and median, peak memory
+(``max_memory_allocated``) and wall; the capture seconds; the profiled
+replay's device busy ms, idle share and top ops; model FLOPs a step
+(``roofline.model_flops``) over the median graphed step as a share of 989
+TFLOP/s; the save's groups, launches, loop blocking, raw and stored bytes;
+the restore's launches, seconds and worst moment error. If the card runs
+out of memory, the line carries ``"fault": "out of memory"``, the peak
+and the op (the innermost frame of the port and the allocator's message),
+and the script exits 3; it does not shrink the run.
+
+``--scan-remat-peak`` instead takes one eager step of ``--arch`` with the
+SSM scan's per-chunk remat and one without it, and prints each one's
+seconds and peak memory, or where memory ran out (``SCAN_REMAT_PEAK
+{json}``; exit 1 if the step with the remat does not fit). It is the
+measurement that ``models/ssm.py``'s per-chunk remat rests on (PERF.md
+section 5): run it again when the scan changes, to see whether the remat
+is still needed.
+
+``chip_smoke.py``'s ``family_train`` phase calls :func:`run`
+(``hymba-1.5b`` and ``xlstm-1.3b`` cut in depth through :func:`config_as`,
+the MoE archs at their smoke configs) with a ``kernel_check`` that holds
+kernels 2-5 against their plain versions on the save's own packed
+buffers; its other phases take :func:`check_restored`,
+:func:`ckpt_blocking_s`, :func:`launches` / :func:`reset_launches` and
+:func:`config_as` from here too (one definition of each). Needs the
+card; imports no JAX.
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import math
+import os
+import re
+import shutil
+import statistics
+import subprocess
+import sys
+import time
+import traceback
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "..", "src"))
+
+EPS = 1e-2                      # the checkpoint's lossy_eps
+ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+
+
+def card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+        check=True).stdout.strip().splitlines()[0]
+
+
+@contextlib.contextmanager
+def config_as(arch: str, cfg):
+    """``configs.get(arch, smoke=False)`` returns ``cfg`` inside the block
+    (a depth cut for ``train_loop``, which takes a name, not a config)."""
+    from repro_torch.configs import base as configs
+
+    get = configs.get
+
+    def patched(name, smoke=False):
+        return cfg if name == arch and not smoke else get(name, smoke=smoke)
+
+    configs.get = patched
+    try:
+        yield cfg
+    finally:
+        configs.get = get
+
+
+def lossy_layout(cfg) -> tuple[list[str], list[int], list[list[int]]]:
+    """The moment leaves of a HYBRID save of ``cfg``'s state as
+    ``ops.spectral_compress_tree`` packs them: their keys and blocks (tile
+    multiples) in flatten order, and the packed groups (indices into
+    both) under ``ops.GROUP_BYTES``."""
+    from repro_torch.checkpoint.manager import default_lossy_policy
+    from repro_torch.core import pytree
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import spectral_lossy as K
+    from repro_torch.models import transformer
+
+    spec = transformer.param_spec(cfg)
+    keys, rows = [], []
+    for path, s in pytree.flatten_with_path({"mu": spec, "nu": spec}):
+        if default_lossy_policy(pytree.keystr(path)):
+            nb = -(-math.prod(s.shape) // 256)
+            keys.append(pytree.keystr(path))
+            rows.append(nb + (-nb) % K.HIST_TILE)
+    return keys, rows, ops._groups(rows, ops.GROUP_BYTES)
+
+
+def checked_groups(rows: list[int], groups: list[list[int]]) -> dict:
+    """The groups whose packed buffers the kernels are held against their
+    plain versions on, by label: the largest group within
+    ``ops.GROUP_BYTES``, and the largest leaf past it (a group of its
+    own), each where there is one."""
+    from repro_torch.kernels import ops
+
+    blocks = lambda g: sum(rows[j] for j in g)
+    past = lambda g: blocks(g) * ops.BLOCK * 4 > ops.GROUP_BYTES
+    out = {}
+    for label, gs in (("largest group", [g for g in groups if not past(g)]),
+                      ("leaf past the bound", [g for g in groups
+                                               if past(g)])):
+        if gs:
+            out[label] = max(gs, key=blocks)
+    return out
+
+
+def launches() -> dict:
+    """Every kernel wrapper's launch count, by name."""
+    from repro_torch.kernels import paged_attention as PK
+    from repro_torch.kernels import spectral_lossy as K
+
+    out = {k.__name__: k.launches for k in K.KERNELS}
+    out["paged_decode_attention"] = PK.paged_decode_attention.launches
+    return out
+
+
+def reset_launches() -> None:
+    from repro_torch.kernels import paged_attention as PK
+    from repro_torch.kernels import spectral_lossy as K
+
+    K.reset_launches()
+    PK.paged_decode_attention.launches = 0
+
+
+#: the selectors keep a leaf's dropped energy within eps^2 of its energy
+#: plus an absolute 1e-30 (``ref.select_coarse``, as in the JAX package),
+#: so a leaf of energy below 1e-30 may restore as zeros: its error norm
+#: stays within sqrt(1e-30)
+ENERGY_SLACK_NORM = 1e-15
+
+
+def check_restored(restored, emitted: dict, what: str) -> dict:
+    """A restored state against the host copy emitted at its step, on the
+    card: params and count bitwise; each moment leaf's error norm within
+    ``error_bound(EPS)`` of its norm plus :data:`ENERGY_SLACK_NORM`.
+    Returns the worst relative error among the leaves of energy above
+    the slack and the keys of those below it."""
+    import numpy as np
+    import torch
+    from repro_torch.core import host, pytree
+    from repro_torch.kernels import ref
+
+    worst, below = 0.0, []
+    bound = ref.error_bound(EPS)
+    for path, t in pytree.flatten_with_path(restored):
+        key = pytree.keystr(path)
+        want = host.to_tensor(np.asarray(emitted[key])).to(t.device)
+        if key.startswith("['mu']") or key.startswith("['nu']"):
+            w, got = want.float().reshape(-1), t.float().reshape(-1)
+            norm = float(torch.linalg.vector_norm(w))
+            err = float(torch.linalg.vector_norm(w - got))
+            if not err <= bound * norm + ENERGY_SLACK_NORM:
+                raise AssertionError(
+                    f"{what}: {key} error norm {err} past {bound} x "
+                    f"{norm} + {ENERGY_SLACK_NORM} (max |w| "
+                    f"{float(w.abs().max())}, max |got| "
+                    f"{float(got.abs().max())})")
+            if norm ** 2 > 1e-30:
+                worst = max(worst, err / norm)
+            else:
+                below.append(key)
+        else:
+            same = (want.dtype == t.dtype and want.shape == t.shape
+                    and torch.equal(want.view(torch.uint8)
+                                    if want.dim() else want,
+                                    t.view(torch.uint8) if t.dim() else t))
+            if not same:
+                raise AssertionError(f"{what}: restored {key} differs from "
+                                     f"the state emitted at its step")
+        del want
+    return {"worst_rel_l2": worst, "below_energy_slack": below}
+
+
+def _profile_ops(prof) -> dict:
+    """Device ms by kernel (or copy) name over a profiler window, summed
+    from its raw events: ``key_averages`` takes ~30 s over the ~10^5
+    events of a replay at these widths, this well under one."""
+    from torch.autograd import DeviceType
+
+    ops: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            ops[e.name()] = ops.get(e.name(), 0.0) + e.duration_ns() / 1e6
+    return ops
+
+
+def _capture_s(lines: list) -> list:
+    return [float(m.group(1)) for m in
+            (re.match(r"captured the train step in ([\d.]+)s", ln)
+             for ln in lines) if m]
+
+
+def ckpt_blocking_s(tm, first_save: bool = False) -> float:
+    """Seconds the checkpoint task held the loop: its SYNC chain, its
+    device stage (HYBRID), its hand-off dispatch and any blocking
+    hand-off. ``first_save`` counts only the save at step 0 (the spans
+    before step 1's compute), which carries the one-time costs."""
+    end = math.inf
+    if first_save:
+        end = next(sp.t0 for sp in tm.spans("step/compute") if sp.step == 1)
+    return sum(sp.dt for sp in tm.spans()
+               if sp.t0 < end
+               and (sp.name in ("insitu-sync/checkpoint",
+                                "insitu-device/checkpoint")
+                    or (sp.name in ("handoff/dispatch", "step/handoff")
+                        and sp.meta.get("task") == "checkpoint")))
+
+
+def _sync(device: str) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _peak_gib(device: str):
+    import torch
+
+    if torch.device(device).type != "cuda":
+        return None
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def _run_row(run: dict, t0: float, lines: list, device: str) -> dict:
+    import numpy as np
+
+    _sync(device)
+    row = {"losses": run["losses"], "wall_s": time.perf_counter() - t0,
+           "peak_gib": _peak_gib(device),
+           "step_s": [sp.dt for sp in run["telemetry"].spans("step/compute")],
+           "capture_s": _capture_s(lines)}
+    row["step_median_s"] = statistics.median(row["step_s"])
+    if not np.isfinite(run["losses"]).all():
+        raise AssertionError(f"non-finite losses {run['losses']}")
+    if run["session_report"]["n_errors"]:
+        raise AssertionError(run["session_report"]["errors"])
+    return row
+
+
+def _free(device: str) -> None:
+    import gc
+    import torch
+
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def run(arch: str, *, eager_steps: int, graph_steps: int, ckpt_dir: str,
+        smoke: bool = False, save_eager: bool = False,
+        resume_graph: bool = True, kernel_check=None, log=print,
+        tag: str = "", device: str = "cuda") -> dict:
+    """The three runs and their gates (module docstring) for ``arch`` as
+    ``configs.get(arch, smoke=smoke)`` gives it (wrap the call in
+    :func:`config_as` to cut it; ``smoke`` runs the smoke config at the
+    smoke shape). ``save_eager`` gives the eager run the same HYBRID save
+    at step 0 (its own directory, the same launch gates);
+    ``resume_graph=False`` takes the resumed step eagerly (no second
+    capture). ``kernel_check(xb, rows, label)``, where given, is called
+    after the resume on the packed f32 buffer (``ops._pack``) of the
+    save's largest group and of its largest leaf past ``ops.GROUP_BYTES``
+    (:func:`checked_groups`), built from the moments emitted at step 0:
+    the buffers kernels 2-4 compressed in the save, for the caller to
+    hold kernels 2-5 against their plain versions on (``chip_smoke.py``'s
+    ``spectral_check``); its launches are not the path's (counts set to
+    0 after), its results come back under ``"kernel_check"``. Returns the
+    result dict; raises AssertionError on a gate. ``device="cpu"``
+    rehearses the runs on the CPU (every step eager, no profile of the
+    device)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import base as configs
+    from repro_torch.core import host, pytree
+    from repro_torch.core.session import (Every, InSituPlan, Placement,
+                                          TaskSpec, When)
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as T
+    from repro_torch.models import params as P_lib
+    from repro_torch.models import transformer
+    from repro_torch.roofline.analysis import PEAK_FLOPS_BF16, model_flops
+
+    if graph_steps < 2:
+        raise ValueError("graph_steps must be >= 2: the profiled replay "
+                         "follows the step-0 save")
+    cfg = configs.get(arch, smoke=smoke)
+    tag = tag or arch
+    say = lambda m: log(f"{tag}: {m}")
+    keys, rows, groups = lossy_layout(cfg)
+    n_lossy, n_groups = len(keys), len(groups)
+    to_check = checked_groups(rows, groups) if kernel_check else {}
+    kept: dict = {}                     # the checked groups' moments
+    eager_dir = ckpt_dir + "_eager"
+    for d in (ckpt_dir, eager_dir):
+        if os.path.exists(d):
+            shutil.rmtree(d)
+    runs: dict = {}
+    total: dict = {}                    # launches over the three runs
+
+    def count_launches() -> dict:
+        got = launches()
+        for k, n in got.items():
+            total[k] = total.get(k, 0) + n
+        return got
+
+    def ckpt_task(directory, trigger):
+        return TaskSpec(name="checkpoint", stream="train_state",
+                        preset="checkpoint", trigger=trigger,
+                        placement=Placement.HYBRID,
+                        options={"directory": directory, "device": device,
+                                 "lossless": "none"})
+
+    def check_save(what, ck, got):
+        if ck["saves"] != 1 or ck["last_step"] != 0:
+            raise AssertionError(f"{what}: saves {ck}")
+        for k, n in got.items():
+            want = n_groups if on_card and k in (
+                "dct_hist_coarse_tiled", "hist_refine_tiled",
+                "threshold_quant") else 0
+            if n != want:
+                raise AssertionError(f"{what}: save launches {got}: {k} "
+                                     f"{n} != {want} ({n_groups} groups)")
+
+    on_card = torch.device(device).type == "cuda"
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                           if on_card else [])
+
+    # 1. eager: no in-situ task, or the same save as the graphed run's
+    _free(device)
+    reset_launches()
+    lines: list = []
+    t0 = time.perf_counter()
+    out = T.train_loop(arch, smoke=smoke, steps=eager_steps,
+                       plan=InSituPlan(
+                           streams=["grads", "train_state"],
+                           tasks=[ckpt_task(eager_dir,
+                                            Every(eager_steps + 1))]
+                           if save_eager else []),
+                       device=device, seed=0, cuda_graph=False,
+                       log=lines.append)
+    runs["eager"] = _run_row(out, t0, lines, device)
+    got = count_launches()
+    if save_eager:
+        check_save("eager", out["session_report"]["checkpoint"], got)
+        runs["eager"]["save_launches"] = got
+        shutil.rmtree(eager_dir, ignore_errors=True)
+    elif any(got.values()):
+        raise AssertionError(f"eager run launches {got}")
+    del out
+    say(f"eager: losses {runs['eager']['losses']}, step/compute s "
+        f"{runs['eager']['step_s']}, peak {runs['eager']['peak_gib']} GiB")
+
+    # 2. graphed, one HYBRID save at step 0, a probe, a profiler window
+    emitted: dict = {}
+    window: dict = {}
+    last = graph_steps - 1
+
+    def keep(step, payload):
+        emitted.update({pytree.keystr(p): np.asarray(a) for p, a in
+                        pytree.flatten_with_path(payload)})
+
+    def open_window(step, _payload):
+        _sync(device)
+        window["prof"] = profile(activities=activities)
+        window["prof"].start()
+        window["t0"] = time.perf_counter()
+
+    def close_window(step, _payload):
+        _sync(device)
+        window["wall_s"] = time.perf_counter() - window["t0"]
+        window["prof"].stop()
+
+    plan = InSituPlan(streams=["grads", "train_state"], tasks=[
+        ckpt_task(ckpt_dir, Every(graph_steps + 1)),
+        TaskSpec(name="probe", stream="train_state", trigger=When(
+            lambda st: st == 0), placement=Placement.SYNC, sink=keep),
+        TaskSpec(name="window_open", stream="train_state", trigger=When(
+            lambda st: st == last - 1), placement=Placement.SYNC,
+            sink=open_window),
+        TaskSpec(name="window_close", stream="grads", trigger=When(
+            lambda st: st == last), placement=Placement.SYNC,
+            sink=close_window)])
+    _free(device)
+    reset_launches()
+    lines = []
+    t0 = time.perf_counter()
+    out = T.train_loop(arch, smoke=smoke, steps=graph_steps, plan=plan,
+                       device=device, seed=0, cuda_graph=True,
+                       log=lines.append)
+    runs["graph"] = g = _run_row(out, t0, lines, device)
+    save_launches = count_launches()
+    ck = out["session_report"]["checkpoint"]
+    g["save_blocking_s"] = ckpt_blocking_s(out["telemetry"])
+    del out
+    dev_ops = _profile_ops(window.pop("prof"))
+    busy = sum(dev_ops.values())
+    wall_ms = window["wall_s"] * 1e3
+    g.update(profiled_wall_ms=wall_ms,
+             device_busy_ms=busy if dev_ops else None,
+             device_idle_share=(1 - busy / wall_ms) if dev_ops else None,
+             top=sorted(dev_ops.items(), key=lambda kv: -kv[1])[:6])
+    if len(g["capture_s"]) != int(on_card):
+        raise AssertionError(f"captures {g['capture_s']}: {lines}")
+    n = min(eager_steps, graph_steps)
+    if g["losses"][:n] != runs["eager"]["losses"][:n]:
+        raise AssertionError(f"graphed losses {g['losses']} != eager "
+                             f"{runs['eager']['losses']}")
+    check_save("graphed", ck, save_launches)
+    save = {"groups": n_groups, "moment_leaves": n_lossy,
+            "launches": save_launches, "raw_bytes": ck["raw_bytes"],
+            "stored_bytes": ck["stored_bytes"],
+            "blocking_s": g["save_blocking_s"]}
+    say(f"graphed: losses {g['losses']} (= eager bit for bit), capture "
+        f"{g['capture_s']} s, step/compute s {g['step_s']}, peak "
+        f"{g['peak_gib']} GiB; the save: {n_groups} groups of "
+        f"{n_lossy} moment leaves, launches {save_launches}, loop blocking "
+        f"{save['blocking_s']:.3f} s, {ck['raw_bytes']} -> "
+        f"{ck['stored_bytes']} bytes; replay profiled: busy "
+        f"{g['device_busy_ms']} ms of {wall_ms:.1f}, idle share "
+        f"{g['device_idle_share']}")
+    for op, ms in g["top"]:
+        say(f"  {ms:9.2f} ms  {op[:90]}")
+
+    # 3. resume from the save: the restored state against the probe's
+    restore: dict = {}
+
+    def on_session(session):
+        inner = session.restore
+
+        def checked(template, step=None, **kw):
+            t0 = time.perf_counter()
+            start, state = inner(template, step, **kw)
+            _sync(device)
+            restore["restore_s"] = time.perf_counter() - t0
+            restore["launches"] = launches()
+            restore.update(check_restored(state, emitted,
+                                          f"{tag} step {start}"))
+            kept.update({keys[j]: emitted[keys[j]]
+                         for g in to_check.values() for j in g})
+            emitted.clear()
+            return start, state
+
+        session.restore = checked
+
+    resume_plan = InSituPlan(streams=["grads", "train_state"], tasks=[
+        ckpt_task(ckpt_dir, When(lambda st: False))])
+    _free(device)
+    reset_launches()
+    lines = []
+    t0 = time.perf_counter()
+    out = T.train_loop(arch, smoke=smoke, steps=1, plan=resume_plan,
+                       device=device, seed=0, cuda_graph=resume_graph,
+                       log=lines.append, on_session=on_session)
+    runs["resume"] = _run_row(out, t0, lines, device)
+    del out
+    if "resumed from step 0" not in lines:
+        raise AssertionError(f"no 'resumed from step 0' in {lines}")
+    want = {k: (n_lossy if on_card and k == "dequant_idct" else 0)
+            for k in restore["launches"]}
+    if restore["launches"] != want:
+        raise AssertionError(f"restore launches {restore['launches']} != "
+                             f"{want}")
+    got = count_launches()
+    if got != want:
+        raise AssertionError(f"resume run launches {got} != {want}")
+    say(f"resumed from step 0: restore {restore['restore_s']:.2f} s, params "
+        f"and count bitwise, moments worst rel L2 "
+        f"{restore['worst_rel_l2']:.4e} (bound 7.30e-2; leaves of energy "
+        f"below 1e-30: {restore['below_energy_slack']}), launches "
+        f"{restore['launches']}; loss {runs['resume']['losses']}")
+
+    # 4. kernels 2-5 against their plain versions on the save's buffers
+    checks: dict = {}
+    for label, grp in to_check.items():
+        g_rows = [rows[j] for j in grp]
+        xb = ops._pack([host.to_tensor(kept.pop(keys[j]), device)
+                        for j in grp], g_rows)
+        checks[label] = kernel_check(xb, g_rows, f"{tag} {label}")
+        say(f"{label} ({len(grp)} leaves, {sum(g_rows)} blocks): kernels "
+            f"against their plain versions {checks[label]}")
+        del xb
+        _free(device)
+    reset_launches()
+
+    shape = configs.SMOKE_SHAPE if smoke else T.FULL_SHAPE
+    flops = model_flops(cfg, shape)
+    share = flops / g["step_median_s"] / PEAK_FLOPS_BF16
+    say(f"model FLOPs a step {flops:.4e} (roofline.model_flops at "
+        f"{shape.global_batch} x {shape.seq_len}), over the graphed median "
+        f"{g['step_median_s']:.4f} s: {share:.4f} of 989 TFLOP/s bf16")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return {"arch": arch, "n_layers": cfg.n_layers,
+            "params": P_lib.param_count(transformer.param_spec(cfg)),
+            "runs": runs, "save": save, "restore": restore,
+            "launches": total, "kernel_check": checks,
+            "model_flops": flops, "model_flops_share_of_bf16_peak": share}
+
+
+def scan_remat_peak(arch: str = "hymba-1.5b") -> dict:
+    """One eager ``make_train_step`` of ``arch`` at ``FULL_SHAPE`` with the
+    SSM scan's per-chunk remat and once without it (``ssm.checkpoint``
+    replaced by a plain call): each step's seconds and peak memory, or
+    the peak and the site where memory ran out."""
+    import torch
+    from repro_torch.configs import base as configs
+    from repro_torch.data.pipeline import batch_spec_for, synth_batch
+    from repro_torch.launch import train as T
+    from repro_torch.models import params as P_lib
+    from repro_torch.models import ssm
+
+    cfg = configs.get(arch)
+    dev = torch.device("cuda")
+    state = T.init_state(cfg, P_lib.weight_generator(cfg, 0, dev, False),
+                         T.StepConfig().opt, device=dev)
+    host = synth_batch(batch_spec_for(cfg, T.FULL_SHAPE), 0)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    fn = T.make_train_step(cfg, T.StepConfig())
+    out = {"arch": arch, "state_gib": torch.cuda.memory_allocated() / 2**30}
+    remat = ssm.checkpoint
+    plain = lambda f, *args, **kw: f(*args)
+    try:
+        for name, ck in (("chunk_remat", remat), ("no_chunk_remat", plain)):
+            ssm.checkpoint = ck
+            _free("cuda")
+            t0 = time.perf_counter()
+            try:
+                new, metrics = fn(state, batch)
+                loss = float(metrics["loss"])
+                torch.cuda.synchronize()
+                out[name] = {"s": time.perf_counter() - t0, "loss": loss,
+                             "peak_gib": _peak_gib("cuda")}
+                del new, metrics
+            except torch.cuda.OutOfMemoryError as e:
+                out[name] = {"fault": "out of memory",
+                             "op": _oom_site(e),
+                             "message": str(e).splitlines()[0],
+                             "peak_gib": _peak_gib("cuda")}
+            print(f"{arch} {name}: {out[name]}", flush=True)
+    finally:
+        ssm.checkpoint = remat
+    return out
+
+
+def _find_oom(exc: BaseException):
+    """The out-of-memory error in ``exc``'s chain, or None: the
+    allocator's, or the CUDA runtime's ``cudaErrorMemoryAllocation`` (a
+    graph that does not instantiate at the end of its capture)."""
+    import torch
+
+    while exc is not None:
+        if isinstance(exc, torch.cuda.OutOfMemoryError) or \
+                "out of memory" in str(exc):
+            return exc
+        exc = exc.__cause__ or exc.__context__
+    return None
+
+
+def _oom_site(exc: BaseException) -> str:
+    """The innermost frame of the port (or of this script) in a
+    traceback: where the allocation that failed was asked for (or the
+    capture that did not instantiate)."""
+    frames = traceback.extract_tb(exc.__traceback__)
+    mine = [f for f in frames if "repro_torch" in f.filename
+            or f.filename.endswith("torch_family_train.py")]
+    f = (mine or frames)[-1]
+    return f"{os.path.relpath(f.filename, ROOT)}:{f.lineno} {f.line}"
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="xlstm-1.3b")
+    ap.add_argument("--eager-steps", type=int, default=1)
+    ap.add_argument("--graph-steps", type=int, default=2)
+    ap.add_argument("--ckpt-dir", default=os.path.join(
+        ROOT, "build", "family_ckpt"))
+    ap.add_argument("--scan-remat-peak", action="store_true",
+                    help="instead: one eager step of --arch with and "
+                         "without the SSM scan's per-chunk remat, and "
+                         "each one's peak memory (SCAN_REMAT_PEAK {json})")
+    args = ap.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        print("torch_family_train: needs a CUDA card", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    result: dict = {"card": card()}
+    print(result["card"], flush=True)
+    if args.scan_remat_peak:
+        result.update(scan_remat_peak(args.arch))
+        print("SCAN_REMAT_PEAK " + json.dumps(result), flush=True)
+        return 0 if "peak_gib" in result["chunk_remat"] and \
+            "fault" not in result["chunk_remat"] else 1
+    t0 = time.perf_counter()
+    try:
+        result.update(run(args.arch, eager_steps=args.eager_steps,
+                          graph_steps=args.graph_steps,
+                          ckpt_dir=os.path.join(args.ckpt_dir, args.arch),
+                          log=lambda m: print(m, flush=True)))
+        rc = 0
+    except RuntimeError as e:          # torch's OutOfMemoryError is one
+        oom = _find_oom(e)
+        if oom is None:
+            raise
+        free, total = torch.cuda.mem_get_info()
+        result.update(fault="out of memory", op=_oom_site(oom),
+                      message=str(oom).splitlines()[0],
+                      peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                      reserved_gib=torch.cuda.memory_reserved() / 2**30,
+                      free_gib=free / 2**30, total_gib=total / 2**30)
+        rc = 3
+    except AssertionError as e:
+        result.update(fault="gate", message=str(e)[:2000])
+        rc = 1
+    result["wall_s"] = time.perf_counter() - t0
+    print("FAMILY_TRAIN_RESULT " + json.dumps(result), flush=True)
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main())
