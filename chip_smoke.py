@@ -385,6 +385,28 @@ Phases (any failure exits non-zero; none is swallowed):
    MoE family's bf16 bound) of the port's own CPU run of the same seed.
    The phase must take at most 280 s (xlstm's 4096-step sLSTM loop takes
    12-18 s an eager step and ~60 s a capture at one super-block).
+17. fault — a host drop detected, restored and resumed:
+   ``tools/torch_fault_killpoint.py``'s ``run_scenario`` (module
+   docstring there; full depth runs there) on full-width ``smollm-135m``
+   at 2 of its 30 layers (``FAULT_LAYERS``; widths unchanged), 4 x 4096
+   tokens, in a world-size-1 NCCL group: a golden run of 9 graphed steps;
+   the same run with the ``fault`` preset (hosts 0 and 1 beat on a clock
+   advancing 1 s a step, host 1 stops at step 4, grace 2.5 s) and HYBRID
+   v2 checkpoints every 2 steps with the mesh geometry, halted when host
+   1 is declared failed; ``Session.restore(elastic=True)`` onto a
+   ``DeviceMesh`` of the surviving rank (``plan_elastic_remesh``), each
+   leaf placed under ``state_shardings``, and a resume to step 8 (one
+   captured step serves the three runs). Gates: host 1 failed, host 0
+   alive, detection at or after step 4, the restored step at or before
+   it, the resume reaches step 8, every resumed loss within
+   ``max(0.05, 0.02 |golden|)`` of golden, the failure run's losses
+   equal golden bit for bit up to the halt; the restored state against
+   the state emitted at its step (params and count bitwise, moments
+   within ``error_bound(1e-2)``); kernels 2-4 once a packed group a save
+   and kernel 5 once a moment leaf in the restore, no other kernel;
+   kernels 2-5 against their plain versions on the restored save's
+   largest packed group (``spectral_check``, those launches not
+   counted). The phase must take at most 30 s.
 
 The last lines are the card line, one JSON object with every kernel's
 numbers, and ``{"ok": true, "device": {...}}``.
@@ -4518,6 +4540,56 @@ def family_train_phase(build: Path) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# fault phase
+# ---------------------------------------------------------------------------
+
+FAULT_BUDGET_S = 30.0
+# depth cut for the time limit (PERF.md section 4): smollm-135m at 2 of
+# its 30 layers, widths unchanged (tools/torch_fault_killpoint.py runs
+# all 30)
+FAULT_LAYERS = 2
+FAULT_SCENARIO = dict(steps=9, fail_at=4, ckpt_every=2, grace_s=2.5)
+
+
+def fault_phase(build: Path) -> dict:
+    """A host drop detected, restored and resumed (see the module
+    docstring, phase 17), through ``tools/torch_fault_killpoint.py``'s
+    ``run_scenario``."""
+    from repro_torch.configs import base as configs
+    from repro_torch.launch import train as T
+
+    tool = _load_tool("torch_fault_killpoint")
+    cfg = dataclasses.replace(configs.get("smollm-135m"),
+                              n_layers=FAULT_LAYERS)
+    _free_cuda()
+    with tool.world_of_one(str(build), "nccl"):
+        out = tool.run_scenario(
+            cfg, "cuda", **FAULT_SCENARIO,
+            ckpt_dir=str(build / "smoke_fault_ckpt"), shape=T.FULL_SHAPE,
+            kernel_check=_family_kernel_check,
+            log=lambda m: log(f"fault: {m}"))
+    assert "largest group" in out["kernel_check"], out["kernel_check"]
+    total: dict = {}
+    for part in ("save_launches", "restore_launches", "resume_launches"):
+        for k, n in out[part].items():
+            total[k] = total.get(k, 0) + n
+    saves = out["saves"] + out["resume_saves"]
+    for k in tool.SAVE_KERNELS:
+        assert total[k] == saves * out["groups"], (k, total)
+    assert total["dequant_idct"] == out["moment_leaves"], total
+    assert sum(total.values()) == (3 * saves * out["groups"]
+                                   + out["moment_leaves"]), total
+    out["launches"] = total
+    log(f"fault phase parts: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in out["part_s"].items())
+        + f"; detected at step {out['detect_step']}, restored step "
+        f"{out['restored_step']} on {out['new_shape']} (merge "
+        f"{out['merge_factor']}) in {out['restore_s']:.2f} s; resumed "
+        f"gaps {out['loss_gaps']}; launches {total}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4611,6 +4683,11 @@ def main() -> int:
     fam["phase_s"] = time.perf_counter() - t0
     log(f"family_train phase: {fam['phase_s']:.1f}s")
     assert fam["phase_s"] <= FAMILY_BUDGET_S, fam["phase_s"]
+    t0 = time.perf_counter()
+    fault = fault_phase(ROOT / "build")
+    fault["phase_s"] = time.perf_counter() - t0
+    log(f"fault phase: {fault['phase_s']:.1f}s")
+    assert fault["phase_s"] <= FAULT_BUDGET_S, fault["phase_s"]
     all_s = time.perf_counter() - t_phases
     log(f"all phases: {all_s:.1f}s")
 
@@ -4655,7 +4732,8 @@ def main() -> int:
                 "launches"],
             "frontend_train": frontend["train"]["launches"][
                 "paged_decode_attention"],
-            "family_train": fam["launches"]["paged_decode_attention"]},
+            "family_train": fam["launches"]["paged_decode_attention"],
+            "fault": fault["launches"]["paged_decode_attention"]},
     }
     records = [record]
     tpu = "src/repro/kernels/spectral_lossy.py"
@@ -4761,6 +4839,7 @@ def main() -> int:
     log(json.dumps({"xlstm": xlstm}))
     log(json.dumps({"frontend": frontend}))
     log(json.dumps({"family_train": fam}))
+    log(json.dumps({"fault": fault}))
     log(json.dumps({"roofline": {k: v for k, v in roof.items()
                                  if k != "reports"}}))
     for rec in records[1:]:
@@ -4770,7 +4849,8 @@ def main() -> int:
                                    "frontend_train": frontend["train"][
                                        "launches"][rec["name"]],
                                    "family_train": fam["launches"][
-                                       rec["name"]]}
+                                       rec["name"]],
+                                   "fault": fault["launches"][rec["name"]]}
     log(card)
     log(json.dumps({"kernels": records}))
     log(json.dumps({"ok": True, "device": {

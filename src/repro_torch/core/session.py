@@ -12,7 +12,7 @@ hand-wired into it. Every workflow is one *plan*:
   tasks     what runs: an explicit ``device_stage -> handoff ->
             host_stages -> sink`` chain, or a registered *preset*
             (``checkpoint``, ``grad_health``, ``spectra``,
-            ``serve_snapshot``)
+            ``serve_snapshot``, ``fault``)
 
 A plan is validated at construction (errors name the offending
 stream/task) and is loadable from a plain dict, in the JAX package's
@@ -44,8 +44,12 @@ snapshot store's mirror all land in one table; a ``tcp://`` one carries a
 consumer's steering messages back, and :meth:`Session.poll_steering`
 applies them mid-run.
 
-Not ported yet, each refused with :class:`PlanError` naming its ROADMAP
-item: the ``fault`` preset and elastic restore.
+Failures: the ``fault`` preset runs a
+:class:`~repro_torch.distributed.fault.FaultController` on the emitted
+heartbeats (:meth:`Session.fault_controller`, :meth:`Session.shed_insitu`,
+``report()["fault"]``), and ``Session.restore(elastic=True)`` re-plans the
+mesh for the surviving ranks of the default process group and places the
+restored state on a ``DeviceMesh`` of them.
 """
 from __future__ import annotations
 
@@ -303,12 +307,6 @@ def _task_from_dict(name: str, spec: Mapping[str, Any]) -> TaskSpec:
 # CheckpointManager — save/restore/retention — into the plan).
 _PRESETS: dict[str, Callable[[TaskSpec], dict]] = {}
 
-# presets of the JAX package the port does not carry yet -> ROADMAP item
-_NOT_PORTED = {
-    "fault": "'Distribution and faults' (distributed/fault.py)",
-}
-
-
 def register_preset(name: str):
     """Register a workflow preset usable as ``TaskSpec(preset=name)``.
 
@@ -487,6 +485,49 @@ def _serve_snapshot_preset(spec: TaskSpec) -> dict:
     return pieces
 
 
+@register_preset("fault")
+def _fault_preset(spec: TaskSpec) -> dict:
+    """Failure-aware run: heartbeats + straggler EWMA + live mitigation.
+
+    Each firing feeds a :class:`~repro_torch.distributed.fault.FaultController`
+    with the emitted health payload (``{"host": h, "step_s": s}``,
+    ``{"hosts": {h: s}}``, or a bare ``{host: step_s}`` mapping). The
+    controller runs on the session's injected monotonic clock (``attach``),
+    declares hosts missing ``grace_s`` seconds of beats failed, and applies
+    ``StragglerMonitor.mitigation`` live — shedding in-situ load first
+    (:meth:`Session.shed_insitu` widens every other task's cadence) before
+    flagging a host for replacement at the next checkpoint boundary.
+    :meth:`Session.report` carries the controller's state under ``fault``.
+
+    Options: ``hosts`` (required — the participating host ids), ``grace_s``
+    (heartbeat grace, default 30), ``alpha`` (EWMA smoothing, default 0.2),
+    ``factor`` (straggler threshold x median, default 1.5), ``to``
+    (transport URL streaming each ingest report — a live health feed for a
+    remote dashboard).
+    """
+    from repro_torch.distributed.fault import FaultController
+
+    hosts = spec.options.get("hosts")
+    if not hosts:
+        raise PlanError(
+            f"task {spec.name!r}: fault preset requires "
+            "options={'hosts': [...]} (the participating host ids)")
+    ctrl = FaultController(
+        [int(h) for h in hosts],
+        grace_s=float(spec.options.get("grace_s", 30.0)),
+        alpha=float(spec.options.get("alpha", 0.2)),
+        factor=float(spec.options.get("factor", 1.5)))
+
+    def transform(step: int, payload: Any):
+        return ctrl.ingest(step, payload)
+
+    return _terminal_pieces(
+        spec, transform,
+        known_options=("hosts", "grace_s", "alpha", "factor"),
+        report=ctrl.report, controller=ctrl,
+        attach=lambda session: ctrl.attach(session, spec.name))
+
+
 # ---------------------------------------------------------------------------
 # The plan
 # ---------------------------------------------------------------------------
@@ -504,8 +545,8 @@ class InSituPlan:
 
     Construction validates the whole plan and raises :class:`PlanError`
     naming the offending stream/task: unknown stream, duplicate task name,
-    ``every < 1``, unknown or not-yet-ported preset, preset+sink
-    conflicts, bad backpressure policy.
+    ``every < 1``, unknown preset, preset+sink conflicts, more than one
+    checkpoint task, bad backpressure policy.
     """
     streams: Sequence[Union[str, StreamSpec]] = ()
     tasks: Sequence[TaskSpec] = ()
@@ -578,10 +619,6 @@ class InSituPlan:
             if t.preset is None and t.sink is None:
                 raise PlanError(
                     f"task {t.name!r}: needs a preset or a sink")
-            if t.preset in _NOT_PORTED:
-                raise PlanError(
-                    f"task {t.name!r}: preset {t.preset!r} is not ported "
-                    f"yet (ROADMAP.md: {_NOT_PORTED[t.preset]})")
             if t.preset == "checkpoint":
                 n_ckpt += 1
                 if n_ckpt > 1:
@@ -747,7 +784,9 @@ class Session:
         self._task_stream: dict[str, str] = {}
         self._reporters: dict[str, Callable[[], Mapping[str, Any]]] = {}
         self._stores: dict[str, Any] = {}
+        self._controllers: dict[str, Any] = {}
         self._transports: dict[str, transport.Sink] = {}
+        self._remesh = None               # ElasticRestore after elastic load
         self._by_stream: dict[str, list[_Binding]] = {
             s.name: [] for s in plan.streams}
         for spec in plan.tasks:
@@ -770,6 +809,8 @@ class Session:
             self._reporters[spec.name] = pieces["report"]
         if pieces.get("store") is not None:
             self._stores[spec.name] = pieces["store"]
+        if pieces.get("controller") is not None:
+            self._controllers[spec.name] = pieces["controller"]
         if pieces.get("transport") is not None:
             # declared via options={"to": url}; the session reports and
             # closes it at finish
@@ -805,6 +846,10 @@ class Session:
         self.runtime.register(task)
         self._by_stream[spec.stream].append(
             _Binding(spec, task.source, session_gated))
+        if pieces.get("attach") is not None:
+            # presets that need the live session (clock adoption, shedding
+            # surface) get it only after their task is registered
+            pieces["attach"](self)
 
     def _bind_checkpoint(self, spec: TaskSpec) -> None:
         """Fold a CheckpointManager into the session as a declared task.
@@ -1002,7 +1047,7 @@ class Session:
     @property
     def clock(self) -> Callable[[], float]:
         """The session's monotonic clock (injected or ``time.monotonic``);
-        Interval triggers read it."""
+        Interval triggers and the fault subsystem read the same source."""
         return self._clock
 
     @property
@@ -1027,6 +1072,46 @@ class Session:
                 f"{sorted(self._stores)})")
         return self._stores[task]
 
+    def fault_controller(self, task: Optional[str] = None) -> Any:
+        """The FaultController behind a ``fault`` task. ``task=None`` picks
+        the only one; raises :class:`PlanError` when the plan declares none
+        (or several, without naming which)."""
+        if task is None:
+            if len(self._controllers) != 1:
+                raise PlanError(
+                    "plan declares "
+                    f"{len(self._controllers)} fault controller(s) — name "
+                    f"the task (declared: {sorted(self._controllers)})")
+            return next(iter(self._controllers.values()))
+        if task not in self._controllers:
+            raise PlanError(
+                f"task {task!r} has no fault controller (declared: "
+                f"{sorted(self._controllers)})")
+        return self._controllers[task]
+
+    def shed_insitu(self, exclude: Sequence[str] = ()) -> dict[str, int]:
+        """Shed in-situ load: double every bound task's effective firing
+        period (the paper's "reduce p_i on contended nodes" mitigation).
+
+        Returns ``{task: new_effective_every}`` for the tasks that actually
+        widened (tasks at their cap don't), each counted under
+        ``fault/shed/<task>``. The checkpoint task is never shed — its
+        saves are session-gated, so a widened runtime period would silently
+        drop them — and ``exclude`` skips more (the fault task excludes
+        itself so mitigation doesn't starve its own heartbeats).
+        """
+        skip = set(exclude)
+        if self.checkpoint is not None:
+            skip.add("checkpoint")
+        widened: dict[str, int] = {}
+        for task in self.runtime.tasks:
+            if task.name in skip:
+                continue
+            if self.runtime.widen_every(task.name):
+                widened[task.name] = self.runtime.effective_every(task.name)
+                self.runtime.telemetry.count(f"fault/shed/{task.name}")
+        return widened
+
     def stream_of(self, task: str) -> Optional[str]:
         """The stream a task is bound to (None for tasks the plan doesn't
         know, e.g. registered directly on a passed-in runtime)."""
@@ -1039,23 +1124,102 @@ class Session:
 
     # -- checkpoint passthrough ----------------------------------------------
 
-    def set_checkpoint_meta(self, meta: Optional[Mapping[str, Any]] = None
-                            ) -> None:
-        """Attach run metadata to every subsequent checkpoint save."""
-        self._ckpt_meta = dict(meta) if meta else None
+    def set_checkpoint_meta(self, meta: Optional[Mapping[str, Any]] = None,
+                            *, mesh: Any = None) -> None:
+        """Attach run metadata to every subsequent checkpoint save.
+
+        ``mesh`` (a ``DeviceMesh`` with axis names, or a device-free
+        ``sharding.MeshShape``) records the mesh geometry under
+        ``meta["mesh"]`` (``{"shape": [...], "axes": [...]}``) — what
+        ``restore(elastic=True)`` reads back to plan the remesh when the
+        caller doesn't pass ``old_shape``/``axis_names`` explicitly.
+        """
+        m = dict(meta) if meta else {}
+        if mesh is not None:
+            from repro_torch.distributed.sharding import mesh_geometry
+            sizes, names = mesh_geometry(mesh)
+            m["mesh"] = {"shape": [int(x) for x in sizes],
+                         "axes": [str(a) for a in names]}
+        self._ckpt_meta = m or None
 
     def restore(self, template: PyTree, step: Optional[int] = None, *,
-                elastic: bool = False) -> tuple[int, PyTree]:
+                elastic: bool = False,
+                devices: Optional[Sequence[int]] = None,
+                old_shape: Optional[Sequence[int]] = None,
+                axis_names: Optional[Sequence[str]] = None,
+                make_shardings: Optional[Callable[[Any], PyTree]] = None,
+                ) -> tuple[int, PyTree]:
         """Restore from the plan's checkpoint task: ``(step, state)`` with
-        the template's structure, dtypes and shapes, on the device the
-        task's options name (the card by default). Elastic restore (a
-        re-mesh onto surviving devices) is not ported yet."""
-        if elastic:
-            raise PlanError("elastic restore is not ported yet (ROADMAP.md: "
-                            "'Distribution and faults')")
+        the template's structure, dtypes and shapes (its leaves may be
+        ``meta`` tensors), on the device the task's options name (the card
+        by default).
+
+        ``elastic=True`` is the failure-recovery path. The survivors are
+        ``devices``, ranks of the default process group with one device
+        each (default: every rank of the group).
+        :func:`~repro_torch.distributed.fault.plan_elastic_remesh` picks
+        the largest grid that fits them, and the mesh is a ``DeviceMesh``
+        over the first ``new_device_count`` of them in the plan's shape and
+        axis names. The v2 checkpoint is read whole (its leaves are stored
+        logically complete), then each leaf is placed under
+        ``make_shardings(mesh)`` (a tree of DTensor placements, e.g.
+        ``launch.train.state_shardings``) with ``distribute_tensor``: TP
+        shards merge by the plan's ``model_merge_factor`` implicitly,
+        because re-placement under the new placements *is* the merge.
+        Without ``make_shardings`` the leaves come back as plain tensors.
+
+        The old mesh geometry comes from ``old_shape``/``axis_names`` or,
+        by default, from the checkpoint's recorded meta (saves made after
+        :meth:`set_checkpoint_meta`\\ ``(mesh=...)``); a checkpoint without
+        it raises :class:`PlanError`. The resolved plan, mesh and step are
+        kept on :attr:`remesh`.
+        """
         if self.checkpoint is None:
             raise PlanError("plan declares no checkpoint task to restore from")
-        return self.checkpoint.restore(template, step)
+        if not elastic:
+            return self.checkpoint.restore(template, step)
+        from repro_torch.distributed.fault import (ElasticRestore,
+                                                   plan_elastic_remesh)
+        from repro_torch.distributed.sharding import distribute_tree
+        if old_shape is None or axis_names is None:
+            mesh_meta = self.checkpoint.read_meta(step).get("mesh")
+            if not mesh_meta:
+                raise PlanError(
+                    "elastic restore needs the old mesh geometry — pass "
+                    "old_shape/axis_names, or save checkpoints after "
+                    "Session.set_checkpoint_meta(mesh=...)")
+            if old_shape is None:
+                old_shape = tuple(mesh_meta["shape"])
+            if axis_names is None:
+                axis_names = tuple(mesh_meta["axes"])
+        import torch
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import DeviceMesh
+        if not dist.is_initialized():
+            raise PlanError(
+                "elastic restore places the state on a DeviceMesh of the "
+                "surviving ranks: initialize torch.distributed's default "
+                "process group first")
+        devs = ([int(d) for d in devices] if devices is not None
+                else list(range(dist.get_world_size())))
+        plan = plan_elastic_remesh(tuple(old_shape), tuple(axis_names),
+                                   len(devs))
+        dev_type = torch.device(self.checkpoint.cfg.device).type
+        mesh = DeviceMesh(
+            dev_type,
+            torch.tensor(devs[:plan.new_device_count]).reshape(plan.new_shape),
+            mesh_dim_names=tuple(plan.axis_names))
+        step, state = self.checkpoint.restore(template, step)
+        if make_shardings is not None:
+            state = distribute_tree(state, mesh, make_shardings(mesh))
+        self._remesh = ElasticRestore(plan=plan, mesh=mesh, step=step)
+        return step, state
+
+    @property
+    def remesh(self):
+        """The :class:`~repro_torch.distributed.fault.ElasticRestore`
+        resolved by the last ``restore(elastic=True)`` (None before)."""
+        return self._remesh
 
     def latest_checkpoint_step(self) -> Optional[int]:
         if self.checkpoint is None:
@@ -1145,6 +1309,14 @@ class Session:
                 "commands": [dict(s) for s in self._steering],
                 "steering_rejected": self._steering_rejected,
             }
+        if self._controllers:
+            # failed hosts / straggler EWMA / applied mitigations, flat when
+            # the plan declares one fault task (the common case)
+            if len(self._controllers) == 1:
+                rep["fault"] = next(iter(self._controllers.values())).report()
+            else:
+                rep["fault"] = {n: c.report()
+                                for n, c in self._controllers.items()}
         rep["errors"] = [
             {"task": n, "stream": self.stream_of(n) or "?", "step": s,
              "error": f"{type(e).__name__}: {e}"}

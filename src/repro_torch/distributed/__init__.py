@@ -1,1 +1,3 @@
-"""Distribution and fault tolerance (the straggler monitor so far)."""
+"""Distribution and fault tolerance: heartbeats, stragglers, elastic
+re-mesh planning (``fault``) and the logical-axis placement rules on a
+``DeviceMesh`` (``sharding``)."""

@@ -1,0 +1,241 @@
+"""Logical-axis -> mesh-axis placement rules (FSDP / TP / EP / SP).
+
+The model substrate annotates every parameter dim with a *logical* axis
+name (see models/params.py). This module turns those names into a per-dim
+*spec* against a mesh, with divisibility fallbacks: a logical axis is only
+mapped onto a mesh axis when the dim size is divisible by the mesh-axis
+size; otherwise the dim is replicated. That keeps a single production mesh
+(16x16 or 2x16x16) valid for every arch — the 9-head arch simply
+replicates its attention weights where the 128-head arch
+tensor-parallelizes them.
+
+A spec is a plain tuple, one entry per tensor dim: ``None`` (replicated),
+a mesh-axis name, or a tuple of mesh-axis names (the dim split over
+several, major first). It equals the JAX package's ``PartitionSpec``
+entry for entry. The rules need only a mesh's axis names and sizes, so
+they run on a device-free :class:`MeshShape` (the counterpart of
+``abstract_mesh``) as well as on a real
+``torch.distributed.device_mesh.DeviceMesh``; :func:`tree_shardings`
+turns specs into DTensor placements on the latter (``Shard(dim)`` or
+``Replicate()`` per mesh dim) and :func:`distribute_tree` places a tree of
+logically complete tensors under them.
+
+No counterpart here: ``shard_map``, ``mesh_context`` and ``constrain``.
+They wrap JAX's manual-partitioning API, its ambient mesh and XLA's
+sharding hints; the port places tensors explicitly.
+
+Rule sets are small data, so per-arch overrides and variants are plain
+dicts.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Mapping, Sequence
+
+from repro_torch.core.pytree import tree_map
+
+PyTree = Any
+Spec = tuple
+
+
+@dataclass(frozen=True)
+class MeshShape:
+    """A device-free mesh: axis names and sizes, nothing placed."""
+    sizes: tuple
+    axis_names: tuple
+
+    def __post_init__(self):
+        if len(self.sizes) != len(self.axis_names):
+            raise ValueError(f"mesh sizes {self.sizes} and axis names "
+                             f"{self.axis_names} differ in length")
+
+    @property
+    def shape(self) -> dict[str, int]:
+        """Axis name -> size, as the JAX package's ``Mesh.shape``."""
+        return dict(zip(self.axis_names, self.sizes))
+
+
+def abstract_mesh(sizes: Sequence[int], names: Sequence[str]) -> MeshShape:
+    """The device-free mesh the rules are evaluated on in tests and plans."""
+    return MeshShape(tuple(int(s) for s in sizes), tuple(names))
+
+
+def mesh_geometry(mesh: Any) -> tuple[tuple, tuple]:
+    """``(sizes, axis_names)`` of a :class:`MeshShape` or a ``DeviceMesh``
+    (which must carry ``mesh_dim_names``)."""
+    if isinstance(mesh, MeshShape):
+        return mesh.sizes, mesh.axis_names
+    names = getattr(mesh, "mesh_dim_names", None)
+    if not names:
+        raise ValueError("the placement rules need a mesh with axis names "
+                         "(DeviceMesh(..., mesh_dim_names=...))")
+    return tuple(int(s) for s in mesh.mesh.shape), tuple(names)
+
+
+# Baseline rules: logical axis -> mesh axis (or tuple of mesh axes), None =
+# replicate. FSDP shards the model dimension over 'data'; TP shards
+# vocab/heads/mlp/expert over 'model'. 'pod' stays pure DP for params (no
+# cross-pod param collectives on the slow inter-pod link).
+DEFAULT_RULES: dict[str, Any] = {
+    "vocab": "model",
+    "embed": "data",
+    "heads": "model",
+    "kv_heads": "model",
+    "head_dim": None,
+    "mlp": "model",
+    "expert": "model",
+    "e_mlp": None,
+    "layers": None,
+    "lora": None,
+    "state": None,
+    "conv": None,
+    None: None,
+}
+
+# Variant: fully-sharded params over both axes (zero-1 style).
+FSDP_TP_RULES = dict(DEFAULT_RULES)
+
+# Variant for small models where TP is wasteful: everything FSDP over the
+# flattened ('data','model') axes pair on the largest dim, batch over the
+# whole mesh (pure data parallel + ZeRO-3).
+PURE_DP_RULES = dict(
+    DEFAULT_RULES,
+    vocab=("data", "model"),
+    embed=("data", "model"),
+    heads=None,
+    kv_heads=None,
+    mlp=None,
+    expert=None,
+)
+
+RULE_SETS = {
+    "default": DEFAULT_RULES,
+    "pure_dp": PURE_DP_RULES,
+}
+
+
+def batch_over_model(rules) -> bool:
+    """pure_dp rules want activations batch-sharded over 'model' too."""
+    return rules is PURE_DP_RULES or rules == PURE_DP_RULES
+
+
+def _axes_sizes(mesh: Any) -> dict[str, int]:
+    sizes, names = mesh_geometry(mesh)
+    return dict(zip(names, sizes))
+
+
+def _resolve_dim(dim: int, logical: str | None, rules: Mapping,
+                 mesh_sizes: dict):
+    """Map one logical dim to mesh axes, dropping axes that don't divide."""
+    target = rules.get(logical, None)
+    if target is None:
+        return None
+    if isinstance(target, str):
+        target = (target,)
+    kept = []
+    prod = 1
+    for ax in target:
+        size = mesh_sizes.get(ax, 1)
+        if dim % (prod * size) == 0:
+            kept.append(ax)
+            prod *= size
+    if not kept:
+        return None
+    return tuple(kept) if len(kept) > 1 else kept[0]
+
+
+def spec_for(shape: Sequence[int], axes: Sequence[str | None],
+             rules: Mapping, mesh: Any) -> Spec:
+    sizes = _axes_sizes(mesh)
+    used: set[str] = set()
+    parts = []
+    for dim, logical in zip(shape, axes):
+        resolved = _resolve_dim(dim, logical, rules, sizes)
+        # one mesh axis may appear at most once in a spec
+        if resolved is not None:
+            flat = (resolved,) if isinstance(resolved, str) else resolved
+            flat = tuple(a for a in flat if a not in used)
+            if not flat:
+                resolved = None
+            else:
+                used.update(flat)
+                resolved = flat if len(flat) > 1 else flat[0]
+        parts.append(resolved)
+    return tuple(parts)
+
+
+def tree_partition_specs(abstract_tree: PyTree, axes_tree: PyTree,
+                         rules: Mapping, mesh: Any) -> PyTree:
+    """A spec per leaf of a param tree (abstract or concrete): the tree of
+    ``abstract_tree`` with each leaf replaced by its spec tuple."""
+    return tree_map(lambda leaf, axes: spec_for(tuple(leaf.shape), axes,
+                                                rules, mesh),
+                    abstract_tree, axes_tree)
+
+
+def placements(spec: Spec, mesh: Any) -> tuple:
+    """DTensor placements of one spec: per mesh dim ``Shard(d)`` for the
+    tensor dim ``d`` its axis shards, else ``Replicate()``. A dim split
+    over several mesh axes must name them in the mesh's order (DTensor
+    shards a dim over mesh dims major first)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    _, names = mesh_geometry(mesh)
+    out: list = [Replicate()] * len(names)
+    for dim, part in enumerate(spec):
+        if part is None:
+            continue
+        axes = (part,) if isinstance(part, str) else tuple(part)
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"spec {spec}: dim {dim} takes mesh axes {axes} "
+                             f"out of the mesh's order {names}")
+        for i in idx:
+            out[i] = Shard(dim)
+    return tuple(out)
+
+
+def tree_shardings(abstract_tree: PyTree, axes_tree: PyTree, rules: Mapping,
+                   mesh: Any) -> PyTree:
+    """DTensor placements (:func:`placements`) per leaf of a param tree."""
+    specs = tree_partition_specs(abstract_tree, axes_tree, rules, mesh)
+    return tree_map(lambda _, s: placements(s, mesh), abstract_tree, specs)
+
+
+def distribute_tree(tree: PyTree, mesh: Any, shardings: PyTree) -> PyTree:
+    """Each logically complete leaf of ``tree`` as a DTensor on ``mesh``
+    under its placements in ``shardings`` (a tree of the same structure).
+    Every rank holds the whole leaf (a checkpoint restores it so), so
+    each takes its own slice and nothing is sent (``src_data_rank=None``);
+    re-placing a leaf under a shrunken mesh *is* merging its old TP
+    shards."""
+    from torch.distributed.tensor import distribute_tensor
+
+    return tree_map(lambda t, pl: distribute_tensor(
+        t, mesh, list(pl), src_data_rank=None), tree, shardings)
+
+
+def dp_axes(mesh: Any) -> tuple:
+    """Mesh axes used for the batch dim: ('pod','data') when pod exists."""
+    _, names = mesh_geometry(mesh)
+    return tuple(a for a in ("pod", "data") if a in names)
+
+
+def batch_spec(mesh: Any, batch: int, extra_model: bool = False) -> Spec:
+    """Spec for (batch, seq, ...) activations (its first entry; the rest
+    replicate). When the per-(pod,data) batch still divides over 'model'
+    and the arch policy asks for it (pure-DP small models), the batch dim
+    may also take 'model'."""
+    axes = list(dp_axes(mesh))
+    sizes = _axes_sizes(mesh)
+    prod = 1
+    kept = []
+    for a in axes:
+        if batch % (prod * sizes[a]) == 0:
+            kept.append(a)
+            prod *= sizes[a]
+    if extra_model and "model" in sizes and batch % (prod * sizes["model"]) == 0:
+        kept.append("model")
+    if not kept:
+        return ()
+    return (tuple(kept) if len(kept) > 1 else kept[0],)

@@ -26,10 +26,14 @@ bindings, loadable from a plain dict) and run them with :class:`Session`::
 Serving declares ``kv_pages`` with the ``serve_snapshot`` preset the
 same way.
 
-See ``repro_torch/core/session.py`` for the full semantics and for what is
-not ported yet. The legacy entry points (``InSituEngine``,
-``run_workflow``, ``run_pipeline``) remain as deprecation shims in
-``repro_torch.core``.
+A ``fault`` task on a ``health`` stream watches heartbeats and step times
+(:class:`FaultController`); ``Session.restore(elastic=True)`` resumes on
+the mesh :func:`plan_elastic_remesh` picks for the survivors
+(:class:`ElasticRestore`).
+
+See ``repro_torch/core/session.py`` for the full semantics. The legacy
+entry points (``InSituEngine``, ``run_workflow``, ``run_pipeline``)
+remain as deprecation shims in ``repro_torch.core``.
 """
 from repro_torch.checkpoint import (CheckpointConfig,
                                     CheckpointCorruptError,
@@ -46,15 +50,17 @@ from repro_torch.core.transport import (CallableSink, FileSink, FileSource,
                                         StreamSink, StreamSource,
                                         TransportError, as_sink, connect,
                                         decode_frame_payload, send_directory)
-from repro_torch.distributed.fault import StragglerMonitor
+from repro_torch.distributed.fault import (ElasticRestore, FaultController,
+                                           StragglerMonitor,
+                                           plan_elastic_remesh)
 
 __all__ = [
     "CheckpointConfig", "CheckpointCorruptError", "CheckpointManager",
     "StragglerMonitor", "send_directory",
-    "Adaptive", "Every", "FanoutStage", "InSituPlan", "InSituTaskError",
+    "Adaptive", "ElasticRestore", "Every", "FaultController", "FanoutStage", "InSituPlan", "InSituTaskError",
     "Interval", "Placement", "PlanError", "Session", "Stage", "StreamSpec",
-    "TaskSpec", "TransientError", "Trigger", "When", "preset_names",
-    "register_preset",
+    "TaskSpec", "TransientError", "Trigger", "When", "plan_elastic_remesh",
+    "preset_names", "register_preset",
     "CallableSink", "FileSink", "FileSource", "Frame", "FrameCorruptError",
     "MemorySink", "Sink", "Source", "StreamGapError", "StreamSink",
     "StreamSource", "TransportError", "as_sink", "connect",

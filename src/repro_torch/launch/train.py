@@ -39,8 +39,18 @@ a HYBRID save and a resume. The MoE/MLA archs (``moonshot-v1-16b-a3b``,
 ``internvl2-26b`` not at all: their full-width states do not fit one
 card (ROADMAP item 5).
 
-Not ported here (ROADMAP.md): the mesh, the sharded step and the cross-pod
-compressed gradient ring (``grad_compress``), and the ``fault`` preset.
+Placement: :func:`state_spec` / :func:`batch_abstract` give meta-device
+stand-ins of the state and the batch, :func:`state_shardings` /
+:func:`batch_shardings` their DTensor placements on a ``DeviceMesh``
+under the logical-axis rules (``distributed/sharding.py``); an elastic
+restore (``Session.restore(elastic=True, make_shardings=...)``) places a
+checkpoint under them. The loop records its mesh geometry (one device:
+``(1, 1)`` over ``('data', 'model')``) with every checkpoint, and with
+``default_train_plan(fault=True)`` beats a ``health`` stream each step
+for the ``fault`` preset.
+
+Not ported here (ROADMAP.md, queue 1 item 5.3): the step sharded across
+processes and the cross-pod compressed gradient ring (``grad_compress``).
 """
 from __future__ import annotations
 
@@ -58,6 +68,7 @@ from repro_torch.core import host
 from repro_torch.core.graphs import CapturedStep
 from repro_torch.core.pytree import flatten_with_path, keystr, leaves, \
     tree_map, unflatten_like
+from repro_torch.distributed import sharding
 from repro_torch.models import params as P_lib
 from repro_torch.models import transformer
 
@@ -66,6 +77,9 @@ PyTree = Any
 #: train_4k's sequence length; its global batch of 256 cut to 4 (one card)
 FULL_SHAPE = configs.ShapeConfig(
     "train_4k_b4", "train", configs.SHAPES["train_4k"].seq_len, 4)
+
+#: the mesh ``train_loop`` steps on: one device
+LOOP_MESH = sharding.abstract_mesh((1, 1), ("data", "model"))
 
 
 # ---------------------------------------------------------------------------
@@ -87,6 +101,80 @@ def init_state(cfg: configs.ModelConfig, seed: int | torch.Generator,
     if opt_cfg.master_weights:
         state["master"] = ostate.master
     return state
+
+
+def state_spec(cfg: configs.ModelConfig, *, master: bool = False,
+               ef_pods: int = 0) -> dict:
+    """Meta-device stand-ins of the training state (the restore template
+    and what placement rules are evaluated on): bf16 moments, an int32
+    step count, f32 masters with ``master``, a per-pod bf16 residual with
+    a leading pod axis with ``ef_pods``."""
+    pspec = transformer.param_spec(cfg)
+    params = P_lib.abstract(pspec)
+    meta = lambda shape, dt: torch.empty(shape, dtype=dt, device="meta")
+    mom = lambda: tree_map(lambda t: meta(t.shape, torch.bfloat16), params)
+    state = {"params": params, "mu": mom(), "nu": mom(),
+             "count": meta((), torch.int32)}
+    if master:
+        state["master"] = tree_map(lambda t: meta(t.shape, torch.float32),
+                                   params)
+    if ef_pods:
+        state["ef"] = tree_map(
+            lambda t: meta((ef_pods,) + tuple(t.shape), torch.bfloat16),
+            params)
+    return state
+
+
+def state_shardings(cfg: configs.ModelConfig, mesh, rules=None, *,
+                    master: bool = False, ef_residual: bool = False) -> dict:
+    """DTensor placements of the training state on ``mesh`` (a
+    ``DeviceMesh`` with axis names): params and both moments under the
+    logical-axis ``rules`` (default ``sharding.DEFAULT_RULES``), the count
+    replicated, the residual's leading axis over 'pod'."""
+    rules = rules if rules is not None else sharding.DEFAULT_RULES
+    pspec = transformer.param_spec(cfg)
+    axes = P_lib.logical_axes(pspec)
+    abstract = P_lib.abstract(pspec)
+    pspecs = sharding.tree_partition_specs(abstract, axes, rules, mesh)
+    place = lambda specs: tree_map(
+        lambda _, sp: sharding.placements(sp, mesh), abstract, specs)
+    pshard = place(pspecs)
+    out = {"params": pshard, "mu": pshard, "nu": pshard,
+           "count": sharding.placements((), mesh)}
+    if master:
+        out["master"] = pshard
+    if ef_residual:
+        out["ef"] = place(tree_map(lambda _, sp: ("pod",) + tuple(sp),
+                                   abstract, pspecs))
+    return out
+
+
+def batch_shardings(cfg: configs.ModelConfig, shape: configs.ShapeConfig,
+                    mesh, rules=None) -> dict:
+    """DTensor placements of a batch on ``mesh``: rows over the data axes
+    (and 'model' under the pure-DP rules)."""
+    extra = sharding.batch_over_model(rules) if rules is not None else False
+    bspec = sharding.batch_spec(mesh, shape.global_batch, extra_model=extra)
+    pl = sharding.placements(bspec, mesh)
+    out = {"tokens": pl, "labels": pl}
+    if cfg.frontend:
+        out["prefix"] = pl
+    return out
+
+
+def batch_abstract(cfg: configs.ModelConfig, shape: configs.ShapeConfig
+                   ) -> dict:
+    """Meta-device stand-ins of a batch: int32 tokens and labels, and a
+    frontend arch's prefix embeddings (f32, as ``synth_batch`` makes
+    them)."""
+    b, s = shape.global_batch, shape.seq_len
+    meta = lambda shp, dt: torch.empty(shp, dtype=dt, device="meta")
+    out = {"tokens": meta((b, s), torch.int32),
+           "labels": meta((b, s), torch.int32)}
+    if cfg.frontend:
+        out["prefix"] = meta((b, cfg.frontend_tokens, cfg.d_model),
+                             torch.float32)
+    return out
 
 
 def state_from_numpy(tree: PyTree, device: str | torch.device = "cuda"
@@ -207,13 +295,19 @@ def graph_train_step(cfg: configs.ModelConfig, step_cfg: StepConfig,
 def default_train_plan(*, insitu_mode: str = "async",
                        ckpt_dir: Optional[str] = None, ckpt_every: int = 20,
                        analytics_every: int = 10, p_i: int = 2,
-                       device: str | torch.device = "cuda") -> dict:
+                       device: str | torch.device = "cuda",
+                       fault: bool = False,
+                       fault_hosts: Optional[list] = None,
+                       fault_grace_s: float = 30.0) -> dict:
     """The training loop's declarative in-situ plan, in plain-dict form.
 
     Two streams: ``grads`` (per-step gradient/param summaries, bound to the
     ``grad_health`` preset) and ``train_state`` (the full checkpointable
     state, bound to the ``checkpoint`` preset when ``ckpt_dir`` is given;
-    its lossy stage and restore run on ``device``)."""
+    its lossy stage and restore run on ``device``). ``fault=True`` adds a
+    third, ``health`` (per-step heartbeat + step time), bound to the
+    ``fault`` preset over ``fault_hosts`` (default ``[0]``) — failed-host
+    detection and straggler mitigation run on it."""
     plan: dict = {
         "streams": ["grads", "train_state"],
         "workers": p_i,
@@ -228,6 +322,16 @@ def default_train_plan(*, insitu_mode: str = "async",
             "stream": "train_state", "preset": "checkpoint",
             "every": ckpt_every, "placement": insitu_mode,
             "options": {"directory": ckpt_dir, "device": str(device)},
+        }
+    if fault:
+        # sync + every=1: heartbeats must not be shed by backpressure, and
+        # mitigation decisions should land on the step that triggered them
+        plan["streams"].append("health")
+        plan["tasks"]["fault"] = {
+            "stream": "health", "preset": "fault", "every": 1,
+            "placement": "sync", "pipelined": False,
+            "options": {"hosts": list(fault_hosts or [0]),
+                        "grace_s": fault_grace_s},
         }
     return plan
 
@@ -298,7 +402,9 @@ def train_loop(arch: str, *, steps: int = 50, smoke: bool = True,
             session.runtime.inject_sink_fault(task_name, hook)
         if on_session is not None:
             on_session(session)
-        session.set_checkpoint_meta({"arch": cfg.name})
+        # record the mesh geometry with every save, so that a later
+        # restore(elastic=True) can plan the remesh from the manifest
+        session.set_checkpoint_meta({"arch": cfg.name}, mesh=LOOP_MESH)
         if session.latest_checkpoint_step() is not None:
             start, state = session.restore(state)
             log(f"resumed from step {start}")
@@ -329,6 +435,10 @@ def train_loop(arch: str, *, steps: int = 50, smoke: bool = True,
                 step_s = time.perf_counter() - t0
                 mon.observe(0, step_s)
                 losses.append(loss)
+                if "health" in session.streams:
+                    # single-process loop: host 0's beat + step time; a
+                    # multi-host launcher emits {"hosts": {h: s}} instead
+                    session.emit("health", i, {"host": 0, "step_s": step_s})
                 # a custom plan may declare only a subset of the default
                 # streams — offer each payload only where declared
                 if "grads" in session.streams:

@@ -11,7 +11,11 @@ package builds. From one spec tree:
   * ``from_numpy_tree(tree, device)`` -> the port's tensors for a parameter
     tree the JAX package materialized, handed over as numpy arrays — same
     keys, shapes, dtypes and bits. This is how parity tests start both
-    packages from identical weights.
+    packages from identical weights;
+  * ``abstract(spec)`` -> tensors on the ``meta`` device (shape and dtype,
+    no storage), the counterpart of ``jax.ShapeDtypeStruct`` stand-ins;
+  * ``logical_axes(spec)`` -> the tree of logical-axis tuples, which
+    ``distributed/sharding.py`` maps onto a mesh.
 """
 from __future__ import annotations
 
@@ -131,8 +135,29 @@ def from_numpy_tree(tree: PyTree, device: str | torch.device = "cuda"
     return tree_map(lambda a: host.to_tensor(np.asarray(a), dev), tree)
 
 
+def is_spec(x: Any) -> bool:
+    return isinstance(x, ParamSpec)
+
+
+def abstract(spec_tree: PyTree) -> PyTree:
+    """Meta-device stand-ins (shape + dtype, allocates nothing)."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                          device="meta"), spec_tree)
+
+
+def logical_axes(spec_tree: PyTree) -> PyTree:
+    """The logical-axis tuple of each leaf, in the spec tree's structure
+    (walk it beside a tensor tree: its tuples are leaves there)."""
+    return tree_map(lambda s: s.axes, spec_tree)
+
+
 def param_count(spec_tree: PyTree) -> int:
     return sum(int(np.prod(s.shape)) for s in leaves(spec_tree))
+
+
+def param_bytes(spec_tree: PyTree) -> int:
+    return sum(int(np.prod(s.shape)) * s.dtype.itemsize
+               for s in leaves(spec_tree))
 
 
 def cast_tree(tree: PyTree, dtype: torch.dtype) -> PyTree:

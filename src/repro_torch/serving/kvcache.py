@@ -17,7 +17,10 @@ The paged engine turns every leaf whose sequence axis spans ``max_len``
 into a block-indexed page pool ``(L, num_pages, page_size, N, hd)``; the
 SWA rings and the recurrent state stay per-row slabs; the ssm family has
 no pool at all.
-``init_cache`` / ``init_paged_cache`` return concrete zeros on a device.
+``init_cache`` / ``init_paged_cache`` return concrete zeros on a device;
+``cache_spec`` meta-device stand-ins, ``cache_partition_spec`` each
+leaf's placement spec on a mesh and ``cache_bytes`` the dense cache's
+size.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.pytree import tree_map
+from repro_torch.distributed import sharding
 from repro_torch.models import hymba as hymba_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import xlstm as xlstm_lib
@@ -215,3 +219,61 @@ def chain_view(pool_kv: PyTree, page_ids: torch.Tensor) -> PyTree:
         gathered = a[:, page_ids]                      # (L, n, ps, ...)
         return gathered.reshape(a.shape[0], -1, *a.shape[3:])[:, None]
     return tree_map(leaf, pool_kv)
+
+
+def cache_spec(cfg: ModelConfig, batch: int, max_len: int) -> PyTree:
+    """Meta-device stand-ins of the dense cache (allocates nothing)."""
+    return _map_layout(cache_layout(cfg, batch, max_len),
+                       lambda d: torch.empty(d[0], dtype=torch_dtype(d[2]),
+                                             device="meta"))
+
+
+_CACHE_RULES = {
+    "layers": None, "batch": "data", "seq": None, "kv_heads": "model",
+    "heads": "model", "head_dim": None, "mlp": "model", "state": None,
+    "conv": None, None: None,
+}
+
+
+def cache_partition_spec(cfg: ModelConfig, batch: int, max_len: int,
+                         mesh: Any) -> PyTree:
+    """Batch over ('pod','data'); kv-heads/mlp over 'model' when divisible.
+
+    Fallback: when the kv-heads dim does not divide the model axis (GQA with
+    few kv heads — most archs at model=16), the *sequence* axis of that
+    leaf takes 'model' instead (cache sequence-parallelism). ``mesh`` is a
+    ``sharding.MeshShape`` or a ``DeviceMesh``; each leaf's spec is a
+    per-dim tuple (``sharding.spec_for``).
+    """
+    rules = dict(_CACHE_RULES)
+    rules["batch"] = sharding.dp_axes(mesh)
+    sizes, names = sharding.mesh_geometry(mesh)
+    model_size = dict(zip(names, sizes)).get("model", 1)
+
+    def leaf(d):
+        shape, axes = d[0], d[1]
+        rr = dict(rules)
+        # does any 'model'-destined dim actually divide?
+        model_ok = any(
+            rr.get(a) == "model" and dim % model_size == 0
+            for dim, a in zip(shape, axes))
+        if not model_ok and "seq" in axes:
+            i = axes.index("seq")
+            if shape[i] % model_size == 0:
+                rr["seq"] = "model"
+        return sharding.spec_for(shape, axes, rr, mesh)
+
+    return _map_layout(cache_layout(cfg, batch, max_len), leaf)
+
+
+def cache_bytes(cfg: ModelConfig, batch: int, max_len: int) -> int:
+    total = [0]
+
+    def add(d):
+        n = 1
+        for s in d[0]:
+            n *= int(s)
+        total[0] += n * torch_dtype(d[2]).itemsize
+
+    _map_layout(cache_layout(cfg, batch, max_len), add)
+    return total[0]

@@ -579,8 +579,7 @@ def test_registry_rejects_duplicate_names():
 
 
 # -- sink retry / degrade and the time budget (the runtime's halves of
-#    tests/test_fault.py; the fault preset itself waits for ROADMAP queue 1
-#    'Distribution and faults') -------------------------------------------
+#    tests/test_fault.py; the fault preset is in tests/test_torch_fault.py)
 
 def _runtime_with_task(R, **kw):
     rt = R.PipelineRuntime(workers=2, staging_capacity=4)

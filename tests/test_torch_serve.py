@@ -7,7 +7,6 @@ JAX package's keys, so tools that read one report read the other.
 import pytest
 
 from repro.launch.serve import serve_loop as jax_serve_loop
-from repro_torch.core.session import PlanError, Session
 from repro_torch.launch.serve import default_serve_plan, serve_loop
 
 
@@ -53,19 +52,6 @@ def test_prefix_requests_share_pages():
     assert all(r.done for r in out["requests"])
     assert out["prefix_stats"]["hits"] == 3
     assert out["prefix_stats"]["shared_tokens"] == 3 * 16
-
-
-def test_waiting_parts_say_so():
-    """What still waits on ROADMAP queue 1's 'Distribution and faults'
-    says so: the ``fault`` preset, and an elastic restore (a re-mesh onto
-    surviving devices)."""
-    with Session(default_serve_plan()) as session:
-        with pytest.raises(PlanError, match="Distribution and faults"):
-            session.restore({}, elastic=True)
-    plan = default_serve_plan()
-    plan["tasks"]["fault"] = {"stream": "kv_pages", "preset": "fault"}
-    with pytest.raises(PlanError, match="not ported"):
-        Session(plan)
 
 
 @pytest.mark.parametrize("arch", ["musicgen-medium", "internvl2-26b"])

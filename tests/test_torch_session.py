@@ -11,9 +11,8 @@
   context, steering validation, the checkpoint task, and the legacy shims
   (``InSituEngine`` / ``run_workflow``) against a ``Session`` on the
   fig02 (sync-vs-async placement) and fig05 (frequency / backpressure /
-  adapt) semantics. What waits for ROADMAP queue 1 'Distribution and
-  faults' (the ``fault`` preset, elastic restore) is held to its
-  refusal instead.
+  adapt) semantics. The ``fault`` preset and elastic restore are held
+  against the JAX package in ``tests/test_torch_fault.py``.
 """
 import threading
 import time
@@ -143,26 +142,6 @@ def test_checkpoint_preset_validation(bad, match):
     task = {"stream": "s", "preset": "checkpoint", **bad}
     with pytest.raises(TS.PlanError, match=match):
         TS.InSituPlan.from_dict({"streams": ["s"], "tasks": {"c": task}})
-
-
-def test_fault_preset_still_names_its_roadmap_item():
-    with pytest.raises(TS.PlanError, match="Distribution and faults"):
-        TS.InSituPlan.from_dict({"streams": ["s"], "tasks": {
-            "f": {"stream": "s", "preset": "fault"}}})
-
-
-def test_fault_preset_and_elastic_restore_wait_for_their_roadmap_item(
-        tmp_path):
-    plan = TS.InSituPlan.from_dict({
-        "streams": ["s"],
-        "tasks": {"c": {"stream": "s", "preset": "checkpoint",
-                        "options": {"directory": str(tmp_path),
-                                    "device": "cpu"}}}})
-    with TS.Session(plan) as s:
-        with pytest.raises(TS.PlanError, match="Distribution and faults"):
-            s.restore({"w": torch.zeros(2)}, elastic=True)
-    assert "fault" in JS.preset_names()
-    assert "fault" not in TS.preset_names()
 
 
 # ---------------------------------------------------------------------------
