@@ -407,6 +407,33 @@ Phases (any failure exits non-zero; none is swallowed):
    kernels 2-5 against their plain versions on the restored save's
    largest packed group (``spectral_check``, those launches not
    counted). The phase must take at most 30 s.
+18. shard — the train step sharded across processes:
+   ``tools/torch_shard_step.py``'s ``run_pair("smoke")`` (module
+   docstring there; full depth runs there): two child processes in a
+   gloo world of two on the card's device 0 (NCCL refuses two ranks on
+   one device; the collectives stage through host buffers), full-width
+   ``smollm-135m`` at 2 of its 30 layers (``SHARD_LAYERS``), 4 x 4096
+   tokens, eager. (a) ``jit_train_step`` on a (1, 2) ('data', 'model')
+   mesh under the default rules, 2 steps under
+   ``tools/torch_fault_killpoint.py``'s ``CHECK_STEP`` (rate 1.0 from the first step, f32 masters, eps 1.0:
+   every update moves the parameters): losses, gradient norms, the
+   gathered params, masters and moments against one process's
+   ``make_train_step`` on the card on the same batches (loss atol 1e-5,
+   grad norm rtol 1e-3, each param / master leaf's change from the
+   initial state within 0.1 / 0.03 of the one process's change, relative
+   L2, which must be nonzero; moments 5 % of the leaf's largest |value|;
+   bitwise recorded). (b) a (2, 1, 1) ('pod', 'data', 'model') mesh under
+   ``int8`` with error feedback, 2 steps: on every leaf the ring's output
+   bit for bit against ``int8_ring_mean_plain`` of both pods' inputs, and
+   (n - 1) x numel int8 bytes on the wire. (c) a HYBRID save of (a)'s
+   gathered state, masters included, by rank 0 (kernels 2-4 once a
+   packed group),
+   ``restore(elastic=True)`` on both ranks (kernel 5 once a moment leaf
+   each; the plan (1, 2) -> (1, 2), merge 1), the restore against the
+   saved state (params bitwise, moments within ``error_bound(1e-2)``),
+   one resumed sharded step; kernels 2-5 against their plain versions
+   on the save's largest packed group (``spectral_check``, not counted).
+   The phase must take at most 45 s.
 
 The last lines are the card line, one JSON object with every kernel's
 numbers, and ``{"ok": true, "device": {...}}``.
@@ -4590,6 +4617,56 @@ def fault_phase(build: Path) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# shard phase
+# ---------------------------------------------------------------------------
+
+SHARD_BUDGET_S = 45.0
+# depth cut for the time limit (PERF.md section 4): smollm-135m at 2 of
+# its 30 layers, widths unchanged (tools/torch_shard_step.py runs all 30)
+SHARD_LAYERS = 2
+
+
+def shard_phase() -> dict:
+    """The train step sharded across two processes on the card (see the
+    module docstring, phase 18), through ``tools/torch_shard_step.py``'s
+    ``run_pair``; the children's launch counts summed here."""
+    tool = _load_tool("torch_shard_step")
+    _free_cuda()
+    r0, r1 = tool.run_pair("smoke", layers=SHARD_LAYERS,
+                           timeout_s=2 * SHARD_BUDGET_S,
+                           log=lambda m: log(m))
+    a, b = r0["a"], r0["b"]
+    assert a["loss_max_abs"] <= tool.ONE_LOSS_ATOL, a
+    for r in (r0, r1):
+        ring = r["b"]["ring"]
+        assert ring["leaves"] > 0 and ring["differ"] == [], ring
+        assert r["b"]["wire"]["bytes"]["int8"] == r["b"]["int8_bytes_want"]
+        assert r["c"]["plan"] == [[1, 2], [1, 2], 1], r["c"]
+    assert "largest group" in r0["kernel_check"], r0["kernel_check"]
+    groups, n_lossy = r0["groups"], r0["moment_leaves"]
+    total = dict(r0["save_launches"])
+    for r in (r0, r1):
+        for part in ("restore_launches", "c"):
+            got = r[part] if part != "c" else r["c"]["resume_launches"]
+            for k, n in got.items():
+                total[k] = total.get(k, 0) + n
+    for k in _load_tool("torch_fault_killpoint").SAVE_KERNELS:
+        assert total[k] == groups, (k, total)
+    assert total["dequant_idct"] == 2 * n_lossy, total
+    assert sum(total.values()) == 3 * groups + 2 * n_lossy, total
+    out = {"ranks": [r0, r1], "launches": total}
+    log(f"shard phase parts (rank 0): " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in r0["part_s"].items())
+        + f"; (a) bitwise {a['bitwise']}, loss |d| {a['loss_max_abs']:.2e}"
+        f", staged {r0['a_wire']['bytes']['staged']} B; (b) ring {b['ring']['leaves']}"
+        f" leaves bitwise, int8 {b['wire']['bytes']['int8']} B, staged "
+        f"{b['step_staged']} B by the steps; (c) restore "
+        f"{r0['restore_s']:.2f}"
+        f" s, resumed loss {r0['c']['resumed_loss']:.5f}; launches {total}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4688,6 +4765,11 @@ def main() -> int:
     fault["phase_s"] = time.perf_counter() - t0
     log(f"fault phase: {fault['phase_s']:.1f}s")
     assert fault["phase_s"] <= FAULT_BUDGET_S, fault["phase_s"]
+    t0 = time.perf_counter()
+    shard = shard_phase()
+    shard["phase_s"] = time.perf_counter() - t0
+    log(f"shard phase: {shard['phase_s']:.1f}s")
+    assert shard["phase_s"] <= SHARD_BUDGET_S, shard["phase_s"]
     all_s = time.perf_counter() - t_phases
     log(f"all phases: {all_s:.1f}s")
 
@@ -4733,7 +4815,8 @@ def main() -> int:
             "frontend_train": frontend["train"]["launches"][
                 "paged_decode_attention"],
             "family_train": fam["launches"]["paged_decode_attention"],
-            "fault": fault["launches"]["paged_decode_attention"]},
+            "fault": fault["launches"]["paged_decode_attention"],
+            "shard": shard["launches"]["paged_decode_attention"]},
     }
     records = [record]
     tpu = "src/repro/kernels/spectral_lossy.py"
@@ -4840,6 +4923,7 @@ def main() -> int:
     log(json.dumps({"frontend": frontend}))
     log(json.dumps({"family_train": fam}))
     log(json.dumps({"fault": fault}))
+    log(json.dumps({"shard": shard}))
     log(json.dumps({"roofline": {k: v for k, v in roof.items()
                                  if k != "reports"}}))
     for rec in records[1:]:
@@ -4850,7 +4934,8 @@ def main() -> int:
                                        "launches"][rec["name"]],
                                    "family_train": fam["launches"][
                                        rec["name"]],
-                                   "fault": fault["launches"][rec["name"]]}
+                                   "fault": fault["launches"][rec["name"]],
+                                   "shard": shard["launches"][rec["name"]]}
     log(card)
     log(json.dumps({"kernels": records}))
     log(json.dumps({"ok": True, "device": {

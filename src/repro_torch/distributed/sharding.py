@@ -24,6 +24,16 @@ No counterpart here: ``shard_map``, ``mesh_context`` and ``constrain``.
 They wrap JAX's manual-partitioning API, its ambient mesh and XLA's
 sharding hints; the port places tensors explicitly.
 
+What XLA's partitioner inserts in the JAX package's sharded step, the
+port issues itself (the last section): :func:`gather_full` and
+:func:`local_shard` move a leaf between its DTensor shard and the whole
+tensor, over :func:`all_gather`, :func:`all_reduce` and
+:func:`ring_shift`. Those pick their path by the group's backend name on
+every call: NCCL takes device tensors as they are; gloo takes host
+tensors, so a device tensor is staged through a host buffer there (two
+processes on one card cannot share an NCCL group). :data:`wire` counts
+the bytes handed to the backend and the bytes staged.
+
 Rule sets are small data, so per-arch overrides and variants are plain
 dicts.
 """
@@ -239,3 +249,142 @@ def batch_spec(mesh: Any, batch: int, extra_model: bool = False) -> Spec:
     if not kept:
         return ()
     return (tuple(kept) if len(kept) > 1 else kept[0],)
+
+
+# ---------------------------------------------------------------------------
+# the sharded step's collectives
+# ---------------------------------------------------------------------------
+
+class WireStats:
+    """Bytes and calls by key since :meth:`reset` (every key of ``keys``
+    starts at 0)."""
+
+    def __init__(self, keys: Sequence[str]):
+        self.keys = tuple(keys)
+        self.reset()
+
+    def reset(self) -> None:
+        self.bytes = dict.fromkeys(self.keys, 0)
+        self.calls = dict.fromkeys(self.keys, 0)
+
+    def add(self, key: str, nbytes: int) -> None:
+        self.bytes[key] += nbytes
+        self.calls[key] += 1
+
+    def as_dict(self) -> dict:
+        return {"bytes": dict(self.bytes), "calls": dict(self.calls)}
+
+
+#: what this process's collectives moved: ``sent``, the operand bytes
+#: handed to the backend (an all-gather counts its one input, a ring shift
+#: its one payload), and ``staged``, the bytes copied between the card and
+#: host buffers for the gloo backend
+wire = WireStats(("sent", "staged"))
+
+
+def _stage(group, t) -> bool:
+    """Whether ``t`` goes through a host buffer on ``group``'s backend:
+    gloo moves host tensors only; NCCL moves card tensors only."""
+    import torch.distributed as dist
+
+    backend = dist.get_backend(group)
+    if backend == "gloo":
+        return t.device.type != "cpu"
+    if backend == "nccl":
+        if t.device.type != "cuda":
+            raise ValueError(f"an NCCL group takes CUDA tensors, not "
+                             f"{t.device}")
+        return False
+    raise ValueError(f"no collective path for backend {backend!r}")
+
+
+def _to_wire(group, t):
+    t = t.detach().contiguous()
+    if _stage(group, t):
+        wire.add("staged", t.numel() * t.element_size())
+        return t.cpu(), True
+    return t, False
+
+
+def _from_wire(t, device, staged: bool):
+    if staged:
+        wire.add("staged", t.numel() * t.element_size())
+        return t.to(device)
+    return t
+
+
+def all_gather(t, group) -> list:
+    """Every rank's ``t`` on ``group``, in group-rank order."""
+    import torch
+    import torch.distributed as dist
+
+    src, staged = _to_wire(group, t)
+    out = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(out, src, group=group)
+    wire.add("sent", src.numel() * src.element_size())
+    return [_from_wire(o, t.device, staged) for o in out]
+
+
+_OPS = {"sum": "SUM", "max": "MAX"}
+
+
+def all_reduce(t, op: str, group):
+    """A new tensor: ``t`` reduced with ``op`` (``sum`` or ``max``) over
+    ``group``."""
+    import torch.distributed as dist
+
+    src, staged = _to_wire(group, t)
+    buf = src if staged else src.clone()
+    dist.all_reduce(buf, op=getattr(dist.ReduceOp, _OPS[op]), group=group)
+    wire.add("sent", buf.numel() * buf.element_size())
+    return _from_wire(buf, t.device, staged)
+
+
+def ring_shift(t, group):
+    """One ring hop on ``group``: ``t`` goes to group rank ``(i + 1) % n``;
+    returns what group rank ``(i - 1) % n`` sent."""
+    import torch
+    import torch.distributed as dist
+
+    n = dist.get_world_size(group)
+    i = dist.get_group_rank(group, dist.get_rank())
+    src, staged = _to_wire(group, t)
+    recv = torch.empty_like(src)
+    ops = [dist.P2POp(dist.isend, src, dist.get_global_rank(group,
+                                                            (i + 1) % n),
+                      group),
+           dist.P2POp(dist.irecv, recv, dist.get_global_rank(group,
+                                                             (i - 1) % n),
+                      group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    wire.add("sent", src.numel() * src.element_size())
+    return _from_wire(recv, t.device, staged)
+
+
+def gather_full(local, placements: Sequence, mesh):
+    """The whole tensor of which ``local`` is this rank's shard under
+    ``placements`` on ``mesh``: an all-gather over each mesh dim that
+    shards it (of more than one device), the minor mesh dim first (a dim
+    split over several mesh dims is split major first)."""
+    import torch
+
+    sizes = tuple(mesh.mesh.shape)
+    out = local
+    for i in reversed(range(len(placements))):
+        pl = placements[i]
+        if pl.is_shard() and sizes[i] > 1:
+            out = torch.cat(all_gather(out, mesh.get_group(i)), dim=pl.dim)
+    return out
+
+
+def local_shard(full, placements: Sequence, mesh):
+    """This rank's shard of ``full`` under ``placements`` on ``mesh`` (a
+    view; the inverse of :func:`gather_full`)."""
+    coord = mesh.get_coordinate()
+    sizes = tuple(mesh.mesh.shape)
+    out = full
+    for i, pl in enumerate(placements):
+        if pl.is_shard() and sizes[i] > 1:
+            out = out.chunk(sizes[i], dim=pl.dim)[coord[i]]
+    return out

@@ -1,4 +1,5 @@
-"""Training on one device: the train step factory and the end-to-end loop.
+"""Training: the train step factory (one device, or sharded across
+processes) and the end-to-end loop.
 
 The loop wires the substrate together: data prefetcher, the in-situ
 session (gradient-health analytics + checkpointing, declared as one plan),
@@ -49,13 +50,37 @@ checkpoint under them. The loop records its mesh geometry (one device:
 ``default_train_plan(fault=True)`` beats a ``health`` stream each step
 for the ``fault`` preset.
 
-Not ported here (ROADMAP.md, queue 1 item 5.3): the step sharded across
-processes and the cross-pod compressed gradient ring (``grad_compress``).
+The sharded step: :func:`jit_train_step` steps a state of DTensors
+placed under :func:`state_shardings` — parameters and moments FSDP over
+'data', TP/EP over 'model', replicated over 'pod' — with the batch's rows
+over ('pod', 'data'), one process a mesh device. It runs eagerly, with no
+collective inside a CUDA graph. Each step gathers every parameter whole
+(the same leaf order on every rank), takes loss and gradients by autograd
+on the rank's rows, averages the gradients over the mesh dims that split
+the rows, takes the global norm once and runs AdamW on the rank's own
+shards of params, moments and masters. With ``grad_compress`` other than
+``none`` and more than one pod, each pod's gradient is exact within the
+pod and crosses the pods through ``optim/grad_compress.py``'s ring with
+error feedback (the residual in the state's ``ef``, its leading axis
+over 'pod'), the embedding gathers hoisted out and reduced exactly, as
+the JAX package's ``_pod_ring_grads`` does. The collectives stage
+through host buffers on a gloo group, so two processes can share one
+card (``distributed/sharding.py``). :func:`gather_state` gathers a
+sharded state whole on every rank (what a save emits).
+
+What the sharded step does not do yet: it holds every parameter and
+every gradient whole on each rank during the step (gradients are reduced
+whole, then sliced), so it shards the state between steps but neither
+the step's peak memory nor its matmuls. A model whose parameters and
+gradients do not fit one device does not train this way (ROADMAP).
+``StepConfig`` has no ``remat``: the JAX package's field is read
+nowhere; remat follows ``cfg.remat``.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
 import time
 from typing import Any, Callable, Optional
 
@@ -71,6 +96,7 @@ from repro_torch.core.pytree import flatten_with_path, keystr, leaves, \
 from repro_torch.distributed import sharding
 from repro_torch.models import params as P_lib
 from repro_torch.models import transformer
+from repro_torch.optim import grad_compress
 
 PyTree = Any
 
@@ -88,9 +114,13 @@ LOOP_MESH = sharding.abstract_mesh((1, 1), ("data", "model"))
 
 def init_state(cfg: configs.ModelConfig, seed: int | torch.Generator,
                opt_cfg: optim.AdamWConfig, *,
-               device: str | torch.device = "cuda") -> dict:
+               device: str | torch.device = "cuda",
+               ef_residual: bool = False) -> dict:
     """Seeded random parameters (from ``seed``'s CPU generator, or the
-    generator given) and zero AdamW moments on ``device``."""
+    generator given) and zero AdamW moments on ``device``.
+    ``ef_residual`` adds ``grad_compress.ef_init(params)``, shaped like
+    the parameters as in the JAX package; the sharded step's residual
+    carries a leading pod axis (``state_spec(ef_pods=n)``)."""
     dev = host.resolve_device(device)
     gen = (seed if isinstance(seed, torch.Generator)
            else torch.Generator().manual_seed(int(seed)))
@@ -100,6 +130,8 @@ def init_state(cfg: configs.ModelConfig, seed: int | torch.Generator,
              "count": ostate.count}
     if opt_cfg.master_weights:
         state["master"] = ostate.master
+    if ef_residual:
+        state["ef"] = grad_compress.ef_init(params)
     return state
 
 
@@ -194,6 +226,7 @@ def state_from_numpy(tree: PyTree, device: str | torch.device = "cuda"
 class StepConfig:
     opt: optim.AdamWConfig = dataclasses.field(
         default_factory=optim.AdamWConfig)
+    grad_compress: str = "none"      # none | bf16 | int8 (cross-pod wire)
     lr_peak: float = 3e-4
     lr_warmup: int = 100
     lr_total: int = 10000
@@ -203,7 +236,8 @@ def make_train_step(cfg: configs.ModelConfig, step_cfg: StepConfig
                     ) -> Callable[[dict, dict], tuple[dict, dict]]:
     """Returns ``train_step(state, batch) -> (new_state, metrics)`` for one
     device: loss and grads by autograd, the warmup-cosine schedule at the
-    state's step count, then AdamW. The inputs are left as they were."""
+    state's step count, then AdamW. The inputs are left as they were.
+    The sharded step is :func:`jit_train_step`'s."""
 
     def train_step(state: dict, batch: dict) -> tuple[dict, dict]:
         params = state["params"]
@@ -230,6 +264,269 @@ def make_train_step(cfg: configs.ModelConfig, step_cfg: StepConfig
         return new_state, metrics
 
     return train_step
+
+
+#: the token-embedding table: the leaf whose gathers the pod ring hoists
+EMBED_KEY = "['embed']['embedding']"
+
+
+def _moe_chunk(cfg: configs.ModelConfig, tokens: int) -> int:
+    """``moe_ffn``'s chunk for a token list of ``tokens``."""
+    chunk = min(cfg.moe.token_chunk, tokens)
+    return tokens if tokens % chunk else chunk
+
+
+class ShardedTrainStep:
+    """The train step across the processes of ``mesh`` (a ``DeviceMesh``
+    with axis names over every rank of the default process group, one
+    device each); see the module docstring. ``step(state, batch) ->
+    (new_state, metrics)`` takes and returns DTensors under
+    :func:`state_shardings` / :func:`batch_shardings`; ``metrics`` are
+    plain tensors, equal on every rank.
+
+    The loss is the global batch's: the mean of the ranks' masked means.
+    That needs every rank to hold as many unmasked tokens, which the
+    batches of :func:`batch_shardings` do (no user mask; the prefix and
+    MTP masks are per row), and, for an MoE arch, a rank's token chunks
+    to be chunks of the global token list (checked). Under the pod ring
+    each pod's loss, MoE aux included, is its own, and the loss is their
+    mean.
+
+    The new state is written into the input's local tensors, and the
+    input's DTensors are returned (the JAX package's step donates its
+    state). ``ring_probe``, where set, is called
+    after the pod ring with ``(keys, pre, reduced)``: the leaves' keys,
+    this rank's ring inputs (after error feedback) and outputs.
+    """
+
+    def __init__(self, cfg: configs.ModelConfig, step_cfg: StepConfig,
+                 mesh, *, shape: Optional[configs.ShapeConfig] = None):
+        import torch.distributed as dist
+
+        if step_cfg.grad_compress not in grad_compress.METHODS:
+            raise ValueError(f"unknown grad-compression method "
+                             f"{step_cfg.grad_compress!r}")
+        if mesh.size() != dist.get_world_size():
+            raise ValueError(f"the sharded step's mesh of {mesh.size()} "
+                             f"devices must span the default group's "
+                             f"{dist.get_world_size()} ranks")
+        self.cfg, self.step_cfg, self.mesh = cfg, step_cfg, mesh
+        self.shape = shape
+        self.sizes, self.names = sharding.mesh_geometry(mesh)
+        self.n_pods = grad_compress.pod_size(mesh, "pod")
+        self.use_ring = (step_cfg.grad_compress != "none"
+                         and self.n_pods > 1)
+        self.pod_dim = (self.names.index("pod") if "pod" in self.names
+                        else None)
+        self.ring_probe: Optional[Callable] = None
+
+    # -- collectives over mesh dims ------------------------------------------
+
+    def _sum(self, t: torch.Tensor, dims) -> torch.Tensor:
+        for i in dims:
+            t = sharding.all_reduce(t, "sum", self.mesh.get_group(i))
+        return t
+
+    def _mean(self, t: torch.Tensor, dims) -> torch.Tensor:
+        """The mean over the ranks along ``dims``, summed in f32, in
+        ``t``'s dtype."""
+        if not dims:
+            return t
+        k = math.prod(self.sizes[i] for i in dims)
+        return (self._sum(t.float(), dims) / k).to(t.dtype)
+
+    def _check_rows(self, batch: dict, rows: dict, row_dims) -> None:
+        b_glob, seq = batch["tokens"].shape
+        if self.shape is not None and (b_glob, seq) != (
+                self.shape.global_batch, self.shape.seq_len):
+            raise ValueError(f"batch of {b_glob} x {seq} tokens, the step "
+                             f"was made for {self.shape}")
+        if not row_dims:
+            return
+        b_loc = rows["tokens"].shape[0]
+        if (self.cfg.family == "moe" and _moe_chunk(self.cfg, b_loc * seq)
+                != _moe_chunk(self.cfg, b_glob * seq)):
+            raise ValueError(
+                f"a rank's {b_loc} x {seq} tokens are not chunks of the "
+                f"global {b_glob} x {seq} (token_chunk "
+                f"{self.cfg.moe.token_chunk}): MoE capacity would differ")
+
+    @staticmethod
+    def _write(tree: PyTree, new_locals: list) -> None:
+        """``new_locals`` (flatten order) into the local tensors of the
+        DTensors of ``tree``."""
+        with torch.no_grad():
+            for t, new in zip(leaves(tree), new_locals):
+                t.to_local().copy_(new)
+
+    # -- the step --------------------------------------------------------------
+
+    def _grads(self, params: PyTree, keys: list, full: list, rows: dict
+               ) -> tuple[torch.Tensor, list, dict]:
+        """Loss and gradients of this rank's rows; under the pod ring
+        also the cotangents of the hoisted embedding gathers."""
+        cfg = self.cfg
+        live = {k: t.detach().requires_grad_(True)
+                for k, t in zip(keys, full)}
+        tree = unflatten_like(params, live, "params")
+        if not self.use_ring:
+            loss = transformer.train_loss(tree, cfg, rows)
+            return loss, list(torch.autograd.grad(loss, list(live.values()))
+                              ), {}
+        table = live[EMBED_KEY].detach()
+        tok = rows["tokens"].long()
+        hoisted = {"h0": table[tok]}
+        if cfg.family == "moe" and cfg.mtp_weight > 0:
+            hoisted["mtp_cur"] = table[tok]
+            hoisted["mtp_emb"] = table[rows["labels"].long()]
+        hoisted = {k: v.requires_grad_(True) for k, v in hoisted.items()}
+        mtp_pre = ((hoisted["mtp_cur"], hoisted["mtp_emb"])
+                   if "mtp_cur" in hoisted else None)
+        loss = transformer.train_loss(tree, cfg, rows, h0=hoisted["h0"],
+                                      mtp_pre=mtp_pre, gather_free=True)
+        outs = torch.autograd.grad(
+            loss, list(live.values()) + list(hoisted.values()),
+            materialize_grads=True)
+        return (loss, list(outs[:len(live)]),
+                dict(zip(hoisted, outs[len(live):])))
+
+    def _gather_cotangent(self, dgath: dict, rows: dict, shape: tuple,
+                          row_dims) -> torch.Tensor:
+        """The embedding table's (of ``shape``) gradient through the
+        hoisted gathers, exact: scattered in f32, summed over every rank
+        that splits the rows and divided by their count (the mean over
+        pods of each pod's mean)."""
+        demb = torch.zeros(shape, dtype=torch.float32,
+                           device=dgath["h0"].device)
+        for name, idx in (("h0", "tokens"), ("mtp_cur", "tokens"),
+                          ("mtp_emb", "labels")):
+            if name in dgath:
+                demb.index_add_(0, rows[idx].long().reshape(-1),
+                                dgath[name].reshape(-1, shape[-1]).float())
+        return self._sum(demb, row_dims) / math.prod(
+            self.sizes[i] for i in row_dims)
+
+    def __call__(self, state: dict, batch: dict) -> tuple[dict, dict]:
+        import torch.distributed as dist
+
+        mesh = self.mesh
+        params = state["params"]
+        flat = flatten_with_path(params)
+        keys = [keystr(p) for p, _ in flat]
+        pls = [tuple(t.placements) for _, t in flat]
+        shapes = [tuple(t.shape) for _, t in flat]
+        # every parameter whole, in one leaf order on every rank
+        full = [sharding.gather_full(t.to_local(), pl, mesh)
+                for (_, t), pl in zip(flat, pls)]
+        rows = {k: v.to_local() for k, v in batch.items()}
+        row_dims = [i for i, pl in enumerate(batch["tokens"].placements)
+                    if pl.is_shard() and self.sizes[i] > 1]
+        self._check_rows(batch, rows, row_dims)
+        if self.use_ring and self.pod_dim not in row_dims:
+            raise ValueError("the pod ring needs the batch's rows split "
+                             "over 'pod'")
+        # the gradient is exact over the row-splitting dims, within a pod
+        # under the ring ('model' replicates the rows: never reduced)
+        exact_dims = [i for i in row_dims
+                      if not (self.use_ring and i == self.pod_dim)]
+        loss, grads, dgath = self._grads(params, keys, full, rows)
+        del full
+        loss = self._mean(loss.detach().float(), row_dims)
+        grads = [self._mean(g, exact_dims) for g in grads]
+        new_res = None
+        if not self.use_ring:
+            # every rank holds the whole gradient: its norm, then its shards
+            gnorm = optim.adamw.global_norm(grads)
+            local = [sharding.local_shard(g, pl, mesh)
+                     for g, pl in zip(grads, pls)]
+        else:
+            local = [sharding.local_shard(g, pl, mesh)
+                     for g, pl in zip(grads, pls)]
+            ef = state.get("ef")
+            if ef is not None:
+                local = grad_compress.ef_pre(
+                    local, [e.to_local()[0] for e in leaves(ef)])
+            reduced = grad_compress.tree_reduce(
+                local, method=self.step_cfg.grad_compress,
+                group=mesh.get_group(self.pod_dim), n=self.n_pods,
+                amax_group=dist.group.WORLD)
+            if self.ring_probe is not None:
+                self.ring_probe(keys, local, reduced)
+            if ef is not None:
+                new_res = [r[None] for r in
+                           grad_compress.ef_post(local, reduced)]
+            i = keys.index(EMBED_KEY)
+            demb = self._gather_cotangent(dgath, rows, shapes[i], row_dims)
+            reduced[i] = (reduced[i].float() + sharding.local_shard(
+                demb, pls[i], mesh)).to(reduced[i].dtype)
+            local = reduced
+            # shards: each counted once over the world, which holds it
+            # world / (full / shard) times
+            world = mesh.size()
+            sq = sum(torch.sum(torch.square(g.float()))
+                     * (math.prod(full_shape) / (g.numel() * world))
+                     for g, full_shape in zip(local, shapes))
+            gnorm = torch.sqrt(sharding.all_reduce(sq, "sum",
+                                                   dist.group.WORLD))
+        del grads
+        count = state["count"].to_local()
+        step_cfg = self.step_cfg
+        lr = optim.schedules.warmup_cosine(
+            count, peak=step_cfg.lr_peak, warmup=step_cfg.lr_warmup,
+            total=step_cfg.lr_total)
+        loc = lambda tree: [t.to_local() for t in leaves(tree)]
+        master = state.get("master")
+        ostate = optim.AdamWState(count, loc(state["mu"]), loc(state["nu"]),
+                                  loc(master) if master is not None
+                                  else None)
+        new_p, new_o = optim.update(local, ostate, loc(params),
+                                    step_cfg.opt, lr=lr, gnorm=gnorm)
+        self._write(params, new_p)
+        self._write(state["mu"], new_o.mu)
+        self._write(state["nu"], new_o.nu)
+        self._write(state["count"], [new_o.count])
+        if new_o.master is not None:
+            self._write(master, new_o.master)
+        if new_res is not None:
+            self._write(state["ef"], new_res)
+        new_state = dict(state)
+        metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr}
+        return new_state, metrics
+
+
+def jit_train_step(cfg: configs.ModelConfig, mesh, step_cfg: StepConfig,
+                   shape: configs.ShapeConfig, *, rules=None):
+    """The sharded step (:class:`ShardedTrainStep`) and the placements of
+    its inputs: ``(step, state_shardings, batch_shardings, ef)``, as the
+    JAX package's ``jit_train_step`` returns them (``ef``: the state
+    carries the pod ring's residual, under ``int8`` on a mesh with a 'pod'
+    axis). The step runs eagerly and writes the new state into the old
+    one's tensors, as the JAX package's default ``donate=True`` gives its
+    buffers away."""
+    rules = rules if rules is not None else sharding.DEFAULT_RULES
+    _, names = sharding.mesh_geometry(mesh)
+    ef = step_cfg.grad_compress == "int8" and "pod" in names
+    st_sh = state_shardings(cfg, mesh, rules,
+                            master=step_cfg.opt.master_weights,
+                            ef_residual=ef)
+    b_sh = batch_shardings(cfg, shape, mesh, rules)
+    step = ShardedTrainStep(cfg, step_cfg, mesh, shape=shape)
+    return step, st_sh, b_sh, ef
+
+
+def gather_state(state: PyTree) -> PyTree:
+    """Every DTensor leaf of ``state`` gathered whole, in flatten order
+    (a collective: every rank of the mesh calls it at the same point);
+    other leaves as they are."""
+    from torch.distributed.tensor import DTensor
+
+    out = {}
+    for path, t in flatten_with_path(state):
+        if isinstance(t, DTensor):
+            t = sharding.gather_full(t.to_local(), tuple(t.placements),
+                                     t.device_mesh)
+        out[keystr(path)] = t
+    return unflatten_like(state, out, "state")
 
 
 def inplace_train_step(cfg: configs.ModelConfig, step_cfg: StepConfig,

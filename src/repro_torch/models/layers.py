@@ -114,12 +114,25 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  mask: Optional[torch.Tensor] = None,
+                  gather_free: bool = False) -> torch.Tensor:
     """Mean token cross-entropy in f32; labels < vocab_size always (pad
-    columns carry the dtype minimum and never win)."""
+    columns carry the dtype minimum and never win).
+
+    ``gather_free`` picks the gold logit by a compare and a sum over the
+    vocabulary instead of a gather: the JAX package's formulation inside
+    its partially-manual pod region, where XLA cannot partition a
+    gather. One term of each sum is nonzero, so both give the same
+    value; the sharded step's pod ring uses this one, as the JAX
+    package's does."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    if gather_free:
+        vocab = torch.arange(logits.shape[-1], device=logits.device)
+        gold = torch.sum(torch.where(vocab == labels.long()[..., None],
+                                     logits, 0.0), dim=-1)
+    else:
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     nll = logz - gold
     if mask is not None:
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

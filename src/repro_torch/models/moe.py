@@ -13,9 +13,16 @@ load-balance and router-z losses come back for the train loss.
 
 Everything is tensor arithmetic on fixed shapes (one-hots are comparisons
 against ``arange(E)``, no ``nonzero`` or boolean indexing, no host read),
-so a decode step that runs it stays capturable in a CUDA graph. The JAX
-package's sharding constraints (expert parallelism over a mesh) are no-ops
-on one device and come with the distributed port (ROADMAP.md, item 5).
+so a decode step that runs it stays capturable in a CUDA graph.
+
+The JAX package's placement helpers ``_ep_constraint``,
+``_mesh_axis_names``, ``_dp_constraint``, ``_dp_constraint4`` and
+``_gep_constraint`` have no counterpart: they are XLA sharding hints
+(experts over 'model', dispatch groups over the data axes), like
+``sharding.constrain``. The port's sharded step places tensors itself: it
+gathers the expert weights and runs this module on a rank's rows, whose
+token chunks are the global token list's (``launch/train.py`` checks
+that they coincide).
 """
 from __future__ import annotations
 

@@ -252,15 +252,22 @@ def _run_blocks(stacked, h: torch.Tensor, cfg: ModelConfig, body, aux):
 
 
 def forward(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor, *,
-            prefix_embeds: Optional[torch.Tensor] = None):
+            prefix_embeds: Optional[torch.Tensor] = None,
+            h0: Optional[torch.Tensor] = None):
     """tokens: (B, S_tok) int. Returns (logits, aux_loss, loss_mask).
 
     A frontend arch given ``prefix_embeds`` (B, S_pre, d_model) runs them
     in front of the tokens: logits and loss mask span S_pre + S_tok, the
     mask zero over the prefix. Any other arch ignores them, as the JAX
-    package does."""
+    package does. ``h0`` (optional) is the tokens' embedding computed
+    outside: the sharded step's pod ring hoists the embedding gather out
+    of the loss and reduces its cotangent exactly.
+
+    The JAX package's ``bspec`` (a sharding hint on the activations) has
+    no counterpart: the sharded step places tensors itself and runs this
+    forward on a rank's rows."""
     check_family(cfg)
-    h = embed(params["embed"], tokens.long())
+    h = embed(params["embed"], tokens.long()) if h0 is None else h0
     loss_mask = torch.ones(tokens.shape, dtype=torch.float32,
                            device=tokens.device)
     if cfg.frontend is not None and prefix_embeds is not None:
@@ -317,10 +324,17 @@ def _xlstm_forward(params: PyTree, cfg: ModelConfig,
     return h
 
 
-def train_loss(params: PyTree, cfg: ModelConfig,
-               batch: dict) -> torch.Tensor:
+def train_loss(params: PyTree, cfg: ModelConfig, batch: dict, *,
+               h0: Optional[torch.Tensor] = None,
+               mtp_pre: Optional[tuple] = None,
+               gather_free: bool = False) -> torch.Tensor:
+    """The masked mean token cross-entropy (+ MTP, + MoE aux). ``h0`` and
+    ``mtp_pre`` (``(cur, emb)``, the MTP head's embeddings of the tokens
+    and the labels) are embedding gathers made outside, and
+    ``gather_free`` picks :func:`cross_entropy`'s gather-free gold logit:
+    the sharded step's pod ring passes all three."""
     logits, aux, mask = forward(params, cfg, batch["tokens"],
-                                prefix_embeds=batch.get("prefix"))
+                                prefix_embeds=batch.get("prefix"), h0=h0)
     labels = batch["labels"]
     # with a modality prefix the hidden sequence is longer than the token
     # sequence: left-pad the labels (and any user mask) over the prefix,
@@ -333,22 +347,28 @@ def train_loss(params: PyTree, cfg: ModelConfig,
         if s_pre:
             m = F.pad(m, (s_pre, 0))
         mask = mask * m
-    loss = cross_entropy(logits, labels, mask)
+    loss = cross_entropy(logits, labels, mask, gather_free=gather_free)
     if cfg.family == "moe" and cfg.mtp_weight > 0:
-        loss = loss + cfg.mtp_weight * _mtp_loss(params, cfg, batch)
+        loss = loss + cfg.mtp_weight * _mtp_loss(
+            params, cfg, batch, mtp_pre=mtp_pre, gather_free=gather_free)
     return loss + aux
 
 
-def _mtp_loss(params: PyTree, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+def _mtp_loss(params: PyTree, cfg: ModelConfig, batch: dict, *,
+              mtp_pre: Optional[tuple] = None,
+              gather_free: bool = False) -> torch.Tensor:
     """DeepSeek-style multi-token prediction: one extra block predicts t+2.
 
     The JAX package's simplified MTP module: concat(embedding of the
     current tokens, embedding of the labels) -> projection -> one dense
     block -> the shared unembed, against the labels shifted by one (the
-    last position masked).
+    last position masked). ``mtp_pre`` is ``(cur, emb)`` gathered outside.
     """
-    emb = embed(params["embed"], batch["labels"].long())
-    cur = embed(params["embed"], batch["tokens"].long())
+    if mtp_pre is not None:
+        cur, emb = mtp_pre
+    else:
+        emb = embed(params["embed"], batch["labels"].long())
+        cur = embed(params["embed"], batch["tokens"].long())
     h = torch.cat([cur, emb], dim=-1)
     h = torch.einsum("bse,ed->bsd", h, params["mtp"]["proj"])
     b, s, _ = h.shape
@@ -363,4 +383,4 @@ def _mtp_loss(params: PyTree, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     mask2[:, -1] = 0.0
     if "mask" in batch:
         mask2 = mask2 * batch["mask"]
-    return cross_entropy(logits2, labels2, mask2)
+    return cross_entropy(logits2, labels2, mask2, gather_free=gather_free)

@@ -55,12 +55,17 @@ def global_norm(tree: PyTree) -> torch.Tensor:
 
 @torch.no_grad()
 def update(grads: PyTree, state: AdamWState, params: PyTree,
-           cfg: AdamWConfig, lr: Optional[torch.Tensor] = None
+           cfg: AdamWConfig, lr: Optional[torch.Tensor] = None, *,
+           gnorm: Optional[torch.Tensor] = None
            ) -> tuple[PyTree, AdamWState]:
-    """Returns (new_params, new_state). ``lr`` overrides cfg.lr (schedules)."""
+    """Returns (new_params, new_state). ``lr`` overrides cfg.lr (schedules).
+    ``gnorm`` is the global norm the clip uses where ``grads`` are one
+    rank's shards of the gradient (the sharded step), by default
+    ``global_norm(grads)``."""
     lr = cfg.lr if lr is None else lr
     count = state.count + 1
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     clip = (torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12),
                         max=1.0)
             if cfg.grad_clip > 0 else 1.0)

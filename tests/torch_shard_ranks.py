@@ -1,0 +1,219 @@
+"""One rank of the port's sharded-step drills on CPU processes (gloo).
+
+    python tests/torch_shard_ranks.py --phase cases --rank R --world W \\
+        --dir DIR --cases CASES.json
+    python tests/torch_shard_ranks.py --phase ring --rank R --world W \\
+        --dir DIR
+    python tests/torch_shard_ranks.py --phase killpoint|resume --rank R \\
+        --world W --dir DIR [--device cpu|cuda] [--layers N]
+
+``cases``: each case of ``CASES.json`` whose mesh has W devices
+(``{"name", "arch", "mesh", "axes", "method", "steps", "step"}``, the
+last ``StepConfig``'s rate and AdamW fields) runs
+``launch.train.jit_train_step`` from the smoke config's state in
+``DIR/init_<arch>.pt`` (the residual zeros of ``state_spec(ef_pods=n)``
+under ``int8``) over the batches ``numpy.random.RandomState(1000 + i)``
+draws; under the pod ring every leaf's reduction is held against both
+pods' inputs on every step (``ring_check``).
+Rank 0 writes ``DIR/port_<name>.pt``: losses, gradient norms, the final
+state gathered whole, the ring's wire bytes and the bitwise checks.
+
+``ring``: rank R of a world of W reduces row R of each array in
+``DIR/ring_<W>.npz`` over the world with ``reduce_leaf`` under each
+method (``int8`` also through ``int8_ring_mean`` itself) and writes
+``DIR/ring_<W>_rank<R>.pt``, with the wire bytes of each call.
+
+``killpoint`` (a world of 4, a (2, 2) mesh) and ``resume`` (a world of 2)
+are the two halves of ``tools/torch_fault_killpoint.py``'s scenario
+across ranks (:func:`run_killpoint_rank` / :func:`run_resume_rank`
+there); rank 0 writes ``DIR/killpoint_<phase>.json``.
+
+Imports no JAX. ``tests/test_torch_shard_step.py`` and
+``tests/test_torch_fault.py`` start the ranks with a deadline.
+"""
+from __future__ import annotations
+
+import argparse
+import functools
+import importlib.util
+import json
+import os
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(HERE, "..", "src"))
+
+
+def synth_batch(cfg, shape, step: int) -> dict:
+    """The kill-point tool's ``synth_batch`` (``RandomState(1000 + step)``)
+    as tensors."""
+    import torch
+
+    return {k: torch.from_numpy(v) for k, v in
+            _killpoint_tool().synth_batch(cfg, shape, step).items()}
+
+
+def ring_check(mesh, pod_dim: int, method: str, keys, pre, reduced,
+               out: dict) -> None:
+    """Every leaf's cross-pod reduction against the pods' inputs
+    (gathered from the pod group): under ``int8`` ``int8_ring_mean_plain``
+    bit for bit; under ``bf16`` its definition, the mean of the bf16
+    operands within one bf16 rounding of their sum. Records the leaves
+    that differ in ``out``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding
+    from repro_torch.optim import grad_compress as gc
+
+    group = mesh.get_group(pod_dim)
+    for k, x, r in zip(keys, pre, reduced):
+        xs = torch.stack(sharding.all_gather(x.float(), group))
+        if method == "int8":
+            amax = sharding.all_reduce(torch.amax(torch.abs(x.float())),
+                                       "max", dist.group.WORLD)
+            ok = torch.equal(gc.int8_ring_mean_plain(xs, amax).to(r.dtype),
+                             r)
+        else:
+            ops = xs.to(torch.bfloat16).double()
+            bound = 2.0 ** -8 * ops.abs().sum(0) / ops.shape[0]
+            ok = bool(torch.all((r.double() - ops.mean(0)).abs() <= bound))
+        out["leaves"] += 1
+        if not ok:
+            out["differ"].append(k)
+
+
+def run_cases(args) -> None:
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch import optim
+    from repro_torch.configs import base as configs
+    from repro_torch.core.pytree import (flatten_with_path, keystr, leaves,
+                                         tree_map)
+    from repro_torch.distributed.sharding import distribute_tree
+    from repro_torch.launch import train as T
+    from repro_torch.optim import grad_compress as gc
+
+    with open(args.cases) as f:
+        cases = [c for c in json.load(f)
+                 if int(torch.tensor(c["mesh"]).prod()) == args.world]
+    for case in cases:
+        cfg = configs.get(case["arch"], smoke=True)
+        shape = configs.SMOKE_SHAPE
+        mesh = DeviceMesh("cpu", torch.arange(args.world).reshape(
+            case["mesh"]), mesh_dim_names=tuple(case["axes"]))
+        st = case["step"]
+        sc = T.StepConfig(grad_compress=case["method"],
+                          lr_peak=st["lr_peak"], lr_warmup=st["lr_warmup"],
+                          opt=optim.AdamWConfig(**st["opt"]))
+        step, st_sh, b_sh, ef = T.jit_train_step(cfg, mesh, sc, shape)
+        state = torch.load(os.path.join(args.dir,
+                                        f"init_{case['arch']}.pt"))
+        if ef:
+            state["ef"] = tree_map(
+                lambda t: torch.zeros(t.shape, dtype=t.dtype),
+                T.state_spec(cfg, ef_pods=case["mesh"][0])["ef"])
+        state = distribute_tree(state, mesh, st_sh)
+        ring = {"leaves": 0, "differ": []}
+        if step.use_ring:
+            step.ring_probe = lambda k, x, r: ring_check(
+                mesh, step.pod_dim, case["method"], k, x, r, ring)
+        gc.wire.reset()
+        losses, norms = [], []
+        for i in range(case["steps"]):
+            batch = distribute_tree(synth_batch(cfg, shape, i), mesh, b_sh)
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        local_numel = sum(t.to_local().numel()
+                          for t in leaves(state["params"]))
+        full = T.gather_state(state)
+        if args.rank == 0:
+            torch.save({"loss": losses, "grad_norm": norms,
+                        "state": {keystr(p): t for p, t in
+                                  flatten_with_path(full)},
+                        "wire": gc.wire.as_dict(), "ring": ring,
+                        "param_local_numel": local_numel,
+                        "use_ring": step.use_ring},
+                       os.path.join(args.dir, f"port_{case['name']}.pt"))
+
+
+def run_ring(args) -> None:
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.optim import grad_compress as gc
+
+    z = np.load(os.path.join(args.dir, f"ring_{args.world}.npz"))
+    out = {}
+    for name in z.files:
+        x = torch.from_numpy(z[name][args.rank].copy())
+        got = {}
+        for method in gc.METHODS:
+            gc.wire.reset()
+            got[method] = gc.reduce_leaf(x, method=method,
+                                         group=dist.group.WORLD,
+                                         n=args.world)
+            got[method + "_wire"] = gc.wire.as_dict()
+        gc.wire.reset()
+        got["ring"] = gc.int8_ring_mean(x, dist.group.WORLD, args.world)
+        got["ring_wire"] = gc.wire.as_dict()
+        out[name] = got
+    torch.save(out, os.path.join(args.dir,
+                                 f"ring_{args.world}_rank{args.rank}.pt"))
+
+
+@functools.cache
+def _killpoint_tool():
+    path = os.path.join(HERE, "..", "tools", "torch_fault_killpoint.py")
+    spec = importlib.util.spec_from_file_location("torch_fault_killpoint",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--phase",
+                    choices=["cases", "ring", "killpoint", "resume"],
+                    required=True)
+    ap.add_argument("--rank", type=int, required=True)
+    ap.add_argument("--world", type=int, required=True)
+    ap.add_argument("--dir", required=True)
+    ap.add_argument("--cases", default=None)
+    ap.add_argument("--device", default="cpu")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="on the card: smollm-135m's blocks (0: the "
+                         "smoke config on the CPU)")
+    args = ap.parse_args()
+
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    store = os.path.join(args.dir, f"store_{args.phase}_{args.world}")
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=args.rank, world_size=args.world)
+    try:
+        if args.phase == "cases":
+            run_cases(args)
+        elif args.phase == "ring":
+            run_ring(args)
+        else:
+            tool = _killpoint_tool()
+            fn = (tool.run_killpoint_rank if args.phase == "killpoint"
+                  else tool.run_resume_rank)
+            out = fn(args.dir, device=args.device, layers=args.layers)
+            if args.rank == 0:
+                with open(os.path.join(args.dir,
+                                       f"killpoint_{args.phase}.json"),
+                          "w") as f:
+                    json.dump(out, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -2,6 +2,7 @@
 
     python3 tools/torch_fault_killpoint.py [--layers 30] [--steps 9]
         [--fail-at 4] [--ckpt-every 2] [--grace-s 2.5] [--device cuda]
+        [--world 1|4]
 
 The JAX package's kill-point scenario (``tests/test_fault.py``'s
 subprocess) on the port, JAX-free, for ``smollm-135m`` at full width (``--layers`` of its 30
@@ -21,13 +22,31 @@ blocks; widths unchanged) at ``launch/train.py``'s ``FULL_SHAPE`` (4 x
 
 Batches are drawn from the step index (``numpy.random.RandomState(1000 +
 step)``, as the JAX scenario's ``synth_batch``), so the resumed steps see
-the golden run's batches. The process runs in a world-size-1 group (NCCL
-on the card, gloo on the CPU; a ``FileStore`` under ``build/``). One mesh
-device, so the resumed step takes the DTensors' local tensors; the step
-sharded across processes is ROADMAP item 5.3. On CUDA one captured train
-step (``graph_train_step``) serves all three runs: each run fills its
-static state tensors first (the initial weights, then the restored
-checkpoint), so no collective and no second capture runs.
+the golden run's batches.
+
+``--world 1`` (the default): one process in a world-size-1 group (NCCL
+on the card, gloo on the CPU; a ``FileStore`` under ``build/``), one
+mesh device, so the resumed step takes the DTensors' local tensors. On
+CUDA one captured train step (``graph_train_step``) serves all three
+runs: each run fills its static state tensors first (the initial
+weights, then the restored checkpoint), so no collective and no second
+capture runs.
+
+``--world 4``: the JAX scenario's meshes across processes
+(:func:`run_across_ranks`). Golden and failure run on four ranks, a
+(2, 2) ('data', 'model') mesh, with ``launch.train``'s sharded step; at
+each step where the checkpoint fires every rank gathers the state whole
+on its loop thread (:func:`launch.train.gather_state`, the same order on
+every rank) and rank 0 alone emits it; rank 0 alone runs the session, and
+its halt decision reaches the other ranks by an all-reduce each step.
+Then ranks 0-1 of a new world of two restore elastically (the plan is
+(1, 2), merge 1) and resume on that mesh with the sharded step. The
+step is :data:`CHECK_STEP`, not the JAX scenario's default, whose rate
+moves nothing in 9 steps: under it a resume from another step's state
+shows in the losses. The
+ranks are ``tests/torch_shard_ranks.py`` processes over gloo (on the
+card all share the one device; the collectives stage through host
+buffers), with a deadline.
 
 Gates (the JAX scenario's asserts; a broken one exits 1): host 1 and only
 it failed, host 0 alive; detection at or after ``--fail-at``; the restored
@@ -42,7 +61,7 @@ and read after). Prints one line ``KILLPOINT_RESULT {json}``.
 
 ``chip_smoke.py``'s ``fault`` phase calls :func:`run_scenario` at 2
 layers inside :func:`world_of_one`; ``tests/test_torch_fault.py`` calls
-it at the smoke config on the CPU.
+it, and :func:`run_across_ranks`, at the smoke config on the CPU.
 """
 from __future__ import annotations
 
@@ -112,6 +131,45 @@ def synth_batch(cfg, shape, step: int) -> dict:
             "labels": rng.randint(0, cfg.vocab_size, (b, s)).astype(np.int32)}
 
 
+def _ckpt_task(directory: str, dev, every: int):
+    """The scenario's HYBRID v2 checkpoint every ``every`` steps."""
+    from repro_torch.core.session import Every, Placement, TaskSpec
+
+    return TaskSpec(name="checkpoint", stream="train_state",
+                    preset="checkpoint", trigger=Every(every),
+                    placement=Placement.HYBRID,
+                    options={"directory": directory, "device": str(dev)})
+
+
+def _failure_plan(ckpt_task, every: int, grace_s: float):
+    """The failure run's plan: the checkpoint, the ``fault`` preset over
+    hosts 0 and 1, and a SYNC probe keeping the host copy of the state at
+    each save step (the newest kept; what the restore is held against).
+    Returns ``(plan, kept)``."""
+    import numpy as np
+    from repro_torch.core import pytree
+    from repro_torch.core.session import (Every, InSituPlan, Placement,
+                                          TaskSpec, When)
+
+    kept: dict = {}
+
+    def keep(st, payload):
+        kept.clear()
+        kept.update({"step": st, "leaves": {
+            pytree.keystr(p): np.asarray(a)
+            for p, a in pytree.flatten_with_path(payload)}})
+
+    plan = InSituPlan(streams=["train_state", "health"], workers=2, tasks=[
+        ckpt_task,
+        TaskSpec(name="fault", stream="health", preset="fault",
+                 trigger=Every(1), placement=Placement.SYNC, pipelined=False,
+                 options={"hosts": [0, 1], "grace_s": grace_s}),
+        TaskSpec(name="probe", stream="train_state",
+                 trigger=When(lambda st: st % every == 0),
+                 placement=Placement.SYNC, sink=keep)])
+    return plan, kept
+
+
 def run_scenario(cfg, device, steps: int = 9, fail_at: int = 4,
                  ckpt_every: int = 2, grace_s: float = 2.5, *,
                  ckpt_dir: str, shape=None, kernel_check=None,
@@ -124,14 +182,12 @@ def run_scenario(cfg, device, steps: int = 9, fail_at: int = 4,
     (the buffer kernels 2-4 compressed); its launches are not the path's.
     Returns the result dict (the JAX scenario's keys and more); raises
     AssertionError on a gate."""
-    import numpy as np
     import torch
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
     from repro_torch.configs import base as configs
     from repro_torch.core import host, pytree
-    from repro_torch.core.session import (Every, InSituPlan, Placement,
-                                          Session, TaskSpec, When)
+    from repro_torch.core.session import InSituPlan, Session
     from repro_torch.kernels import ops
     from repro_torch.launch import train as T
 
@@ -202,28 +258,8 @@ def run_scenario(cfg, device, steps: int = 9, fail_at: int = 4,
 
     # -- failure: fault preset + checkpoints; host 1 dies at fail_at ---------
     now = [0.0]
-    emitted: dict = {}
-
-    def keep(st, payload):
-        # the host copy of the state at each save step (the newest kept):
-        # what the restore is held against
-        emitted.clear()
-        emitted.update({"step": st, "leaves": {
-            pytree.keystr(p): np.asarray(a)
-            for p, a in pytree.flatten_with_path(payload)}})
-
-    ckpt_task = TaskSpec(name="checkpoint", stream="train_state",
-                         preset="checkpoint", trigger=Every(ckpt_every),
-                         placement=Placement.HYBRID,
-                         options={"directory": ckpt_dir, "device": str(dev)})
-    plan = InSituPlan(streams=["train_state", "health"], workers=2, tasks=[
-        ckpt_task,
-        TaskSpec(name="fault", stream="health", preset="fault",
-                 trigger=Every(1), placement=Placement.SYNC, pipelined=False,
-                 options={"hosts": [0, 1], "grace_s": grace_s}),
-        TaskSpec(name="probe", stream="train_state",
-                 trigger=When(lambda st: st % ckpt_every == 0),
-                 placement=Placement.SYNC, sink=keep)])
+    ckpt_task = _ckpt_task(ckpt_dir, dev, ckpt_every)
+    plan, emitted = _failure_plan(ckpt_task, ckpt_every, grace_s)
     fill(initial)
     tool.reset_launches()
     detect_step, failed, failure = None, [], []
@@ -362,6 +398,299 @@ def run_scenario(cfg, device, steps: int = 9, fail_at: int = 4,
     return out
 
 
+# ---------------------------------------------------------------------------
+# the scenario across ranks: golden + failure on (2, 2), resume on (1, 2)
+# ---------------------------------------------------------------------------
+
+#: the scenario's numbers (the JAX driver's defaults)
+SCENARIO = dict(steps=9, fail_at=4, ckpt_every=2, grace_s=2.5)
+
+
+def _rank_setup(device: str, layers: int):
+    """This rank's device, config and shape: the card's device 0 (every
+    rank shares it) at full width and ``layers`` blocks, or the CPU at
+    the smoke config."""
+    import torch
+    from repro_torch.configs import base as configs
+    from repro_torch.launch import train as T
+
+    if device == "cpu":
+        return (torch.device("cpu"), configs.get(ARCH, smoke=True),
+                configs.SMOKE_SHAPE)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(configs.get(ARCH), n_layers=layers)
+    return torch.device("cuda", 0), cfg, T.FULL_SHAPE
+
+
+#: the step of the across-ranks scenario and of the sharded step's checks
+#: (``tools/torch_shard_step.py``, ``tests/test_torch_shard_step.py``):
+#: the peak rate from the first step (no warm-up), f32 masters, and an eps
+#: far above every gradient element, so that AdamW's update is about the
+#: clipped gradient itself and every step moves the parameters (at the
+#: default warm-up the first rate is 0 and the second 3e-6, under half a
+#: bf16 ulp: nothing would move, and a resume from another step's state
+#: would give the same losses); no weight decay
+CHECK_STEP = {"lr_peak": 1.0, "lr_warmup": 0,
+              "opt": {"master_weights": True, "eps": 1.0,
+                      "weight_decay": 0.0}}
+
+
+def check_step_config():
+    """:data:`CHECK_STEP` as the port's ``StepConfig``."""
+    from repro_torch import optim
+    from repro_torch.launch import train as T
+
+    return T.StepConfig(lr_peak=CHECK_STEP["lr_peak"],
+                        lr_warmup=CHECK_STEP["lr_warmup"],
+                        opt=optim.AdamWConfig(**CHECK_STEP["opt"]))
+
+
+def _placed_batch(cfg, shape, i, dev, mesh, b_sh):
+    import torch
+    from repro_torch.distributed.sharding import distribute_tree
+
+    return distribute_tree({k: torch.from_numpy(v).to(dev) for k, v in
+                            synth_batch(cfg, shape, i).items()}, mesh, b_sh)
+
+
+def run_killpoint_rank(d: str, *, device: str = "cpu", layers: int = 0
+                       ) -> dict:
+    """Golden and failure on this rank of a world of four, a (2, 2)
+    ('data', 'model') mesh (module docstring). Rank 0 writes the host copy
+    of the state at the newest save step to ``d/kept.pt``; returns its
+    part of the result (other ranks: their losses)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.core import pytree
+    from repro_torch.core.session import Session
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.sharding import distribute_tree
+    from repro_torch.launch import train as T
+
+    tool = _family_tool()
+    sc = SCENARIO
+    dev, cfg, shape = _rank_setup(device, layers)
+    rank = dist.get_rank()
+    if dist.get_world_size() != 4:
+        raise ValueError("the failure half runs on a world of four ranks")
+    mesh = DeviceMesh(dev.type, torch.arange(4).reshape(2, 2),
+                      mesh_dim_names=("data", "model"))
+    step_cfg = check_step_config()
+    step, st_sh, b_sh, _ = T.jit_train_step(cfg, mesh, step_cfg, shape)
+    initial = T.init_state(cfg, 0, step_cfg.opt, device="cpu")
+    fresh = lambda: distribute_tree(pytree.tree_map(
+        lambda t: t.to(dev, copy=True), initial), mesh, st_sh)
+    batch = lambda i: _placed_batch(cfg, shape, i, dev, mesh, b_sh)
+    out: dict = {"part_s": {}}
+
+    t0 = time.perf_counter()
+    state = fresh()
+    golden = []
+    for i in range(sc["steps"]):
+        state, m = step(state, batch(i))
+        golden.append(float(m["loss"]))
+    out["part_s"]["golden"] = time.perf_counter() - t0
+
+    now = [0.0]
+    plan, emitted = _failure_plan(
+        _ckpt_task(os.path.join(d, "ck"), dev, sc["ckpt_every"]),
+        sc["ckpt_every"], sc["grace_s"])
+    state = fresh()
+    tool.reset_launches()
+    failure, failed, detect = [], [], None
+    t0 = time.perf_counter()
+    # rank 0 alone runs the session; the others step and gather
+    with (Session(plan, clock=lambda: now[0], raise_on_error=True)
+          if rank == 0 else contextlib.nullcontext()) as session:
+        if session is not None:
+            session.set_checkpoint_meta({"arch": cfg.name}, mesh=mesh)
+            ctrl = session.fault_controller()
+        for i in range(sc["steps"]):
+            now[0] += 1.0
+            state, m = step(state, batch(i))
+            failure.append(float(m["loss"]))
+            if i % sc["ckpt_every"] == 0:
+                # a collective: every rank, on the loop thread
+                full = T.gather_state(state)
+                if session is not None:
+                    session.emit("train_state", i, full)
+                del full
+            halt = torch.zeros((), dtype=torch.int32, device=dev)
+            if session is not None:
+                beats = {0: 0.1}
+                if i < sc["fail_at"]:
+                    beats[1] = 0.1          # host 1 beats until it dies
+                session.emit("health", i, {"hosts": beats})
+                failed = ctrl.failed_hosts()
+                halt.fill_(int(bool(failed)))
+            if int(sharding.all_reduce(halt, "max", dist.group.WORLD)):
+                detect = i
+                break
+        if session is not None:
+            session.wait_idle()
+    out["part_s"]["failure"] = time.perf_counter() - t0
+    out.update(golden_losses=golden, failure_losses=failure,
+               detect_step=detect, save_launches=tool.launches(),
+               groups=len(tool.lossy_layout(cfg)[2]),
+               wire=sharding.wire.as_dict())
+    if session is not None:
+        rep = session.report()
+        out.update(failed_hosts=failed, saves=rep["checkpoint"]["saves"],
+                   fault_report={
+                       "failed_hosts": rep["fault"]["failed_hosts"],
+                       "alive_hosts": rep["fault"]["alive_hosts"]})
+        torch.save(emitted, os.path.join(d, "kept.pt"))
+    return out
+
+
+def run_resume_rank(d: str, *, device: str = "cpu", layers: int = 0
+                    ) -> dict:
+    """This rank of a new world of two: ``restore(elastic=True)`` of the
+    failure run's newest checkpoint onto the surviving ranks' mesh, the
+    restore held against the kept host copy, then the resume with the
+    sharded step on that mesh (rank 0 saving)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.session import InSituPlan, Session
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import train as T
+
+    tool = _family_tool()
+    sc = SCENARIO
+    dev, cfg, shape = _rank_setup(device, layers)
+    rank = dist.get_rank()
+    step_cfg = check_step_config()
+    master = step_cfg.opt.master_weights
+    plan = InSituPlan(streams=["train_state"], workers=2, tasks=[
+        _ckpt_task(os.path.join(d, "ck"), dev, sc["ckpt_every"])])
+    out: dict = {}
+    resumed: dict = {}
+    tool.reset_launches()
+    t0 = time.perf_counter()
+    with Session(plan, raise_on_error=True) as session:
+        start, state = session.restore(
+            T.state_spec(cfg, master=master), elastic=True,
+            make_shardings=lambda m: T.state_shardings(cfg, m,
+                                                       master=master))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        out["restore_s"] = time.perf_counter() - t0
+        out["restore_launches"] = tool.launches()
+        rm = session.remesh
+        full = T.gather_state(state)
+        if rank == 0:
+            kept = torch.load(os.path.join(d, "kept.pt"), weights_only=False)
+            if kept.get("step") != start:
+                raise AssertionError(f"restored step {start}, the failure "
+                                     f"run kept {kept.get('step')}")
+            out["restore_check"] = tool.check_restored(
+                full, kept["leaves"], f"killpoint step {start}")
+            session.set_checkpoint_meta({"arch": cfg.name}, mesh=rm.mesh)
+        del full
+        step, _, b_sh, _ = T.jit_train_step(cfg, rm.mesh, step_cfg, shape)
+        tool.reset_launches()
+        for i in range(start + 1, sc["steps"]):
+            state, m = step(state, _placed_batch(cfg, shape, i, dev,
+                                                 rm.mesh, b_sh))
+            resumed[i] = float(m["loss"])
+            if i % sc["ckpt_every"] == 0:
+                full = T.gather_state(state)
+                if rank == 0:
+                    session.emit("train_state", i, full)
+                del full
+        session.wait_idle()
+        rep = session.report()
+    out.update(restored_step=start, resumed_losses=resumed,
+               old_shape=list(rm.plan.old_shape),
+               new_shape=list(rm.plan.new_shape),
+               merge_factor=rm.plan.model_merge_factor,
+               coord=rm.mesh.get_coordinate(),
+               resume_saves=rep["checkpoint"]["saves"],
+               resume_launches=tool.launches(),
+               recover_s=time.perf_counter() - t0,
+               wire=sharding.wire.as_dict())
+    return out
+
+
+RANKS = os.path.join(ROOT, "tests", "torch_shard_ranks.py")
+
+
+def _ranks(phase: str, world: int, d: str, device: str, layers: int,
+           deadline: float) -> None:
+    import subprocess
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, RANKS, "--phase", phase, "--rank", str(r),
+         "--world", str(world), "--dir", d, "--device", device,
+         "--layers", str(layers)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    try:
+        for r, p in enumerate(procs):
+            out, _ = p.communicate(timeout=max(1.0, deadline -
+                                               time.monotonic()))
+            if p.returncode != 0:
+                raise AssertionError(f"{phase} rank {r} exited "
+                                     f"{p.returncode}: {out[-4000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def run_across_ranks(d: str, *, device: str = "cpu", layers: int = 0,
+                     timeout_s: float = 120.0) -> dict:
+    """The scenario on four ranks, then two (module docstring), in
+    ``d`` (emptied first); returns rank 0's merged result and raises
+    AssertionError on a gate (the JAX scenario's, and the failure run
+    equal to golden up to the halt, the restore against the kept copy)."""
+    if os.path.exists(d):
+        shutil.rmtree(d)
+    os.makedirs(d)
+    deadline = time.monotonic() + timeout_s
+    t0 = time.perf_counter()
+    _ranks("killpoint", 4, d, device, layers, deadline)
+    t1 = time.perf_counter()
+    _ranks("resume", 2, d, device, layers, deadline)
+    out: dict = {}
+    for phase in ("killpoint", "resume"):
+        with open(os.path.join(d, f"killpoint_{phase}.json")) as f:
+            out.update(json.load(f))
+    out["resumed_losses"] = {int(k): v for k, v in
+                             out["resumed_losses"].items()}
+    out["part_s"].update(recover=time.perf_counter() - t1,
+                         failure_world=t1 - t0)
+    sc = SCENARIO
+    golden, detect = out["golden_losses"], out["detect_step"]
+    if out["failed_hosts"] != [1]:
+        raise AssertionError(f"expected host 1 failed: {out['failed_hosts']}")
+    if out["fault_report"]["alive_hosts"] != [0]:
+        raise AssertionError(f"alive hosts {out['fault_report']}")
+    if detect is None or detect < sc["fail_at"]:
+        raise AssertionError(f"detected at {detect} < {sc['fail_at']}")
+    if out["failure_losses"] != golden[:detect + 1]:
+        raise AssertionError(f"failure run {out['failure_losses']} != "
+                             f"golden {golden[:detect + 1]}")
+    if out["restored_step"] > detect:
+        raise AssertionError(f"restored step {out['restored_step']} > "
+                             f"detected {detect}")
+    resumed = out["resumed_losses"]
+    if not resumed or max(resumed) != sc["steps"] - 1:
+        raise AssertionError(f"resumed steps {sorted(resumed)}")
+    out["loss_gaps"] = {i: abs(v - golden[i]) for i, v in resumed.items()}
+    for i, gap in out["loss_gaps"].items():
+        if not gap <= max(0.05, 0.02 * abs(golden[i])):
+            raise AssertionError(f"step {i}: resumed {resumed[i]} vs "
+                                 f"golden {golden[i]}")
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=30,
@@ -375,6 +704,12 @@ def main() -> int:
                          "smoke config and shape)")
     ap.add_argument("--ckpt-dir", default=os.path.join(
         ROOT, "build", "killpoint_ckpt"))
+    ap.add_argument("--world", type=int, choices=[1, 4], default=1,
+                    help="1: one process; 4: the (2, 2) -> (1, 2) "
+                         "scenario across ranks (the scenario's default "
+                         "steps, fail-at, every and grace)")
+    ap.add_argument("--timeout-s", type=float, default=900.0,
+                    help="--world 4: the deadline of both worlds")
     args = ap.parse_args()
 
     import torch
@@ -399,12 +734,18 @@ def main() -> int:
         print(result["card"], flush=True)
     t0 = time.perf_counter()
     try:
-        with world_of_one(os.path.join(ROOT, "build"),
-                          "nccl" if on_card else "gloo"):
-            result.update(run_scenario(
-                cfg, args.device, args.steps, args.fail_at, args.ckpt_every,
-                args.grace_s, ckpt_dir=args.ckpt_dir, shape=shape,
-                log=lambda m: print(m, flush=True)))
+        if args.world == 4:
+            result.update(run_across_ranks(
+                args.ckpt_dir, device="cuda" if on_card else "cpu",
+                layers=args.layers if on_card else 0,
+                timeout_s=args.timeout_s))
+        else:
+            with world_of_one(os.path.join(ROOT, "build"),
+                              "nccl" if on_card else "gloo"):
+                result.update(run_scenario(
+                    cfg, args.device, args.steps, args.fail_at,
+                    args.ckpt_every, args.grace_s, ckpt_dir=args.ckpt_dir,
+                    shape=shape, log=lambda m: print(m, flush=True)))
         rc = 0
     except AssertionError as e:
         result.update(fault="gate", message=str(e)[:2000])
