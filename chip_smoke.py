@@ -9,7 +9,8 @@ Phases (any failure exits non-zero; none is swallowed):
 
 1. device  — the card's name and power limit, as ``nvidia-smi`` reports
    them.
-2. build   — every kernel of the serving and training paths, compiled from
+2. build   — every kernel of the serving and training paths (the sLSTM
+   cell's too), compiled from
    ``src/repro_torch/kernels/csrc`` by ``nvcc`` (one process per source,
    all started together).
 3. kernels — the paged decode-attention kernel held against its plain
@@ -275,8 +276,10 @@ Phases (any failure exits non-zero; none is swallowed):
 14. xlstm — the xLSTM family (``xlstm-1.3b``: 6 super-blocks of 7 mLSTM
    layers and one sLSTM layer; no attention, no page pool, and 5.65 GB of
    per-row recurrent state at 8 rows, all of it rewritten every step, in
-   place). No kernel lies on its path: every kernel's launch count is set
-   to 0 at the start of the phase and must read 0 at its end. (a) The
+   place). Only the sLSTM cell's forward kernel lies on its path (the
+   recurrent product beside it is ``torch.bmm``): every kernel's launch
+   count is set to 0 at the start of the phase, and at its end that one
+   reads above 0 and every other 0. (a) The
    smoke config in f32 and a variant with 8 blocks and one sLSTM per 4
    (three mLSTM layers a super-block), 32-token prompts and 32 new
    tokens: the dense 4-slot engine and a 4-row paged engine token for
@@ -347,7 +350,20 @@ Phases (any failure exits non-zero; none is swallowed):
    TFLOP/s. The phase must take at most 150 s.
 16. family_train — the train path of the hybrid, xLSTM and MoE/MLA
    families, through ``tools/torch_family_train.py``'s ``run`` (module
-   docstring there; the full depths run there, not here). (a)
+   docstring there; the full depths run there, not here). First the two
+   sLSTM cell kernels (``csrc/slstm.cu``: ``slstm_cell`` and
+   ``slstm_cell_bwd``) against their plain versions at ``xlstm-1.3b``'s
+   full width (4 rows x 2048, bf16 weights and h) on every step of one
+   layer's 4096, forward and backward, each kernel call repeated by the
+   plain version on its inputs (max |d| over max |plain| within 1e-5, h
+   and the bf16 gate cotangents within 2^-8); then ``SLSTMScan`` on the
+   kernels against the plain time loop under autograd, the loop summing
+   r_gates' gradient in f32 (relative L2: h and the final state 1e-2, the
+   gradients of the layer's input, ``w_gates``, ``r_gates`` and
+   ``b_gates`` 2e-2; the control, the loop summing it in bf16, logged);
+   each kernel timed per call and on the device beside its plain version,
+   the recurrent ``bmm`` and its bound (those launches are not the
+   path's). (a)
    ``train_loop("hymba-1.5b", smoke=False)`` at full width and 4 of its
    32 layers (``FAMILY_HYMBA``: a global layer 0, then 3 sliding-window
    layers; ``configs.get`` patched for the call; 4 x 4096 tokens, bf16,
@@ -383,8 +399,7 @@ Phases (any failure exits non-zero; none is swallowed):
    3 steps eagerly and 3 graphed, each run with a HYBRID save at step 0,
    and the resume; the same gates, and the eager losses within 2e-2 (the
    MoE family's bf16 bound) of the port's own CPU run of the same seed.
-   The phase must take at most 280 s (xlstm's 4096-step sLSTM loop takes
-   12-18 s an eager step and ~60 s a capture at one super-block).
+   The phase must take at most 280 s.
 17. fault — a host drop detected, restored and resumed:
    ``tools/torch_fault_killpoint.py``'s ``run_scenario`` (module
    docstring there; full depth runs there) on full-width ``smollm-135m``
@@ -434,6 +449,19 @@ Phases (any failure exits non-zero; none is swallowed):
    one resumed sharded step; kernels 2-5 against their plain versions
    on the save's largest packed group (``spectral_check``, not counted).
    The phase must take at most 45 s.
+19. dryrun — ``launch/dryrun.py``'s lowering on fake tensors (rank 0 of a
+   ``fake`` process group, device ``cuda``, no kernel launched) held
+   against the card: the train phase's configuration (``smollm-135m`` at
+   10 of 30 layers, 4 x 4096 tokens, bf16) on a (1, 1) mesh, lowered
+   through its depth variants (1 and 2 layers) fitted to 10, and the
+   serve decode (30 layers, the serve phase's 8 rows, a 64-position
+   cache) at full depth; then one eager ``ShardedTrainStep`` on a (1, 1)
+   ``DeviceMesh`` of an NCCL world of one and one eager ``make_decode``
+   step on the card. Gate: each predicted per-rank peak within 15 % of
+   ``torch.cuda.max_memory_allocated`` over its step (above what was
+   allocated before its state was made). Printed: the ratio, the counted
+   FLOPs beside ``roofline.model_flops``. The phase must take at most 30
+   s.
 
 The last lines are the card line, one JSON object with every kernel's
 numbers, and ``{"ok": true, "device": {...}}``.
@@ -4039,8 +4067,8 @@ def _xlstm_long(cfg, params) -> dict:
 
 def xlstm_phase(build: Path) -> dict:
     """The xLSTM family on the card (see the module docstring, phase 14).
-    No kernel runs on its path: every count is set to 0 first and must
-    read 0 after."""
+    Only the sLSTM cell's forward kernel runs on its path: every count is
+    set to 0 first; after, it must be above 0 and every other 0."""
     from repro_torch.configs import base as configs
 
     _free_cuda()
@@ -4064,8 +4092,11 @@ def xlstm_phase(build: Path) -> dict:
     _free_cuda()
     checks_s = time.perf_counter() - t0
     launches = _family_tool().launches()
-    assert not any(launches.values()), (
+    others = _family_tool().ckpt_launches(launches)
+    assert not any(others.values()), (
         f"xlstm: a kernel ran on the xLSTM path: {launches}")
+    assert launches["slstm_cell"] > 0 and launches["slstm_cell_bwd"] == 0, (
+        f"xlstm: the sLSTM cell's launches {launches}")
     log(f"xlstm phase parts: smoke {smoke_s:.1f} s, full-width serve "
         f"{serve_s:.1f} s, the step profiled and the long prefill "
         f"{checks_s:.1f} s ({engine_s:.1f} + {long_s:.1f}); kernel launches "
@@ -4507,10 +4538,213 @@ def _family_kernel_check(xb, rows, label) -> dict:
             "thresholds_differing": res["thresholds_differing"]}
 
 
+#: the sLSTM cell kernels against their plain versions on the same inputs,
+#: step by step: both do the same IEEE f32 operations in the same order
+#: (the kernel rounds each product and sum on its own, as the plain
+#: version's separate ops do) with the same expf / tanhf, so they should
+#: agree to the bit; a few f32 ulps are allowed (max |d| over max |plain|),
+#: and h, stored in bf16, one bf16 rounding (2^-8)
+SLSTM_STEP_TOL = 1e-5
+SLSTM_H_TOL = 2.0 ** -8
+#: SLSTMScan on the kernels against the plain time loop under autograd, on
+#: one layer's 4096 steps, relative L2 of each output and gradient: the
+#: backward's recurrent products differ in their operands' layouts (cuBLAS
+#: may pick other kernels) and the loop adds h's two cotangents in bf16,
+#: 2e-2. The loop takes r_gates in f32 and casts it at each step
+#: (``slstm_loop``'s ``r_dtype``): the same forward, and autograd sums
+#: the 4096 steps' dR in f32, as the scan's one product does, where a
+#: bf16 sum would round its running total 4096 times (that reading, the
+#: control, is logged beside the gated one)
+SLSTM_E2E_TOL = {"h": 1e-2, "c": 1e-2, "n": 1e-2, "m": 1e-2, "x": 2e-2,
+                 "w_gates": 2e-2, "r_gates": 2e-2, "b_gates": 2e-2}
+
+
+def _rel_l2(got, want) -> float:
+    import torch
+
+    d = torch.linalg.vector_norm((got.float() - want.float()).reshape(-1))
+    n = torch.linalg.vector_norm(want.float().reshape(-1))
+    return float(d / n) if float(n) > 0 else float(d)
+
+
+def _rel_max(got, want):
+    """max |got - want| over max(max |want|, 1e-30), on the card."""
+    import torch
+
+    return (torch.amax(torch.abs(got.float() - want.float()))
+            / torch.clamp(torch.amax(torch.abs(want.float())), min=1e-30))
+
+
+def _slstm_kernel() -> dict:
+    """Both sLSTM cell kernels against their plain versions at
+    ``xlstm-1.3b``'s full width (d 2048, 4 heads of 512) on one layer's
+    4096 steps, 4 rows (the train phase's 4 x 4096 tokens), bf16 weights
+    and h as in training: every step of a forward and of a backward run
+    on the kernels, each call repeated by the plain version on the same
+    inputs (:data:`SLSTM_STEP_TOL`); then ``SLSTMScan`` on the kernels
+    against the plain time loop under autograd (``models/xlstm.py::
+    slstm_loop``): h, the final state and the gradients of the layer's
+    normalised input and of ``w_gates``, ``r_gates``, ``b_gates``
+    (:data:`SLSTM_E2E_TOL`). Each kernel and the recurrent product timed
+    at those shapes. Launches made here are not the path's."""
+    import torch
+    from repro_torch.configs import base as configs
+    from repro_torch.kernels import slstm as SK
+    from repro_torch.launch import train as T
+    from repro_torch.models import xlstm as X
+
+    cfg = configs.get(XLSTM_ARCH)
+    b, l = T.FULL_SHAPE.global_batch, T.FULL_SHAPE.seq_len
+    d, nh = cfg.d_model, cfg.n_heads
+    dh = d // nh
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rnd = lambda *shape, scale=1.0: torch.randn(
+        shape, generator=gen, device=dev) * scale
+    x = rnd(b, l, d).to(bf)
+    w = rnd(d, 4 * d, scale=d ** -0.5).to(bf)
+    bias = rnd(4 * d, scale=0.1)
+    rg = rnd(4, nh, dh, dh, scale=dh ** -0.5).to(bf)
+    w_out = rnd(b, l, d)
+    gx = (x @ w + bias).contiguous()
+    r = X._recurrent_weights(rg)
+    f32 = dict(dtype=torch.float32, device=dev)
+
+    # (1) every step of a forward, kernel and plain version on its inputs
+    slots = torch.empty((3, l + 1, b, nh, dh), **f32)
+    slots[0, 0].zero_()
+    slots[1, 0].zero_()
+    slots[2, 0].fill_(-1e30)
+    pre = torch.empty((b, l, 4 * d), **f32)
+    hs = torch.empty((b, l, d), dtype=bf, device=dev)
+    h0 = torch.zeros((b, nh, dh), dtype=bf, device=dev)
+    plain = [torch.empty((b, nh, dh), **f32) for _ in range(3)] + [
+        torch.empty((b, 4 * d), **f32), torch.empty((b, d), dtype=bf,
+                                                    device=dev)]
+    err_f = torch.zeros(5, **f32)
+    args_at = {}
+    for t in range(l):
+        hp = h0 if t == 0 else hs[:, t - 1].view(b, nh, dh)
+        gr = torch.bmm(hp.transpose(0, 1), r)
+        ins = (gx[:, t], gr, slots[0, t], slots[1, t], slots[2, t])
+        outs = (slots[0, t + 1], slots[1, t + 1], slots[2, t + 1],
+                pre[:, t], hs[:, t])
+        SK.slstm_cell(*ins, *outs)
+        SK.slstm_cell_plain(*ins, *plain)
+        err_f = torch.maximum(err_f, torch.stack(
+            [_rel_max(o, p) for o, p in zip(outs, plain)]))
+        if t == l // 2:
+            args_at["fwd"] = (ins, outs, hp)
+    # ... and of a backward, from a random cotangent of h
+    dhs = rnd(b, l, d).to(bf)
+    carry = [torch.zeros((b, nh, dh), **f32) for _ in range(3)]
+    dgx = torch.empty_like(pre)
+    dgr = torch.empty((nh, l, b, 4 * dh), dtype=bf, device=dev)
+    pl_carry = [torch.empty_like(c) for c in carry]
+    pl_out = [torch.empty((b, 4 * d), **f32),
+              torch.empty((nh, b, 4 * dh), dtype=bf, device=dev)]
+    err_b = torch.zeros(5, **f32)
+    rt = r.transpose(1, 2)
+    dhr = None
+    for t in reversed(range(l)):
+        ins = (pre[:, t], slots[0, t], slots[1, t], slots[2, t], dhs[:, t],
+               dhr)
+        for pc, c in zip(pl_carry, carry):
+            pc.copy_(c)
+        SK.slstm_cell_bwd_plain(*ins, *pl_carry, *pl_out)
+        if t == l // 2:
+            args_at["bwd"] = (ins, [c.clone() for c in carry],
+                              (dgx[:, t], dgr[:, t]))
+        SK.slstm_cell_bwd(*ins, *carry, dgx[:, t], dgr[:, t])
+        err_b = torch.maximum(err_b, torch.stack(
+            [_rel_max(o, p) for o, p in zip(
+                carry + [dgx[:, t], dgr[:, t]], pl_carry + pl_out)]))
+        dhr = torch.bmm(dgr[:, t], rt)
+    err_f, err_b = err_f.tolist(), err_b.tolist()
+    names_f = ("c", "n", "m", "pre", "h")
+    names_b = ("dc", "dn", "dm", "dpre", "dgr")
+    step = {"slstm_cell": dict(zip(names_f, err_f)),
+            "slstm_cell_bwd": dict(zip(names_b, err_b))}
+    for name, e in zip(names_f, err_f):
+        assert e <= (SLSTM_H_TOL if name == "h" else SLSTM_STEP_TOL), (
+            f"slstm_cell {name}: {e} (step errors {step})")
+    for name, e in zip(names_b, err_b):
+        assert e <= (SLSTM_H_TOL if name == "dgr" else SLSTM_STEP_TOL), (
+            f"slstm_cell_bwd {name}: {e} (step errors {step})")
+    log(f"slstm kernels against their plain versions, every step of one "
+        f"layer's {l} at full width (max |d| / max |plain|): {step}")
+
+    # (2) SLSTMScan on the kernels against the plain loop's autograd, dR
+    # summed in f32; then the control, the loop with dR summed in bf16
+    e2e = {}
+    res = []
+    for how in ("scan", "loop", "control"):
+        leaves = [t.clone().requires_grad_(True) for t in (x, w, rg, bias)]
+        g = leaves[0] @ leaves[1] + leaves[3]
+        z = torch.zeros((b, nh, dh), **f32)
+        st = {"c": z, "n": z, "m": z - 1e30, "h": h0}
+        if how == "scan":
+            h, c, n, m = X.SLSTMScan.apply(
+                g, X._recurrent_weights(leaves[2]), z, z, z - 1e30, h0)
+        elif how == "loop":
+            h, st = X.slstm_loop(
+                cfg, g, X._recurrent_weights(leaves[2].float()), st,
+                r_dtype=bf)
+        else:
+            h, st = X.slstm_loop(cfg, g, X._recurrent_weights(leaves[2]), st)
+        if how != "scan":
+            c, n, m = st["c"], st["n"], st["m"]
+        grads = torch.autograd.grad((h.float() * w_out).sum(), leaves)
+        res.append([t.detach() for t in (h, c, n, m)] + list(grads))
+        del leaves, g, h, c, n, m, st, grads
+    names = ("h", "c", "n", "m", "x", "w_gates", "r_gates", "b_gates")
+    for name, got, want in zip(names, res[0], res[1]):
+        e2e[name] = _rel_l2(got, want)
+    control = _rel_l2(res[0][6], res[2][6])
+    del res
+    for name, e in e2e.items():
+        assert e <= SLSTM_E2E_TOL[name], (name, e2e)
+    log(f"slstm: SLSTMScan on the kernels against the plain loop's autograd "
+        f"(relative L2, dR summed in f32): {e2e}; the control, r_gates "
+        f"against the loop with dR summed in bf16: {control}")
+
+    # (3) times at the main path's shapes (step l / 2)
+    ins, outs, hp = args_at["fwd"]
+    fwd = lambda: SK.slstm_cell(*ins, *outs)
+    fwd_plain = lambda: SK.slstm_cell_plain(*ins, *plain)
+    bins, bcarry, bouts = args_at["bwd"]
+    bwd = lambda: SK.slstm_cell_bwd(*bins, *bcarry, *bouts)
+    bwd_plain = lambda: SK.slstm_cell_bwd_plain(*bins, *pl_carry, *pl_out)
+    bmm = lambda: torch.bmm(hp.transpose(0, 1), r)
+    timing = {}
+    for name, fn, fn_plain, args, sym in (
+            ("slstm_cell", fwd, fwd_plain, ins + outs, "slstm_fwd_kernel"),
+            ("slstm_cell_bwd", bwd, bwd_plain, bins + tuple(bcarry) + bouts,
+             "slstm_bwd_kernel")):
+        dev_ms, _ = kernel_device_ms(fn, [sym], n=20)
+        bms, by = bound_ms(name, *args)
+        timing[name] = {"ms": time_ms(fn), "device_ms": dev_ms,
+                        "plain_ms": time_ms(fn_plain), "bound_ms": bms,
+                        "bound_by": by, "library_ms": None}
+    bmm_ms = time_ms(bmm)
+    for name in timing:
+        timing[name]["bmm_ms"] = bmm_ms
+    log(f"slstm kernel times (ms a call at {b} rows x {d}; the recurrent "
+        f"bmm {bmm_ms:.4f} ms): {timing}")
+    SK.reset_launches()
+    return {"shape": {"rows": b, "steps": l, "d": d, "heads": nh,
+                      "dtype": "bfloat16"},
+            "step_max_rel_err": step, "scan_rel_l2": e2e,
+            "control_r_gates_rel_l2": control, "timing": timing,
+            "max_abs_err": max(max(err_f), max(err_b))}
+
+
 def family_train_phase(build: Path) -> dict:
     """The hybrid, xLSTM and MoE/MLA families' train path (see the module
     docstring, phase 16), through ``tools/torch_family_train.py``'s
-    ``run``."""
+    ``run``; first the sLSTM cell kernels against their plain versions
+    (:func:`_slstm_kernel`)."""
     import numpy as np
     from repro_torch.configs import base as configs
     from repro_torch.launch import train as T
@@ -4519,6 +4753,10 @@ def family_train_phase(build: Path) -> dict:
     root = build / "smoke_family_ckpt"
     out: dict = {"part_s": {}}
     total: dict = {}
+    _free_cuda()
+    t0 = time.perf_counter()
+    out["slstm_kernel"] = _slstm_kernel()
+    out["part_s"]["slstm_kernel"] = time.perf_counter() - t0
 
     def one(name, arch, **kw):
         t0 = time.perf_counter()
@@ -4560,6 +4798,8 @@ def family_train_phase(build: Path) -> dict:
               "threshold_quant", "dequant_idct"):
         assert total[k] > 0, (k, total)
     assert total["paged_decode_attention"] == 0, total
+    assert total["slstm_cell"] > 0 and total["slstm_cell_bwd"] > 0, total
+    assert total["slstm_cell"] == out["xlstm"]["launches"]["slstm_cell"]
     out["launches"] = total
     log(f"family_train phase parts: " + ", ".join(
         f"{k} {v:.1f} s" for k, v in out["part_s"].items())
@@ -4667,6 +4907,118 @@ def shard_phase() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# dryrun phase
+# ---------------------------------------------------------------------------
+
+DRYRUN_BUDGET_S = 30.0
+#: the predicted per-rank peak against max_memory_allocated of one eager
+#: step on the card
+DRYRUN_PEAK_TOL = 0.15
+#: the serve decode: the serve phase's 8 rows, a cache of 64 positions
+#: (its 16-token prompts and 32 new tokens fit)
+DRYRUN_DECODE = dict(rows=8, max_len=64)
+
+
+def dryrun_phase(build: Path) -> dict:
+    """The dry run's lowering on fake tensors held against the card (see
+    the module docstring, phase 19): the train phase's configuration and
+    the serve decode lowered on a (1, 1) mesh, then one eager step of
+    each on the card, the predicted peak against the measured one."""
+    import torch
+    from repro_torch.configs import base as configs
+    from repro_torch.data.pipeline import batch_spec_for, synth_batch
+    from repro_torch.distributed.sharding import distribute_tree
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import train as T
+    from repro_torch.models import params as P_lib
+    from repro_torch.models import transformer
+    from repro_torch.roofline.analysis import model_flops
+    from repro_torch.serving import engine, kvcache
+
+    tcfg = dataclasses.replace(configs.get("smollm-135m"),
+                               n_layers=SMOLLM_TRAIN_LAYERS)
+    dcfg = configs.get("smollm-135m")
+    dshape = configs.ShapeConfig("serve_decode", "decode",
+                                 DRYRUN_DECODE["max_len"],
+                                 DRYRUN_DECODE["rows"])
+    out: dict = {"part_s": {}}
+    t0 = time.perf_counter()
+    # the depth variants (1 and 2 layers) fitted to 10: the full depth's
+    # lowering would take most of the phase's time
+    pred = {"train": D.lower_cell(tcfg, T.FULL_SHAPE, 1,
+                                  mesh_lib.make_host_mesh, depth="variants"),
+            "decode": D.lower_cell(dcfg, dshape, 1, mesh_lib.make_host_mesh,
+                                   depth="full")}
+    out["part_s"]["lower"] = time.perf_counter() - t0
+
+    dev = torch.device("cuda")
+    meas: dict = {}
+    t0 = time.perf_counter()
+    _free_cuda()
+    with _load_tool("torch_fault_killpoint").world_of_one(str(build),
+                                                          "nccl"):
+        mesh = mesh_lib.make_host_mesh()
+        step, st_sh, b_sh, _ = T.jit_train_step(tcfg, mesh, T.StepConfig(),
+                                                T.FULL_SHAPE)
+        base = torch.cuda.memory_allocated()
+        state = T.init_state(tcfg, torch.Generator(dev).manual_seed(0),
+                             T.StepConfig().opt, device=dev)
+        state = distribute_tree(state, mesh, st_sh)
+        host_batch = synth_batch(batch_spec_for(tcfg, T.FULL_SHAPE), 0)
+        batch = distribute_tree({k: torch.from_numpy(host_batch[k]).to(dev)
+                                 for k in b_sh}, mesh, b_sh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _, metrics = step(state, batch)
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        meas["train"] = torch.cuda.max_memory_allocated() - base
+        assert math.isfinite(loss), loss
+        del state, batch, metrics
+    _free_cuda()
+    base = torch.cuda.memory_allocated()
+    params = P_lib.materialize(torch.Generator(dev).manual_seed(0),
+                               transformer.param_spec(dcfg), dev)
+    cache = kvcache.init_cache(dcfg, dshape.global_batch, dshape.seq_len,
+                               device=dev)
+    tokens = torch.zeros((dshape.global_batch, 1), dtype=torch.int32,
+                         device=dev)
+    lengths = torch.full((dshape.global_batch,), 16, dtype=torch.int32,
+                         device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    logits, _, _ = engine.make_decode(dcfg)(params, cache, tokens, lengths)
+    torch.cuda.synchronize()
+    meas["decode"] = torch.cuda.max_memory_allocated() - base
+    assert bool(torch.isfinite(logits.float()).all())
+    del params, cache, logits
+    _free_cuda()
+    out["part_s"]["card"] = time.perf_counter() - t0
+    for name, cfg, shape in (("train", tcfg, T.FULL_SHAPE),
+                             ("decode", dcfg, dshape)):
+        p = pred[name]
+        ratio = p["peak_bytes"] / meas[name]
+        out[name] = {"predicted_peak_bytes": p["peak_bytes"],
+                     "measured_peak_bytes": meas[name], "ratio": ratio,
+                     "argument_bytes": p["argument_bytes"],
+                     "counted_flops": p["flops"],
+                     "model_flops": model_flops(cfg, shape),
+                     "bytes_accessed": p["bytes"], "depth": p["depth"],
+                     "lower_s": p["lower_s"]}
+        log(f"dryrun {name} ({cfg.n_layers} layers, {shape.global_batch} x "
+            f"{shape.seq_len}, mesh (1, 1), {p['depth']}): predicted peak "
+            f"{p['peak_bytes'] / 2**30:.3f} GiB, measured "
+            f"{meas[name] / 2**30:.3f} GiB (max_memory_allocated of one "
+            f"eager step): ratio {ratio:.4f}; counted FLOPs "
+            f"{p['flops']:.4e} beside model_flops "
+            f"{out[name]['model_flops']:.4e}; lowered in "
+            f"{p['lower_s']:.1f} s")
+        assert abs(ratio - 1) <= DRYRUN_PEAK_TOL, (name, out[name])
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4687,7 +5039,7 @@ def main() -> int:
 
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    built = _build.build(["paged_attention", "spectral_lossy"])
+    built = _build.build(["paged_attention", "spectral_lossy", "slstm"])
     log(f"build: {time.perf_counter() - t0:.1f}s "
         f"({', '.join(f'{k} {v:.1f}s' for k, v in built.items())})")
     for name in built:
@@ -4770,6 +5122,11 @@ def main() -> int:
     shard["phase_s"] = time.perf_counter() - t0
     log(f"shard phase: {shard['phase_s']:.1f}s")
     assert shard["phase_s"] <= SHARD_BUDGET_S, shard["phase_s"]
+    t0 = time.perf_counter()
+    dry = dryrun_phase(ROOT / "build")
+    dry["phase_s"] = time.perf_counter() - t0
+    log(f"dryrun phase: {dry['phase_s']:.1f}s")
+    assert dry["phase_s"] <= DRYRUN_BUDGET_S, dry["phase_s"]
     all_s = time.perf_counter() - t_phases
     log(f"all phases: {all_s:.1f}s")
 
@@ -4924,6 +5281,7 @@ def main() -> int:
     log(json.dumps({"family_train": fam}))
     log(json.dumps({"fault": fault}))
     log(json.dumps({"shard": shard}))
+    log(json.dumps({"dryrun": dry}))
     log(json.dumps({"roofline": {k: v for k, v in roof.items()
                                  if k != "reports"}}))
     for rec in records[1:]:
@@ -4936,6 +5294,32 @@ def main() -> int:
                                        rec["name"]],
                                    "fault": fault["launches"][rec["name"]],
                                    "shard": shard["launches"][rec["name"]]}
+    sk = fam["slstm_kernel"]
+    for name in ("slstm_cell", "slstm_cell_bwd"):
+        tm = sk["timing"][name]
+        records.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/slstm.cu",
+            "replaces": "src/repro/models/xlstm.py:276",
+            "tpu_kernel": None,
+            "replaces_note": ("no Pallas kernel: the JAX package's sLSTM "
+                              "step (_slstm_step), plain jnp fused by XLA"),
+            "launches": fam["launches"][name],
+            "launches_per": "family_train's xlstm runs (one super-block: "
+                            "1 eager + 2 graphed steps, 1 resumed)",
+            "launches_by_path": {
+                "family_train": fam["launches"][name],
+                "xlstm_serve": xlstm["launches"][name]},
+            "max_abs_err": max(sk["step_max_rel_err"][name].values()),
+            "error_measure": "max |kernel - plain| over max |plain|, every "
+                             "step of one layer's 4096",
+            "scan_rel_l2": sk["scan_rel_l2"],
+            **{k: tm[k] for k in ("ms", "device_ms", "plain_ms",
+                                  "bound_ms", "bound_by", "library_ms",
+                                  "bmm_ms")},
+            "kernel_ms": tm["ms"],
+            "shape": sk["shape"],
+        })
     log(card)
     log(json.dumps({"kernels": records}))
     log(json.dumps({"ok": True, "device": {

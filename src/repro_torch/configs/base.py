@@ -180,3 +180,16 @@ def get(name: str, smoke: bool = False) -> ModelConfig:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCH_IDS)}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
     return mod.smoke() if smoke else mod.CONFIG
+
+
+def cells(arch: str) -> list[ShapeConfig]:
+    """The (arch x shape) dry-run cells for one arch (``launch/dryrun.py``):
+    every shape of :data:`SHAPES`, ``long_500k`` only for the
+    sub-quadratic archs."""
+    cfg = get(arch)
+    out = []
+    for s in ("train_4k", "prefill_32k", "decode_32k", "long_500k"):
+        if s == "long_500k" and not cfg.sub_quadratic:
+            continue
+        out.append(SHAPES[s])
+    return out

@@ -19,7 +19,10 @@ What a capture asks of its caller:
   the libraries' handles and settle the allocator before the capture;
   what they leave cached is handed back before the capture starts.
 
-A capture that fails raises; nothing falls back to the eager step.
+A capture that fails raises; nothing falls back to the eager step. The
+graph is kept past its capture (``keep_graph=True``) long enough to count
+its nodes (:func:`graph_nodes`), then instantiated; a graph that does not
+instantiate raises with its node count.
 """
 from __future__ import annotations
 
@@ -32,6 +35,19 @@ from repro_torch.kernels import _build
 #: calls before a capture: the first builds kernels and library handles,
 #: the second runs on a settled allocator
 WARMUP_STEPS = 2
+
+
+def graph_nodes(graph: "torch.cuda.CUDAGraph") -> int:
+    """The node count of a captured graph that kept its ``cudaGraph_t``
+    (``keep_graph=True``), from the driver (``cuGraphGetNodes``)."""
+    import ctypes
+
+    n = ctypes.c_size_t(0)
+    err = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(n))
+    if err != 0:
+        raise RuntimeError(f"cuGraphGetNodes failed with CUDA error {err}")
+    return n.value
 
 
 class CapturedStep:
@@ -60,7 +76,9 @@ class CapturedStep:
             loop = torch.cuda.current_stream()
             side = torch.cuda.Stream()
             side.wait_stream(loop)
-            with _build.held_launches(), torch.cuda.stream(side):
+            # held on the stream too: a backward's launches come from
+            # autograd's own thread
+            with _build.held_launches(side), torch.cuda.stream(side):
                 for _ in range(WARMUP_STEPS):
                     (warmup or body)()
             loop.wait_stream(side)
@@ -69,11 +87,18 @@ class CapturedStep:
             # hand the warm-up's cached blocks back first (a full-width
             # train step's warm-up caches tens of GB)
             torch.cuda.empty_cache()
-            self.graph = torch.cuda.CUDAGraph()
-            with _build.held_launches() as self.launches:
-                with torch.cuda.graph(self.graph,
+            self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+            capture = torch.cuda.Stream()
+            with _build.held_launches(capture) as self.launches:
+                with torch.cuda.graph(self.graph, stream=capture,
                                       capture_error_mode="thread_local"):
                     self.out = body()
+            self.nodes = graph_nodes(self.graph)
+            try:
+                self.graph.instantiate()
+            except RuntimeError as e:
+                raise RuntimeError(f"the captured graph of {self.nodes} "
+                                   f"nodes did not instantiate: {e}") from e
 
     def replay(self) -> Any:
         """Run the captured step on the current stream; returns ``out``."""

@@ -46,18 +46,23 @@ def flatten_with_path(tree: PyTree,
     """``(path, leaf)`` pairs in JAX flatten order; ``is_leaf`` stops the
     walk at matching containers (e.g. a ``Compressed`` named tuple)."""
     out: list[tuple[_Path, Any]] = []
-
-    def walk(node: Any, path: _Path) -> None:
-        if node is None:
-            return
-        if _is_node(node) and not (is_leaf is not None and is_leaf(node)):
-            for k, child in _children(node):
-                walk(child, path + (k,))
-            return
-        out.append((path, node))
-
-    walk(tree, ())
+    _walk(tree, (), is_leaf, out)
     return out
+
+
+# The walks recurse through module-level functions: a nested function that
+# calls itself is a reference cycle (it holds its own closure cell), which
+# keeps what it reaches (here whole trees of tensors) alive until the
+# garbage collector runs.
+
+def _walk(node: Any, path: _Path, is_leaf, out: list) -> None:
+    if node is None:
+        return
+    if _is_node(node) and not (is_leaf is not None and is_leaf(node)):
+        for k, child in _children(node):
+            _walk(child, path + (k,), is_leaf, out)
+        return
+    out.append((path, node))
 
 
 def leaves(tree: PyTree) -> list[Any]:
@@ -86,17 +91,19 @@ def unflatten_like(template: PyTree, by_key: dict[str, Any],
     """Rebuild ``template``'s structure with the leaves ``by_key`` names
     (keys as :func:`keystr` renders them); a template leaf missing from
     ``by_key`` raises ``KeyError`` naming it."""
-    def build(node: Any, path: _Path) -> Any:
-        if node is None:
-            return None
-        if isinstance(node, dict):
-            return {k: build(v, path + (k,)) for k, v in node.items()}
-        if isinstance(node, (list, tuple)):
-            return type(node)(build(v, path + (i,))
-                              for i, v in enumerate(node))
-        key = keystr(path)
-        if key not in by_key:
-            raise KeyError(f"template leaf {key} not in {what}")
-        return by_key[key]
+    return _build(template, (), by_key, what)
 
-    return build(template, ())
+
+def _build(node: Any, path: _Path, by_key: dict[str, Any], what: str) -> Any:
+    if node is None:
+        return None
+    if isinstance(node, dict):
+        return {k: _build(v, path + (k,), by_key, what)
+                for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_build(v, path + (i,), by_key, what)
+                          for i, v in enumerate(node))
+    key = keystr(path)
+    if key not in by_key:
+        raise KeyError(f"template leaf {key} not in {what}")
+    return by_key[key]

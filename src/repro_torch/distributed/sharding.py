@@ -281,13 +281,32 @@ class WireStats:
 #: host buffers for the gloo backend
 wire = WireStats(("sent", "staged"))
 
+#: callables ``(kind, operand, group_size)`` told of every collective this
+#: process issues, before it is issued (``kind``: all-gather, all-reduce or
+#: collective-permute): the dry run's record
+#: (``roofline/analysis.py::record_collectives``)
+observers: list = []
+
+
+def _observe(kind: str, t, group) -> None:
+    if observers:
+        import torch.distributed as dist
+
+        n = dist.get_world_size(group)
+        for fn in list(observers):
+            fn(kind, t, n)
+
 
 def _stage(group, t) -> bool:
     """Whether ``t`` goes through a host buffer on ``group``'s backend:
-    gloo moves host tensors only; NCCL moves card tensors only."""
+    gloo moves host tensors only; NCCL moves card tensors only; the
+    ``fake`` backend (the dry run's, on fake tensors) moves nothing, so
+    nothing is staged."""
     import torch.distributed as dist
 
     backend = dist.get_backend(group)
+    if backend == "fake":
+        return False
     if backend == "gloo":
         return t.device.type != "cpu"
     if backend == "nccl":
@@ -318,6 +337,7 @@ def all_gather(t, group) -> list:
     import torch
     import torch.distributed as dist
 
+    _observe("all-gather", t, group)
     src, staged = _to_wire(group, t)
     out = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
     dist.all_gather(out, src, group=group)
@@ -333,6 +353,7 @@ def all_reduce(t, op: str, group):
     ``group``."""
     import torch.distributed as dist
 
+    _observe("all-reduce", t, group)
     src, staged = _to_wire(group, t)
     buf = src if staged else src.clone()
     dist.all_reduce(buf, op=getattr(dist.ReduceOp, _OPS[op]), group=group)
@@ -348,6 +369,7 @@ def ring_shift(t, group):
 
     n = dist.get_world_size(group)
     i = dist.get_group_rank(group, dist.get_rank())
+    _observe("collective-permute", t, group)
     src, staged = _to_wire(group, t)
     recv = torch.empty_like(src)
     ops = [dist.P2POp(dist.isend, src, dist.get_global_rank(group,

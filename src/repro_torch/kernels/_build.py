@@ -22,7 +22,10 @@ A wrapper counts on the host, once per call, so a kernel captured in a
 CUDA graph is counted once at its capture and not at all when the graph
 replays. :func:`held_launches` takes the counts of a warm-up and a
 capture off again, and :func:`replay` adds the capture's back once for
-every replay: the counts then say how often each kernel ran.
+every replay: the counts then say how often each kernel ran. A block
+holds the launches of its own thread and, given a CUDA stream, those of
+any thread on that stream: autograd runs a CUDA backward on a thread of
+its own, on the stream of the forward.
 """
 from __future__ import annotations
 
@@ -69,6 +72,7 @@ lock = threading.RLock()
 _libs: dict[str, ctypes.CDLL] = {}
 _count_lock = threading.Lock()
 _held = threading.local()          # .ticks: the open held_launches dict
+_held_streams: dict = {}           # CUDA stream handle -> its open dict
 
 
 def build(names: list[str]) -> dict[str, float]:
@@ -132,13 +136,19 @@ def count_launch(wrapper) -> None:
     with _count_lock:
         wrapper.launches += 1
         ticks = getattr(_held, "ticks", None)
+        if ticks is None and _held_streams:
+            import torch
+
+            ticks = _held_streams.get(torch.cuda.current_stream().cuda_stream)
         if ticks is not None:
             ticks[wrapper] = ticks.get(wrapper, 0) + 1
 
 
 @contextlib.contextmanager
-def held_launches():
-    """Hold back the launches counted on this thread inside the block.
+def held_launches(stream=None):
+    """Hold back the launches counted on this thread inside the block,
+    and with ``stream`` (a ``torch.cuda.Stream``) those counted on any
+    thread while that stream is its current one.
 
     Yields a dict ``{wrapper: launches}`` that fills as wrappers count;
     at the end of the block those launches are taken off the wrappers'
@@ -150,11 +160,17 @@ def held_launches():
         raise RuntimeError("held_launches blocks do not nest")
     ticks: dict = {}
     _held.ticks = ticks
+    key = stream.cuda_stream if stream is not None else None
+    if key is not None:
+        with _count_lock:
+            _held_streams[key] = ticks
     try:
         yield ticks
     finally:
         _held.ticks = None
         with _count_lock:
+            if key is not None:
+                del _held_streams[key]
             for wrapper, n in ticks.items():
                 wrapper.launches -= n
 

@@ -33,9 +33,8 @@ Families trained on the card at ``FULL_SHAPE``, eager and graphed: the
 dense ``smollm-135m`` (30 layers; the smoke cuts it to 10),
 ``musicgen-medium`` (48 layers), ``hymba-1.5b`` (32 layers in
 ``tools/torch_family_train.py``, 4 in the smoke) and ``xlstm-1.3b``
-(one super-block of 8 blocks; at its 48 blocks it trains eagerly, and
-its captured step does not instantiate on one card), the last two with
-a HYBRID save and a resume. The MoE/MLA archs (``moonshot-v1-16b-a3b``,
+(48 blocks in the tool, one super-block of 8 in the smoke), the last two
+with a HYBRID save and a resume. The MoE/MLA archs (``moonshot-v1-16b-a3b``,
 ``deepseek-v3-671b``) train on the card at their smoke configs only, and
 ``internvl2-26b`` not at all: their full-width states do not fit one
 card (ROADMAP item 5).
@@ -232,6 +231,26 @@ class StepConfig:
     lr_total: int = 10000
 
 
+def _loss_grads_lr(cfg: configs.ModelConfig, step_cfg: StepConfig,
+                   state: dict, batch: dict):
+    """``(loss, grads, lr, gnorm, AdamWState)`` of one one-device step:
+    loss and grads by autograd, the warmup-cosine schedule at the state's
+    step count, the gradient's global norm."""
+    params = state["params"]
+    flat = flatten_with_path(params)
+    live = {keystr(p): t.detach().requires_grad_(True) for p, t in flat}
+    loss = transformer.train_loss(
+        unflatten_like(params, live, "params"), cfg, batch)
+    grads = torch.autograd.grad(loss, list(live.values()))
+    grads = unflatten_like(params, dict(zip(live, grads)), "grads")
+    lr = optim.schedules.warmup_cosine(
+        state["count"], peak=step_cfg.lr_peak, warmup=step_cfg.lr_warmup,
+        total=step_cfg.lr_total)
+    ostate = optim.AdamWState(state["count"], state["mu"], state["nu"],
+                              state.get("master"))
+    return loss, grads, lr, optim.adamw.global_norm(grads), ostate
+
+
 def make_train_step(cfg: configs.ModelConfig, step_cfg: StepConfig
                     ) -> Callable[[dict, dict], tuple[dict, dict]]:
     """Returns ``train_step(state, batch) -> (new_state, metrics)`` for one
@@ -240,28 +259,18 @@ def make_train_step(cfg: configs.ModelConfig, step_cfg: StepConfig
     The sharded step is :func:`jit_train_step`'s."""
 
     def train_step(state: dict, batch: dict) -> tuple[dict, dict]:
-        params = state["params"]
-        flat = flatten_with_path(params)
-        live = {keystr(p): t.detach().requires_grad_(True) for p, t in flat}
-        loss = transformer.train_loss(
-            unflatten_like(params, live, "params"), cfg, batch)
-        grads = torch.autograd.grad(loss, list(live.values()))
-        grads = unflatten_like(params, dict(zip(live, grads)), "grads")
-        lr = optim.schedules.warmup_cosine(
-            state["count"], peak=step_cfg.lr_peak, warmup=step_cfg.lr_warmup,
-            total=step_cfg.lr_total)
-        ostate = optim.AdamWState(state["count"], state["mu"], state["nu"],
-                                  state.get("master"))
-        new_params, new_ostate = optim.update(grads, ostate, params,
-                                              step_cfg.opt, lr=lr)
+        loss, grads, lr, gnorm, ostate = _loss_grads_lr(cfg, step_cfg,
+                                                        state, batch)
+        new_params, new_ostate = optim.update(grads, ostate, state["params"],
+                                              step_cfg.opt, lr=lr,
+                                              gnorm=gnorm)
         new_state = dict(state)
         new_state.update(params=new_params, mu=new_ostate.mu,
                          nu=new_ostate.nu, count=new_ostate.count)
         if new_ostate.master is not None:
             new_state["master"] = new_ostate.master
-        metrics = {"loss": loss.detach().float(),
-                   "grad_norm": optim.adamw.global_norm(grads), "lr": lr}
-        return new_state, metrics
+        return new_state, {"loss": loss.detach().float(),
+                           "grad_norm": gnorm, "lr": lr}
 
     return train_step
 
@@ -531,19 +540,19 @@ def gather_state(state: PyTree) -> PyTree:
 
 def inplace_train_step(cfg: configs.ModelConfig, step_cfg: StepConfig,
                        state: dict) -> Callable[[dict], dict]:
-    """``step(batch) -> metrics``: one :func:`make_train_step` step whose
-    new state is copied into ``state``'s own tensors, so that every leaf
-    keeps its storage from step to step (what a captured graph needs)."""
-    fn = make_train_step(cfg, step_cfg)
-    dst = {keystr(p): t for p, t in flatten_with_path(state)}
+    """``step(batch) -> metrics``: :func:`make_train_step`'s step with its
+    update written into ``state``'s own tensors (``optim.adamw.update_``,
+    one leaf at a time), so that every leaf keeps its storage from step to
+    step (what a captured graph needs) and no second copy of the state is
+    made (the JAX package's step donates its buffers). The same bits as
+    :func:`make_train_step`."""
 
     def step(batch: dict) -> dict:
-        new_state, metrics = fn(state, batch)
-        new = {keystr(p): t for p, t in flatten_with_path(new_state)}
-        with torch.no_grad():
-            for key, t in dst.items():
-                t.copy_(new[key])
-        return metrics
+        loss, grads, lr, gnorm, ostate = _loss_grads_lr(cfg, step_cfg,
+                                                        state, batch)
+        optim.adamw.update_(grads, ostate, state["params"], step_cfg.opt,
+                            lr=lr, gnorm=gnorm)
+        return {"loss": loss.detach().float(), "grad_norm": gnorm, "lr": lr}
 
     return step
 
@@ -582,6 +591,7 @@ def graph_train_step(cfg: configs.ModelConfig, step_cfg: StepConfig,
             static[k].copy_(v)
         return graph.replay()
 
+    step.nodes = graph.nodes
     return step
 
 
@@ -718,7 +728,10 @@ def train_loop(arch: str, *, steps: int = 50, smoke: bool = True,
                     graph_step = graph_train_step(cfg, step_cfg, state,
                                                   batch)
                     log(f"captured the train step in "
-                        f"{time.perf_counter() - t0:.2f}s")
+                        f"{time.perf_counter() - t0:.2f}s "
+                        f"({graph_step.nodes} graph nodes; "
+                        f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} "
+                        f"GiB allocated, the graph's pool included)")
                 if not use_graph:
                     batch = {k: torch.from_numpy(v).to(dev)
                              for k, v in batch.items()}

@@ -13,7 +13,10 @@ scan is a Python loop over the chunks; decode is the same chunk at L = 1.
 
 sLSTM (scalar memory, block-diagonal recurrence) is inherently sequential:
 its input projection is one matmul over the whole sequence, and the
-recurrent term and the gating run one step at a time in a Python loop.
+recurrent term and the gating run one step at a time in
+:class:`SLSTMScan`, one autograd node over the sequence: a step is the
+recurrent product (``torch.bmm``) and one cell kernel each way
+(``kernels/slstm.py``; its plain version on the CPU).
 
 Casts sit where the JAX package puts them: the gates, the stabilizers and
 the states ``c``, ``n``, ``m`` in f32; ``silu`` and GELU in f32 and back to
@@ -32,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import slstm as slstm_kernels
 from repro_torch.models.layers import rmsnorm
 from repro_torch.models.params import ParamSpec
 from repro_torch.models.ssm import _causal_conv
@@ -280,10 +284,11 @@ def _recurrent_weights(r_gates: torch.Tensor) -> torch.Tensor:
 
 def _slstm_step(cfg: ModelConfig, gx: torch.Tensor, state: dict,
                 r: torch.Tensor) -> dict:
-    """gx: (B,4d) pre-projected gate inputs (the input projection is one
-    matmul over the whole sequence, outside the time loop); state:
-    {'c','n','m','h'} (B,nh,dh); r: :func:`_recurrent_weights` of
-    ``p["r_gates"]``. Returns the new state."""
+    """One step of the plain time loop (the reference :class:`SLSTMScan`
+    is held to): gx: (B,4d) pre-projected gate inputs (the input
+    projection is one matmul over the whole sequence, outside the time
+    loop); state: {'c','n','m','h'} (B,nh,dh); r: :func:`_recurrent_weights`
+    of ``p["r_gates"]``. Returns the new state."""
     d = cfg.d_model
     nh = cfg.n_heads
     dh = d // nh
@@ -301,9 +306,121 @@ def _slstm_step(cfg: ModelConfig, gx: torch.Tensor, state: dict,
     o = torch.sigmoid(go)
     c_new = fs * c + is_ * z
     n_new = fs * n + is_
-    h_new = o * c_new / torch.clamp(n_new, min=1e-6)
+    # jnp.maximum, not clamp: a tie hands half the cotangent to each side
+    nd = torch.maximum(n_new, torch.full_like(n_new, slstm_kernels.N_FLOOR))
+    h_new = o * c_new / nd
     return {"c": c_new, "n": n_new, "m": m_new,
             "h": h_new.to(state["h"].dtype)}
+
+
+def slstm_loop(cfg: ModelConfig, gx_all: torch.Tensor, r: torch.Tensor,
+               state: dict, r_dtype: Optional[torch.dtype] = None
+               ) -> tuple[torch.Tensor, dict]:
+    """The plain time loop over (B,L,4d) gate inputs: ``(h (B,L,d) in
+    h's dtype, final state)``. The reference of :class:`SLSTMScan`: the
+    same arithmetic with one autograd node an op.
+
+    ``r_dtype``: each step casts ``r`` to it. With ``r`` in f32 and
+    ``r_dtype`` bf16 the forward is that of a bf16 ``r``, bit for bit,
+    and autograd sums the steps' bf16 contributions to r's gradient in
+    f32, where with a bf16 ``r`` it adds them in bf16, rounding the
+    running sum L times."""
+    bsz, l, _ = gx_all.shape
+    hs = []
+    # the steps' views in one op: its backward stacks the L gradients
+    # once, where L ``gx_all[:, t]`` would each write a zero gradient of
+    # gx_all's whole size and add it in (the same bits, L times the bytes)
+    for gx in gx_all.unbind(1):
+        state = _slstm_step(cfg, gx, state,
+                            r if r_dtype is None else r.to(r_dtype))
+        hs.append(state["h"])
+    return torch.stack(hs, dim=1).reshape(bsz, l, -1), state
+
+
+class SLSTMScan(torch.autograd.Function):
+    """The sLSTM time loop over a whole sequence as one autograd node.
+
+    ``apply(gx (B,L,4d) f32, r (nh,dh,4dh), c0, n0, m0 (B,nh,dh) f32, h0
+    (B,nh,dh)) -> (h (B,L,d) in h0's dtype, c, n, m)`` (the final state's
+    h is ``h[:, -1]``). Per step the forward issues the recurrent product
+    ``torch.bmm(h_{t-1}, r)`` and one cell kernel
+    (``kernels/slstm.py::slstm_cell``), and keeps for the backward only the
+    step's input state (c, n, m in f32; h is the output, in its dtype) and
+    its gate pre-activations (f32, written by the kernel: the product is
+    not recomputed). The backward runs the steps in reverse, one cell
+    kernel (``slstm_cell_bwd``) and ``dh_{t-1} = dgr_t . r^T``
+    (``torch.bmm``) a step, then forms ``dr`` once, as one batched product
+    of the stacked h_{t-1} and gate cotangents (accumulated in f32 by the
+    product, rounded once to r's dtype). Without a gradient to feed it
+    keeps nothing: the state alternates between two buffers.
+
+    The buffers are made inside the function, so under a CUDA graph's
+    capture they come from the graph's pool and keep their addresses.
+    """
+
+    @staticmethod
+    def forward(ctx, gx, r, c0, n0, m0, h0):
+        bsz, l, _ = gx.shape
+        nh, dh, _ = r.shape
+        d = nh * dh
+        keep = any(ctx.needs_input_grad)
+        f32 = dict(dtype=torch.float32, device=gx.device)
+        # keep: the input state of steps 1..L-1; else two buffers in turn
+        slots = torch.empty((3, max(l - 1, 0) if keep else min(l - 1, 2),
+                             bsz, nh, dh), **f32)
+        pre = torch.empty((bsz, l, 4 * d), **f32) if keep else None
+        hs = torch.empty((bsz, l, d), dtype=h0.dtype, device=gx.device)
+        final = [torch.empty((bsz, nh, dh), **f32) for _ in range(3)]
+        c0, n0, m0 = (t.contiguous() for t in (c0, n0, m0))
+        state = (c0, n0, m0)
+        # every step's views in one op each (a slice a step would be one)
+        gx_t, hs_t = gx.unbind(1), hs.unbind(1)
+        pre_t = pre.unbind(1) if keep else (None,) * l
+        outs = [slots[:, i].unbind(0) for i in range(slots.shape[1])]
+        for t in range(l):
+            hp = h0 if t == 0 else hs_t[t - 1].view(bsz, nh, dh)
+            gr = torch.bmm(hp.to(r.dtype).transpose(0, 1), r)
+            out = final if t == l - 1 else outs[t if keep else t % 2]
+            slstm_kernels.slstm_cell(gx_t[t], gr, *state, *out, pre_t[t],
+                                     hs_t[t])
+            state = out
+        if keep:
+            ctx.save_for_backward(pre, slots, hs, c0, n0, m0, h0, r)
+        return hs, final[0], final[1], final[2]
+
+    @staticmethod
+    def backward(ctx, dhs, dc_l, dn_l, dm_l):
+        pre, slots, hs, c0, n0, m0, h0, r = ctx.saved_tensors
+        bsz, l, d = hs.shape
+        dhs = None if dhs is None else dhs.contiguous()
+        nh, dh, dh4 = r.shape
+        carry = []
+        for g in (dc_l, dn_l, dm_l):
+            carry.append(g.float().clone() if g is not None
+                         else torch.zeros_like(c0))
+        dgx = torch.empty_like(pre)
+        # the gate cotangents, stacked (nh, L, B, 4dh) for dr's product
+        dgr = torch.empty((nh, l, bsz, dh4), dtype=r.dtype, device=r.device)
+        rt = r.transpose(1, 2)
+        dhr = None
+        pre_t, dgx_t, dgr_t = pre.unbind(1), dgx.unbind(1), dgr.unbind(1)
+        dhs_t = (None,) * l if dhs is None else dhs.unbind(1)
+        ins = [slots[:, i].unbind(0) for i in range(slots.shape[1])]
+        for t in reversed(range(l)):
+            state = (c0, n0, m0) if t == 0 else ins[t - 1]
+            slstm_kernels.slstm_cell_bwd(pre_t[t], *state, dhs_t[t], dhr,
+                                         *carry, dgx_t[t], dgr_t[t])
+            dhr = torch.bmm(dgr_t[t], rt)                 # (nh, B, dh)
+        # dr[h] = sum_{t,b} h_{t-1}[b,h]^T dgr_t[h,b]: one product
+        hprev = torch.empty((nh, l, bsz, dh), dtype=r.dtype, device=r.device)
+        hprev[:, 0].copy_(h0.transpose(0, 1))
+        if l > 1:
+            hprev[:, 1:].copy_(hs[:, :-1].view(bsz, l - 1, nh, dh)
+                               .permute(2, 1, 0, 3))
+        dr = torch.bmm(hprev.view(nh, l * bsz, dh).transpose(1, 2),
+                       dgr.view(nh, l * bsz, dh4))
+        dh0 = dhr.transpose(0, 1).to(h0.dtype)
+        return (dgx, dr, *carry, dh0)
 
 
 def slstm_state_shape(cfg: ModelConfig, batch: int) -> dict:
@@ -325,14 +442,10 @@ def slstm_mixer(p, x: torch.Tensor, cfg: ModelConfig,
         state = {"c": z, "n": z, "m": z - 1e30, "h": z.to(x.dtype)}
     gx_all = x_in @ p["w_gates"] + p["b_gates"]            # (B,L,4d) f32
     r = _recurrent_weights(p["r_gates"])
-    hs = []
-    # the steps' views in one op: its backward stacks the L gradients
-    # once, where L ``gx_all[:, t]`` would each write a zero gradient of
-    # gx_all's whole size and add it in (the same bits, L times the bytes)
-    for gx in gx_all.unbind(1):
-        state = _slstm_step(cfg, gx, state, r)
-        hs.append(state["h"])
-    h = torch.stack(hs, dim=1).reshape(bsz, l, d).to(x.dtype)
+    hs, c, n, m = SLSTMScan.apply(gx_all, r, state["c"], state["n"],
+                                  state["m"], state["h"])
+    state = {"c": c, "n": n, "m": m, "h": hs[:, -1].view(bsz, nh, dh)}
+    h = hs.to(x.dtype)
     h = _groupnorm(h, p["gn"], nh, cfg.norm_eps)
     y = x + h
     # post FFN

@@ -4,7 +4,9 @@ Moments can be held in bf16 (``bf16_moments``) — halves optimizer-state
 memory and checkpoint bytes; the update math still runs in f32. This is
 also what makes the lossy-checkpoint policy sensible: moments are
 noise-dominated statistics. ``update`` returns new tensors and leaves its
-inputs as they were, as the JAX package's does.
+inputs as they were, as the JAX package's does; ``update_`` writes the
+same bits into its inputs, leaf by leaf (the captured train step's
+counterpart of the JAX package's donated buffers).
 """
 from __future__ import annotations
 
@@ -13,7 +15,8 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
-from repro_torch.core.pytree import leaves, tree_map
+from repro_torch.core.pytree import (flatten_with_path, keystr, leaves,
+                                     tree_map, unflatten_like)
 
 PyTree = Any
 
@@ -53,6 +56,63 @@ def global_norm(tree: PyTree) -> torch.Tensor:
                           for x in leaves(tree)))
 
 
+def _leaf_update(cfg: AdamWConfig, clip, c1, c2, lr, p, g, m, v, pm):
+    """One leaf's AdamW step: (new param, mu, nu, master or None)."""
+    g = g.to(torch.float32) * clip
+    m32 = m.to(torch.float32) * cfg.b1 + g * (1.0 - cfg.b1)
+    # max(v, 0): a lossy-restored second moment (error-bounded spectral
+    # codec on checkpoint moments) may carry eps-scale negative values;
+    # sqrt of those would poison the whole update with nan
+    v32 = torch.clamp(v.to(torch.float32), min=0.0) * cfg.b2 \
+        + g * g * (1.0 - cfg.b2)
+    upd = (m32 / c1) / (torch.sqrt(v32 / c2) + cfg.eps)
+    p32 = pm if pm is not None else p.to(torch.float32)
+    if cfg.weight_decay > 0:
+        upd = upd + cfg.weight_decay * p32
+    p32_new = p32 - lr * upd
+    # the f32 parameter is kept only as the new master weight: without
+    # master weights it is dropped here, not held for every leaf until
+    # the whole tree is updated (4 bytes a parameter: 14.4 GB at
+    # full-width xlstm-1.3b)
+    return (p32_new.to(p.dtype), m32.to(m.dtype), v32.to(v.dtype),
+            p32_new if pm is not None else None)
+
+
+def _scalars(grads: PyTree, state: AdamWState, cfg: AdamWConfig, lr,
+             gnorm):
+    """(lr, new count, clip, c1, c2) of one step."""
+    lr = cfg.lr if lr is None else lr
+    count = state.count + 1
+    if gnorm is None:
+        gnorm = global_norm(grads)
+    clip = (torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12),
+                        max=1.0)
+            if cfg.grad_clip > 0 else 1.0)
+    cf = count.to(torch.float32)
+    return (lr, count, clip, 1.0 - torch.pow(cfg.b1, cf),
+            1.0 - torch.pow(cfg.b2, cf))
+
+
+def _each_leaf(grads: PyTree, state: AdamWState, params: PyTree,
+               cfg: AdamWConfig, lr, gnorm):
+    """The new count, and an iterator over the leaves in flatten order:
+    ``(key, (param, mu, nu, master or None), their new values)``, each
+    leaf's update computed as it is drawn."""
+    lr, count, clip, c1, c2 = _scalars(grads, state, cfg, lr, gnorm)
+    flat = flatten_with_path(params)
+    masters = (leaves(state.master) if state.master is not None
+               else [None] * len(flat))
+
+    def each():
+        for (path, p), g, m, v, pm in zip(flat, leaves(grads),
+                                          leaves(state.mu),
+                                          leaves(state.nu), masters):
+            yield keystr(path), (p, m, v, pm), _leaf_update(
+                cfg, clip, c1, c2, lr, p, g, m, v, pm)
+
+    return count, each()
+
+
 @torch.no_grad()
 def update(grads: PyTree, state: AdamWState, params: PyTree,
            cfg: AdamWConfig, lr: Optional[torch.Tensor] = None, *,
@@ -62,52 +122,28 @@ def update(grads: PyTree, state: AdamWState, params: PyTree,
     ``gnorm`` is the global norm the clip uses where ``grads`` are one
     rank's shards of the gradient (the sharded step), by default
     ``global_norm(grads)``."""
-    lr = cfg.lr if lr is None else lr
-    count = state.count + 1
-    if gnorm is None:
-        gnorm = global_norm(grads)
-    clip = (torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12),
-                        max=1.0)
-            if cfg.grad_clip > 0 else 1.0)
-    cf = count.to(torch.float32)
-    c1 = 1.0 - torch.pow(cfg.b1, cf)
-    c2 = 1.0 - torch.pow(cfg.b2, cf)
-
-    def leaf(p, g, m, v, pm):
-        g = g.to(torch.float32) * clip
-        m32 = m.to(torch.float32) * cfg.b1 + g * (1.0 - cfg.b1)
-        # max(v, 0): a lossy-restored second moment (error-bounded spectral
-        # codec on checkpoint moments) may carry eps-scale negative values;
-        # sqrt of those would poison the whole update with nan
-        v32 = torch.clamp(v.to(torch.float32), min=0.0) * cfg.b2 \
-            + g * g * (1.0 - cfg.b2)
-        upd = (m32 / c1) / (torch.sqrt(v32 / c2) + cfg.eps)
-        p32 = pm if pm is not None else p.to(torch.float32)
-        if cfg.weight_decay > 0:
-            upd = upd + cfg.weight_decay * p32
-        p32_new = p32 - lr * upd
-        # the f32 parameter is kept only as the new master weight: without
-        # master weights it is dropped here, not held for every leaf until
-        # the whole tree is updated (4 bytes a parameter: 14.4 GB at
-        # full-width xlstm-1.3b)
-        return (p32_new.to(p.dtype), m32.to(m.dtype), v32.to(v.dtype),
-                p32_new if pm is not None else None)
-
-    masters = state.master
-    if masters is None:
-        out = tree_map(lambda p, g, m, v: leaf(p, g, m, v, None),
-                       params, grads, state.mu, state.nu)
-    else:
-        out = tree_map(leaf, params, grads, state.mu, state.nu, masters)
-    pick = lambda i: _pick(out, params, i)
-    return pick(0), AdamWState(count, pick(1), pick(2),
-                               pick(3) if masters is not None else None)
+    count, each = _each_leaf(grads, state, params, cfg, lr, gnorm)
+    new = {key: n for key, _, n in each}
+    field = lambda i, what: unflatten_like(
+        params, {k: n[i] for k, n in new.items()}, what)
+    return field(0, "params"), AdamWState(
+        count, field(1, "mu"), field(2, "nu"),
+        field(3, "master") if state.master is not None else None)
 
 
-def _pick(out: PyTree, like: PyTree, i: int) -> PyTree:
-    """Field ``i`` of the per-leaf result tuples, in ``like``'s structure."""
-    if isinstance(like, dict):
-        return {k: _pick(out[k], v, i) for k, v in like.items()}
-    if isinstance(like, (list, tuple)):
-        return type(like)(_pick(o, v, i) for o, v in zip(out, like))
-    return out[i]
+@torch.no_grad()
+def update_(grads: PyTree, state: AdamWState, params: PyTree,
+            cfg: AdamWConfig, lr: Optional[torch.Tensor] = None, *,
+            gnorm: Optional[torch.Tensor] = None) -> None:
+    """:func:`update` written into ``params``, ``state``'s moments, masters
+    and count, one leaf at a time: the same bits, with one leaf's new
+    tensors alive at a time where :func:`update` holds a whole new tree
+    beside the old (the state's size again: 21.6 GB at full-width
+    xlstm-1.3b)."""
+    count, each = _each_leaf(grads, state, params, cfg, lr, gnorm)
+    for _, old, new in each:
+        for dst, src in zip(old, new):
+            if dst is not None:
+                dst.copy_(src)
+        del new
+    state.count.copy_(count)

@@ -142,16 +142,44 @@ _COSTS = {
 KERNELS = tuple(_COSTS)
 
 
+def _slstm_fwd(gx, gr, c, n, m, c_out, n_out, m_out, pre, h):
+    """One step: gx, gr and the state read; the state, p and h written;
+    ~40 flops an element (the gates, exp twice, tanh, the sigmoid)."""
+    ins = _nbytes(gx) + _nbytes(gr) + 3 * _nbytes(c)
+    outs = 3 * _nbytes(c_out) + (_nbytes(pre) if pre is not None else 0) \
+        + _nbytes(h)
+    return 40 * c.numel(), ins + outs
+
+
+def _slstm_bwd(pre, c, n, m, dh_out, dhr, dc, dn, dm, dpre, dgr):
+    """One step back: p, the input state, h's cotangents and the carries
+    read; the carries, dp (f32) and dgr written; ~80 flops an element."""
+    opt = lambda t: _nbytes(t) if t is not None else 0
+    ins = _nbytes(pre) + 3 * _nbytes(c) + opt(dh_out) + opt(dhr) \
+        + 3 * _nbytes(dc)
+    outs = 3 * _nbytes(dc) + _nbytes(dpre) + _nbytes(dgr)
+    return 80 * c.numel(), ins + outs
+
+
+#: kernels of the port with no Pallas counterpart (the sLSTM cell, whose
+#: JAX step is fused by XLA), at the f32 rate of their arithmetic
+PORT_COSTS = {
+    "slstm_cell": (_slstm_fwd, _f32),
+    "slstm_cell_bwd": (_slstm_bwd, _f32),
+}
+_ALL_COSTS = {**_COSTS, **PORT_COSTS}
+
+
 def kernel_cost(name: str, *args) -> tuple[int, int]:
     """(flops, bytes) that any implementation of kernel ``name`` must at
     least spend on these arguments (the kernel's own, in its order; only
     their shapes and dtypes are read, and paged attention's lengths). Each
     input is read once and each output written once."""
     try:
-        cost, _ = _COSTS[name]
+        cost, _ = _ALL_COSTS[name]
     except KeyError:
         raise KeyError(f"no cost model for {name!r}; known: "
-                       f"{', '.join(KERNELS)}") from None
+                       f"{', '.join(_ALL_COSTS)}") from None
     return cost(*args)
 
 
@@ -215,12 +243,12 @@ def kernel_report(fn, args, *, name: str = "", measure: bool = False,
     """Place ``fn(*args)`` on the compute/memory roofline, at the peak rate
     of the kernel's arithmetic (``_COSTS``; bf16 for another function)."""
     name = name or getattr(fn, "__name__", "kernel")
-    peak_flops = (_COSTS[name][1](*args) if name in _COSTS
+    peak_flops = (_ALL_COSTS[name][1](*args) if name in _ALL_COSTS
                   else PEAK_FLOPS_BF16)
     notes = []
     flops = byts = None
     if flops_override is None or bytes_override is None:
-        if name in _COSTS:
+        if name in _ALL_COSTS:
             flops, byts = map(float, kernel_cost(name, *args))
         else:
             flops, byts, note = _counted(fn, args)

@@ -434,9 +434,11 @@ def test_group_bound_keeps_smollm_one_dispatch(arch, groups):
 # the sLSTM's step views
 # ---------------------------------------------------------------------------
 
-def _slstm_mixer_indexed(p, x, cfg):
-    """``slstm_mixer`` with each step's input as ``gx_all[:, t]`` (one
-    select a step), the form ``unbind`` replaced."""
+def _slstm_mixer_indexed(p, x, cfg, unbind: bool = False):
+    """``slstm_mixer`` over the plain time loop with each step's input as
+    ``gx_all[:, t]`` (one select a step, the form ``unbind`` replaced),
+    or, with ``unbind``, over ``slstm_loop`` (the loop ``SLSTMScan`` is
+    held to, which takes them through one ``unbind``)."""
     bsz, l, d = x.shape
     nh = cfg.n_heads
     x_in = rmsnorm({"scale": p["ln"]}, x, cfg.norm_eps)
@@ -444,11 +446,15 @@ def _slstm_mixer_indexed(p, x, cfg):
     state = {"c": z, "n": z, "m": z - 1e30, "h": z.to(x.dtype)}
     gx_all = x_in @ p["w_gates"] + p["b_gates"]
     r = TX._recurrent_weights(p["r_gates"])
-    hs = []
-    for t in range(l):
-        state = TX._slstm_step(cfg, gx_all[:, t], state, r)
-        hs.append(state["h"])
-    h = torch.stack(hs, dim=1).reshape(bsz, l, d).to(x.dtype)
+    if unbind:
+        h, state = TX.slstm_loop(cfg, gx_all, r, state)
+        h = h.to(x.dtype)
+    else:
+        hs = []
+        for t in range(l):
+            state = TX._slstm_step(cfg, gx_all[:, t], state, r)
+            hs.append(state["h"])
+        h = torch.stack(hs, dim=1).reshape(bsz, l, d).to(x.dtype)
     h = TX._groupnorm(h, p["gn"], nh, cfg.norm_eps)
     y = x + h
     yn = rmsnorm({"scale": p["ffn_ln"]}, y, cfg.norm_eps)
@@ -461,10 +467,12 @@ def _slstm_mixer_indexed(p, x, cfg):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_slstm_step_views_give_the_same_gradients(dtype):
-    """``slstm_mixer`` takes its steps' inputs through one ``unbind``: the
-    same output bits as a select a step, and the same gradient bits (the
-    selects' zero-padded gradients add zeros), with one stacked gradient
-    in place of one of gx's whole size a step."""
+    """The plain time loop (``slstm_loop``, which ``slstm_mixer``'s
+    ``SLSTMScan`` is held to in ``tests/test_torch_xlstm.py``) takes its
+    steps' inputs through one ``unbind``: the same output bits as a select
+    a step, and the same gradient bits (the selects' zero-padded
+    gradients add zeros), with one stacked gradient in place of one of
+    gx's whole size a step. The mixer's forward is those bits too."""
     cfg = dataclasses.replace(tbase.get("xlstm-1.3b", smoke=True),
                               dtype=dtype)
     spec = TM.param_spec(cfg)["super"]["slstm"]
@@ -474,13 +482,14 @@ def test_slstm_step_views_give_the_same_gradients(dtype):
     x = torch.from_numpy(np.random.default_rng(4).standard_normal(
         (2, 40, cfg.d_model)).astype(np.float32)).to(getattr(torch, dtype))
     out = []
-    for fn in (_slstm_mixer_indexed, TX.slstm_mixer):
+    for unbind in (False, True):
         live = {k: t.detach().clone().requires_grad_(True)
                 for k, t in p.items()}
         xx = x.clone().requires_grad_(True)
-        y, state = fn(live, xx, cfg)
+        y, state = _slstm_mixer_indexed(live, xx, cfg, unbind)
         loss = (y.float() ** 2).mean() + state["c"].sum()
         out.append((y, torch.autograd.grad(loss, [xx, *live.values()])))
     assert torch.equal(out[0][0], out[1][0])
     for a, b in zip(out[0][1], out[1][1]):
         assert torch.equal(a, b)
+    assert torch.equal(TX.slstm_mixer(p, x, cfg)[0], out[0][0])

@@ -223,6 +223,42 @@ def test_inplace_train_step_keeps_storage_and_bits(master):
     assert int(state["count"]) == 3
 
 
+@pytest.mark.parametrize("master", [False, True])
+def test_a_dropped_step_frees_its_tensors_without_the_collector(master):
+    """What a step makes dies with its last reference, with the garbage
+    collector off: the capture's warm-up drops the functional step's new
+    state and then hands the allocator's cached blocks back, which frees
+    nothing still held by a reference cycle (a whole second state on the
+    card). Weak references to the new state's leaves and to the gradients
+    the step's AdamW read, then the outputs dropped. After one step first:
+    the process's first call through ``torch.utils.checkpoint`` imports
+    ``torch._dynamo``, which keeps that call's frames."""
+    import gc
+    import weakref
+
+    cfg, step_cfg, state = _state(master=master)
+    fn = TT.make_train_step(cfg, step_cfg)
+    fn(state, _batch(0))
+    grads = []
+    update = TT.optim.update
+    spy = lambda g, *a, **kw: (grads.extend(pytree.leaves(g)),
+                               update(g, *a, **kw))[1]
+    gc.collect()
+    gc.disable()
+    try:
+        TT.optim.update = spy
+        new_state, metrics = fn(state, _batch(0))
+        TT.optim.update = update
+        refs = [weakref.ref(t) for t in pytree.leaves(new_state) + grads]
+        refs = [r for r in refs if r() is not None]
+        assert len(refs) > len(pytree.leaves(state))
+        del new_state, metrics, grads
+        assert [r for r in refs if r() is not None] == []
+    finally:
+        TT.optim.update = update
+        gc.enable()
+
+
 def test_inplace_train_step_matches_jax():
     """Five in-place steps against five of the JAX package's jitted step
     from the same f32 state (tolerances as ``test_torch_train.py``)."""

@@ -292,3 +292,179 @@ def test_remat_gives_the_same_loss_and_grads(variant):
     (l1, g1), (l2, g2) = out
     assert torch.equal(l1, l2)
     assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+
+
+# ---------------------------------------------------------------------------
+# SLSTMScan: the time loop as one autograd node over the cell kernel's
+# plain version (on the card, kernels/slstm.py's CUDA kernels; see
+# chip_smoke.py's family_train phase)
+# ---------------------------------------------------------------------------
+
+#: against the plain loop's autograd: f32 gradients within rtol 1e-5 plus
+#: 1e-6 of the leaf's largest |gradient| (the same formulas, summed in
+#: other orders); bf16 gradients within one bf16 rounding (2^-8) of the
+#: leaf's largest |gradient|. In bf16 the loop takes the recurrent weights
+#: in f32 and casts them at each step (``slstm_loop``'s ``r_dtype``): the
+#: same forward, and autograd sums their gradient in f32 as the scan's
+#: one product does, where a bf16 sum would round its running total once
+#: a step
+SCAN_GRAD = {"float32": (1e-5, 1e-6), "bfloat16": (0.0, 2.0 ** -8)}
+SCAN_STEPS = 19
+#: against jax.grad of the JAX package's mixer, f32: rtol 1e-4 plus 1e-5 of
+#: the leaf's largest |gradient| (XLA's and torch's CPU kernels sum in
+#: other orders; the gradient passes through the post-mixer FFN and the
+#: group norm, whose own tolerance is F32's 2e-5)
+JAX_GRAD_RTOL, JAX_GRAD_SCALE_TOL = 1e-4, 1e-5
+
+
+def _scan_inputs(dtype, length=SCAN_STEPS, seed=20):
+    tc = dataclasses.replace(tbase.get(ARCH, smoke=True), dtype=dtype)
+    d, nh = tc.d_model, tc.n_heads
+    dh = d // nh
+    rng = np.random.default_rng(seed)
+    dt = getattr(torch, dtype)
+    gx = torch.from_numpy(2 * rng.standard_normal((3, length, 4 * d))
+                          .astype(np.float32))
+    rg = torch.from_numpy((rng.standard_normal((4, nh, dh, dh)) / dh ** 0.5)
+                          .astype(np.float32)).to(dt)
+    st = {k: torch.from_numpy(rng.standard_normal((3, nh, dh))
+                              .astype(np.float32)) for k in ("c", "n", "m")}
+    st["n"] = st["n"].abs() + 0.5
+    st["h"] = torch.from_numpy(rng.standard_normal((3, nh, dh))
+                               .astype(np.float32)).to(dt)
+    return tc, gx, rg, st
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("initial", ["zero", "given"])
+def test_slstm_scan_forward_is_the_loop_bit_for_bit(dtype, initial):
+    tc, gx, rg, st = _scan_inputs(dtype)
+    if initial == "zero":
+        z = torch.zeros_like(st["c"])
+        st = {"c": z, "n": z, "m": z - 1e30, "h": z.to(st["h"].dtype)}
+    r = TX._recurrent_weights(rg)
+    want, wst = TX.slstm_loop(tc, gx, r, dict(st))
+    got, c, n, m = TX.SLSTMScan.apply(gx, r, st["c"], st["n"], st["m"],
+                                      st["h"])
+    assert got.dtype == st["h"].dtype
+    assert torch.equal(got, want)
+    for k, t in (("c", c), ("n", n), ("m", m)):
+        assert torch.equal(t, wst[k]), k
+    assert torch.equal(got[:, -1].reshape(wst["h"].shape), wst["h"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_slstm_scan_grads_match_the_loops_autograd(dtype):
+    """Gradients of gx, the recurrent weights and every initial state
+    leaf, through h and through the final state."""
+    tc, gx, rg, st = _scan_inputs(dtype)
+    rng = np.random.default_rng(21)
+    w_h = torch.from_numpy(rng.standard_normal((3, SCAN_STEPS, tc.d_model))
+                           .astype(np.float32))
+    w_c = torch.from_numpy(rng.standard_normal(st["c"].shape)
+                           .astype(np.float32))
+    grads = []
+    for scan in (False, True):
+        leaves = [gx.clone().requires_grad_(True),
+                  rg.clone().requires_grad_(True)] + [
+            st[k].clone().requires_grad_(True) for k in ("c", "n", "m", "h")]
+        init = dict(zip(("c", "n", "m", "h"), leaves[2:]))
+        if scan:
+            hs, c, n, m = TX.SLSTMScan.apply(
+                leaves[0], TX._recurrent_weights(leaves[1]), *leaves[2:])
+        else:
+            hs, fin = TX.slstm_loop(
+                tc, leaves[0], TX._recurrent_weights(leaves[1].float()),
+                init, r_dtype=rg.dtype)
+            c, n, m = fin["c"], fin["n"], fin["m"]
+        loss = ((hs.float() * w_h).sum() + (c * w_c).sum() + n.sum()
+                + 0.1 * m.sum())
+        grads.append(torch.autograd.grad(loss, leaves))
+    rtol, one = SCAN_GRAD[dtype]
+    names = ("gx", "r_gates", "c", "n", "m", "h")
+    for name, want, got in zip(names, *grads):
+        assert got.dtype == want.dtype, name
+        w = want.float().numpy()
+        np.testing.assert_allclose(got.float().numpy(), w, rtol=rtol,
+                                   atol=one * float(np.abs(w).max()),
+                                   err_msg=name)
+
+
+def _tie_params(jp, tp, case):
+    """Parameters (and an initial state) that force ties: ``m`` — the i
+    and f gates' weights, biases and recurrent blocks equal and m = 0, so
+    that p_f + m == p_i at the first step; ``n`` — the i gate's bias at
+    -100 and n = 1e-6, m = 0, so that n' = 1 * 1e-6 + exp(-100 - p_f)
+    rounds to the floor 1e-6 at every step."""
+    w = np.asarray(jp["w_gates"], np.float32).copy()
+    b = np.asarray(jp["b_gates"], np.float32).copy()
+    r = np.asarray(jp["r_gates"], np.float32).copy()
+    d = w.shape[0]
+    if case == "m":
+        w[:, :d] = w[:, d:2 * d]
+        b[:d] = b[d:2 * d] = 0.25
+        r[0] = r[1]
+    else:
+        b[:d] = -100.0
+    jp = dict(jp, w_gates=jnp.asarray(w), b_gates=jnp.asarray(b),
+              r_gates=jnp.asarray(r))
+    tp = dict(tp, w_gates=torch.from_numpy(w), b_gates=torch.from_numpy(b),
+              r_gates=torch.from_numpy(r))
+    return jp, tp
+
+
+@pytest.mark.parametrize("case", ["none", "m", "n"])
+def test_slstm_mixer_grads_match_jax_grad(case):
+    """x, w_gates, r_gates and b_gates against ``jax.grad`` of the JAX
+    package's ``slstm_mixer`` in f32, over 16 steps; ``m`` and ``n``
+    force ties in ``jnp.maximum`` (in m' and in n's floor), where JAX
+    hands each side half of the cotangent."""
+    jc, tc, jp, tp = _slstm("smoke", "float32")
+    if case != "none":
+        jp, tp = _tie_params(jp, tp, case)
+    jx, tx = _x((2, 16, jc.d_model), "float32", seed=22)
+    nh, dh = tc.n_heads, tc.d_model // tc.n_heads
+    z = np.zeros((2, nh, dh), np.float32)
+    init = {"c": z + 0.5, "n": z + (1e-6 if case == "n" else 1.0), "m": z,
+            "h": z}
+    w_y = np.random.default_rng(23).standard_normal(
+        (2, 16, jc.d_model)).astype(np.float32)
+    keys = ("w_gates", "r_gates", "b_gates")
+
+    def jloss(x, *ws):
+        p = dict(jp, **dict(zip(keys, ws)))
+        y, _ = JX.slstm_mixer(p, x, jc,
+                              {k: jnp.asarray(v) for k, v in init.items()})
+        return jnp.sum(y * w_y)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2, 3))(jx, *(jp[k] for k in keys))
+    leaves = [tx.clone().requires_grad_(True)] + [
+        tp[k].clone().requires_grad_(True) for k in keys]
+    ty, _ = TX.slstm_mixer(dict(tp, **dict(zip(keys, leaves[1:]))),
+                           leaves[0], tc,
+                           {k: torch.from_numpy(v) for k, v in init.items()})
+    got = torch.autograd.grad((ty * torch.from_numpy(w_y)).sum(), leaves)
+    if case == "m":
+        # the tie is there: p_f + m == p_i at step 0 in every element
+        x_in = TX.rmsnorm({"scale": tp["ln"]}, tx, tc.norm_eps)
+        gx = x_in @ tp["w_gates"] + tp["b_gates"]
+        d = tc.d_model
+        assert torch.equal(gx[:, 0, :d], gx[:, 0, d:2 * d])
+    for name, g, w in zip(("x",) + keys, got, want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(
+            g.numpy(), w, rtol=JAX_GRAD_RTOL,
+            atol=JAX_GRAD_SCALE_TOL * float(np.abs(w).max()), err_msg=name)
+
+
+def test_slstm_tie_rule_is_jnp_maximums():
+    """At a tie the plain backward hands half of the cotangent to each
+    side, as ``jnp.maximum``'s does; ``torch.clamp`` would hand it all to
+    n (the rule the port's loop used before)."""
+    from repro_torch.kernels import slstm as SK
+
+    x = torch.tensor([1e-6, 2e-6, 5e-7], dtype=torch.float32)
+    assert SK._max_share(x, SK.N_FLOOR).tolist() == [0.5, 1.0, 0.0]
+    g = jax.grad(lambda v: jnp.sum(jnp.maximum(v, 1e-6)))(
+        jnp.asarray(x.numpy()))
+    assert np.asarray(g).tolist() == [0.5, 1.0, 0.0]

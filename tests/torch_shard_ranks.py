@@ -4,6 +4,8 @@
         --dir DIR --cases CASES.json
     python tests/torch_shard_ranks.py --phase ring --rank R --world W \\
         --dir DIR
+    python tests/torch_shard_ranks.py --phase wire --rank R --world W \\
+        --dir DIR --cases CASES.json
     python tests/torch_shard_ranks.py --phase killpoint|resume --rank R \\
         --world W --dir DIR [--device cpu|cuda] [--layers N]
 
@@ -23,6 +25,15 @@ state gathered whole, the ring's wire bytes and the bitwise checks.
 method (``int8`` also through ``int8_ring_mean`` itself) and writes
 ``DIR/ring_<W>_rank<R>.pt``, with the wire bytes of each call.
 
+``wire``: one default step (``StepConfig(grad_compress=method)``) of each
+case of ``CASES.json`` whose mesh has W devices (``{"name", "arch",
+"mesh", "axes", "method", "seq", "remat"}``: the smoke config with that
+``remat``, at the smoke shape's batch and ``seq`` tokens), from its
+seed-0 state, under ``roofline.analysis.record_collectives`` with
+``sharding.wire`` counted from 0; rank 0 writes ``DIR/wire_<W>.json``
+(per case the recorded collectives and the wire counts), which
+``tests/test_torch_dryrun.py`` holds the dry run's lowering to.
+
 ``killpoint`` (a world of 4, a (2, 2) mesh) and ``resume`` (a world of 2)
 are the two halves of ``tools/torch_fault_killpoint.py``'s scenario
 across ranks (:func:`run_killpoint_rank` / :func:`run_resume_rank`
@@ -34,6 +45,7 @@ Imports no JAX. ``tests/test_torch_shard_step.py`` and
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import importlib.util
 import json
@@ -137,6 +149,48 @@ def run_cases(args) -> None:
                        os.path.join(args.dir, f"port_{case['name']}.pt"))
 
 
+def run_wire(args) -> None:
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.configs import base as configs
+    from repro_torch.core.pytree import tree_map
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.sharding import distribute_tree
+    from repro_torch.launch import train as T
+    from repro_torch.roofline.analysis import record_collectives
+
+    with open(args.cases) as f:
+        cases = [c for c in json.load(f)
+                 if int(torch.tensor(c["mesh"]).prod()) == args.world]
+    out = {}
+    for case in cases:
+        cfg = dataclasses.replace(configs.get(case["arch"], smoke=True),
+                                  remat=case["remat"])
+        shape = dataclasses.replace(configs.SMOKE_SHAPE, seq_len=case["seq"])
+        mesh = DeviceMesh("cpu", torch.arange(args.world).reshape(
+            case["mesh"]), mesh_dim_names=tuple(case["axes"]))
+        sc = T.StepConfig(grad_compress=case["method"])
+        step, st_sh, b_sh, ef = T.jit_train_step(cfg, mesh, sc, shape)
+        state = T.init_state(cfg, 0, sc.opt, device="cpu")
+        if ef:
+            state["ef"] = tree_map(
+                lambda t: torch.zeros(t.shape, dtype=t.dtype),
+                T.state_spec(cfg, ef_pods=case["mesh"][0])["ef"])
+        state = distribute_tree(state, mesh, st_sh)
+        batch = distribute_tree(synth_batch(cfg, shape, 0), mesh, b_sh)
+        sharding.wire.reset()
+        with record_collectives() as ops:
+            step(state, batch)
+        out[case["name"]] = {
+            "ops": [[o.kind, o.dtype, list(o.shape), o.group_size,
+                     o.wire_bytes, o.operand_bytes] for o in ops],
+            "wire": sharding.wire.as_dict()}
+    if args.rank == 0:
+        with open(os.path.join(args.dir, f"wire_{args.world}.json"),
+                  "w") as f:
+            json.dump(out, f)
+
+
 def run_ring(args) -> None:
     import numpy as np
     import torch
@@ -175,7 +229,8 @@ def _killpoint_tool():
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase",
-                    choices=["cases", "ring", "killpoint", "resume"],
+                    choices=["cases", "ring", "wire", "killpoint",
+                             "resume"],
                     required=True)
     ap.add_argument("--rank", type=int, required=True)
     ap.add_argument("--world", type=int, required=True)
@@ -197,6 +252,8 @@ def main() -> int:
     try:
         if args.phase == "cases":
             run_cases(args)
+        elif args.phase == "wire":
+            run_wire(args)
         elif args.phase == "ring":
             run_ring(args)
         else:

@@ -3,6 +3,7 @@
     python3 tools/torch_family_train.py [--arch xlstm-1.3b] [--eager-steps 1]
         [--graph-steps 2] [--ckpt-dir build/family_ckpt]
     python3 tools/torch_family_train.py --arch hymba-1.5b --scan-remat-peak
+    python3 tools/torch_family_train.py --slstm-nodes
 
 Runs ``launch/train.py::train_loop(arch, smoke=False, device="cuda")`` at
 ``FULL_SHAPE`` (4 x 4096 tokens) and full depth, from seed 0 on the
@@ -14,7 +15,10 @@ card's generator, three times:
    saves at step 0 only (``every`` past the run) under ``--ckpt-dir``,
    frames stored raw (``lossless="none"``: zlib would add minutes a save
    at these sizes), a SYNC probe that keeps the state emitted at step 0
-   on the host, and a SYNC profiler window around the last replay (opened
+   on the host (the moments as arrays, every other leaf as a sha256 of
+   its bits, taken one leaf at a time: a full host copy of xlstm-1.3b's
+   48 blocks beside the save's host stages passed the chip machine's 96
+   GiB), and a SYNC profiler window around the last replay (opened
    after the save at the step before, closed when the last step's
    ``grads`` are emitted);
 3. graphed again on the same directory: it must log "resumed from step
@@ -29,13 +33,17 @@ the eager ones bit for bit over the steps both ran; the save launches each
 of kernels 2-4 (``dct_hist_coarse_tiled``, ``hist_refine_tiled``,
 ``threshold_quant``) once a packed group (``ops.GROUP_BYTES``) and kernel
 5 (``dequant_idct``) not at all; the restore launches kernel 5 once a
-moment leaf; no other kernel runs, and the eager run without a save
-launches none (launch counts set to 0 before each run and read after; on
-the CPU, where the plain versions run, every count is 0).
+moment leaf; no other checkpoint kernel runs, and the eager run without a
+save launches none; the sLSTM cell's kernels run in every run of an
+xLSTM arch on the card (forward and backward) and in no other (launch
+counts set to 0 before each run and read after; on the CPU, where the
+plain versions run, every count is 0).
 
 Prints one line ``FAMILY_TRAIN_RESULT {json}``: the card's name and power
 limit, per run its losses, ``step/compute`` seconds and median, peak memory
-(``max_memory_allocated``) and wall; the capture seconds; the profiled
+(``max_memory_allocated``) and wall; the capture seconds (the loop's log
+line, echoed, carries the graph's node count); the host's peak resident
+memory by run; the profiled
 replay's device busy ms, idle share and top ops; model FLOPs a step
 (``roofline.model_flops``) over the median graphed step as a share of 989
 TFLOP/s; the save's groups, launches, loop blocking, raw and stored bytes;
@@ -43,6 +51,12 @@ the restore's launches, seconds and worst moment error. If the card runs
 out of memory, the line carries ``"fault": "out of memory"``, the peak
 and the op (the innermost frame of the port and the allocator's message),
 and the script exits 3; it does not shrink the run.
+
+``--slstm-nodes`` instead captures one sLSTM layer's time loop at full
+width (4 x 4096, bf16), forward and forward + backward, as the fused
+``SLSTMScan`` and as the plain loop under autograd, and prints each
+one's graph nodes and its share of a full-depth train step's graph
+(``SLSTM_NODES {json}``).
 
 ``--scan-remat-peak`` instead takes one eager step of ``--arch`` with the
 SSM scan's per-chunk remat and one without it, and prints each one's
@@ -148,22 +162,36 @@ def checked_groups(rows: list[int], groups: list[list[int]]) -> dict:
     return out
 
 
+#: the kernels of a model's own step (the xLSTM family's sLSTM cell): they
+#: run in every step of that family, outside any checkpoint
+MODEL_KERNELS = ("slstm_cell", "slstm_cell_bwd")
+
+
 def launches() -> dict:
     """Every kernel wrapper's launch count, by name."""
     from repro_torch.kernels import paged_attention as PK
+    from repro_torch.kernels import slstm as SK
     from repro_torch.kernels import spectral_lossy as K
 
     out = {k.__name__: k.launches for k in K.KERNELS}
     out["paged_decode_attention"] = PK.paged_decode_attention.launches
+    out.update({k.__name__: k.launches for k in SK.KERNELS})
     return out
 
 
 def reset_launches() -> None:
     from repro_torch.kernels import paged_attention as PK
+    from repro_torch.kernels import slstm as SK
     from repro_torch.kernels import spectral_lossy as K
 
     K.reset_launches()
+    SK.reset_launches()
     PK.paged_decode_attention.launches = 0
+
+
+def ckpt_launches(got: dict) -> dict:
+    """``got`` without the model's own kernels (:data:`MODEL_KERNELS`)."""
+    return {k: n for k, n in got.items() if k not in MODEL_KERNELS}
 
 
 #: the selectors keep a leaf's dropped energy within eps^2 of its energy
@@ -175,7 +203,8 @@ ENERGY_SLACK_NORM = 1e-15
 
 def check_restored(restored, emitted: dict, what: str) -> dict:
     """A restored state against the host copy emitted at its step, on the
-    card: params and count bitwise; each moment leaf's error norm within
+    card (a leaf kept as a :func:`_digest` against its digest): params and
+    count bitwise; each moment leaf's error norm within
     ``error_bound(EPS)`` of its norm plus :data:`ENERGY_SLACK_NORM`.
     Returns the worst relative error among the leaves of energy above
     the slack and the keys of those below it."""
@@ -188,6 +217,11 @@ def check_restored(restored, emitted: dict, what: str) -> dict:
     bound = ref.error_bound(EPS)
     for path, t in pytree.flatten_with_path(restored):
         key = pytree.keystr(path)
+        if isinstance(emitted[key], str):           # a digest (_Digested)
+            if _digest(t) != emitted[key]:
+                raise AssertionError(f"{what}: restored {key} differs from "
+                                     f"the state emitted at its step")
+            continue
         want = host.to_tensor(np.asarray(emitted[key])).to(t.device)
         if key.startswith("['mu']") or key.startswith("['nu']"):
             w, got = want.float().reshape(-1), t.float().reshape(-1)
@@ -213,6 +247,73 @@ def check_restored(restored, emitted: dict, what: str) -> dict:
                                      f"the state emitted at its step")
         del want
     return {"worst_rel_l2": worst, "below_energy_slack": below}
+
+
+def _digest(t) -> str:
+    """sha256 of a tensor's dtype, shape and bits (one leaf's host copy
+    at a time)."""
+    import hashlib
+    from repro_torch.core import host
+
+    h = hashlib.sha256(f"{t.dtype} {tuple(t.shape)}".encode())
+    h.update(host.to_numpy(t.detach().cpu()).tobytes())
+    return h.hexdigest()
+
+
+class _Digested:
+    """A train state as the probe keeps it: each moment leaf as a pageable
+    host array, every other leaf as :func:`_digest`; the hand-off passes
+    it through untouched (it copies tensor leaves only)."""
+
+    def __init__(self, state):
+        from repro_torch.core import host, pytree
+
+        self.leaves = {}
+        for path, t in pytree.flatten_with_path(state):
+            key = pytree.keystr(path)
+            self.leaves[key] = (host.to_numpy(t.cpu())
+                                if key.startswith(("['mu']", "['nu']"))
+                                else _digest(t))
+
+
+class _RssWatch:
+    """A thread that samples this process's resident host memory twice a
+    second and prints a line, with the current phase, each time it first
+    passes a multiple of ``step_gib``; ``peak`` holds the largest sample
+    by phase."""
+
+    def __init__(self, say, step_gib: float = 8.0):
+        import threading
+
+        self.say, self.step = say, step_gib
+        self.phase, self.peak, self.mark = "start", {}, 0.0
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self) -> None:
+        while not self.stop.wait(0.5):
+            rss = _rss_gib()["VmRSS"]
+            self.peak[self.phase] = max(self.peak.get(self.phase, 0.0), rss)
+            if rss >= self.mark + self.step:
+                self.mark = rss - rss % self.step
+                self.say(f"host RSS {rss} GiB ({self.phase})")
+
+    def close(self) -> dict:
+        self.stop.set()
+        self.thread.join()
+        return self.peak
+
+
+def _rss_gib() -> dict:
+    """This process's resident and peak resident host memory, GiB."""
+    out = {}
+    with open("/proc/self/status") as f:
+        for ln in f:
+            key = ln.split(":")[0]
+            if key in ("VmRSS", "VmHWM"):
+                out[key] = round(int(ln.split()[1]) / 2**20, 2)
+    return out
 
 
 def _profile_ops(prof) -> dict:
@@ -290,6 +391,11 @@ def _free(device: str) -> None:
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+        # the pinned host buffers a run's hand-offs left in the pinned
+        # allocator's cache (tens of GB at full-width xlstm-1.3b)
+        host_empty = getattr(torch._C, "_host_emptyCache", None)
+        if host_empty is not None:
+            host_empty()
 
 
 def run(arch: str, *, eager_steps: int, graph_steps: int, ckpt_dir: str,
@@ -342,12 +448,26 @@ def run(arch: str, *, eager_steps: int, graph_steps: int, ckpt_dir: str,
             shutil.rmtree(d)
     runs: dict = {}
     total: dict = {}                    # launches over the three runs
+    model_runs: dict = {}               # the sLSTM cell's, per run
 
-    def count_launches() -> dict:
+    def echo(lines: list):
+        """The loop's log: kept for the parsers, and shown."""
+        return lambda m: (lines.append(m), say(f"loop: {m}"))
+
+    def count_launches(what: str, backward: bool = True) -> dict:
+        """This run's launches, added to the total; checks the sLSTM
+        cell ran in every step of an xLSTM run on the card (its backward
+        in a train step) and nowhere else. Returns the checkpoint's."""
         got = launches()
         for k, n in got.items():
             total[k] = total.get(k, 0) + n
-        return got
+        model = {k: got[k] for k in MODEL_KERNELS}
+        slstm = on_card and cfg.family == "ssm"
+        if (model["slstm_cell"] > 0) != slstm or (
+                model["slstm_cell_bwd"] > 0) != (slstm and backward):
+            raise AssertionError(f"{what}: sLSTM launches {model}")
+        model_runs[what] = model
+        return ckpt_launches(got)
 
     def ckpt_task(directory, trigger):
         return TaskSpec(name="checkpoint", stream="train_state",
@@ -373,6 +493,7 @@ def run(arch: str, *, eager_steps: int, graph_steps: int, ckpt_dir: str,
 
     # 1. eager: no in-situ task, or the same save as the graphed run's
     _free(device)
+    rss = _RssWatch(say) if on_card else None
     reset_launches()
     lines: list = []
     t0 = time.perf_counter()
@@ -383,9 +504,9 @@ def run(arch: str, *, eager_steps: int, graph_steps: int, ckpt_dir: str,
                                             Every(eager_steps + 1))]
                            if save_eager else []),
                        device=device, seed=0, cuda_graph=False,
-                       log=lines.append)
+                       log=echo(lines))
     runs["eager"] = _run_row(out, t0, lines, device)
-    got = count_launches()
+    got = count_launches("eager")
     if save_eager:
         check_save("eager", out["session_report"]["checkpoint"], got)
         runs["eager"]["save_launches"] = got
@@ -402,8 +523,8 @@ def run(arch: str, *, eager_steps: int, graph_steps: int, ckpt_dir: str,
     last = graph_steps - 1
 
     def keep(step, payload):
-        emitted.update({pytree.keystr(p): np.asarray(a) for p, a in
-                        pytree.flatten_with_path(payload)})
+        emitted.update(payload.leaves)
+        say(f"probe at step {step}: host RSS {_rss_gib()}")
 
     def open_window(step, _payload):
         _sync(device)
@@ -418,8 +539,13 @@ def run(arch: str, *, eager_steps: int, graph_steps: int, ckpt_dir: str,
 
     plan = InSituPlan(streams=["grads", "train_state"], tasks=[
         ckpt_task(ckpt_dir, Every(graph_steps + 1)),
+        # not through the hand-off's pinned buffers (the whole state,
+        # 21.6 GB at xlstm-1.3b's 48 blocks, beside the save's): params
+        # and count as digests of their bits, the moments copied leaf by
+        # leaf into pageable host memory
         TaskSpec(name="probe", stream="train_state", trigger=When(
-            lambda st: st == 0), placement=Placement.SYNC, sink=keep),
+            lambda st: st == 0), placement=Placement.SYNC, sink=keep,
+            device_stage=lambda step, st: _Digested(st)),
         TaskSpec(name="window_open", stream="train_state", trigger=When(
             lambda st: st == last - 1), placement=Placement.SYNC,
             sink=open_window),
@@ -429,12 +555,15 @@ def run(arch: str, *, eager_steps: int, graph_steps: int, ckpt_dir: str,
     _free(device)
     reset_launches()
     lines = []
+    if rss is not None:
+        rss.phase = "graphed"
     t0 = time.perf_counter()
     out = T.train_loop(arch, smoke=smoke, steps=graph_steps, plan=plan,
                        device=device, seed=0, cuda_graph=True,
-                       log=lines.append)
+                       log=echo(lines))
     runs["graph"] = g = _run_row(out, t0, lines, device)
-    save_launches = count_launches()
+    save_launches = count_launches("graph")
+    g["host_rss_gib"] = _rss_gib()
     ck = out["session_report"]["checkpoint"]
     g["save_blocking_s"] = ckpt_blocking_s(out["telemetry"])
     del out
@@ -478,7 +607,7 @@ def run(arch: str, *, eager_steps: int, graph_steps: int, ckpt_dir: str,
             start, state = inner(template, step, **kw)
             _sync(device)
             restore["restore_s"] = time.perf_counter() - t0
-            restore["launches"] = launches()
+            restore["launches"] = ckpt_launches(launches())
             restore.update(check_restored(state, emitted,
                                           f"{tag} step {start}"))
             kept.update({keys[j]: emitted[keys[j]]
@@ -493,11 +622,14 @@ def run(arch: str, *, eager_steps: int, graph_steps: int, ckpt_dir: str,
     _free(device)
     reset_launches()
     lines = []
+    if rss is not None:
+        rss.phase = "resume"
     t0 = time.perf_counter()
     out = T.train_loop(arch, smoke=smoke, steps=1, plan=resume_plan,
                        device=device, seed=0, cuda_graph=resume_graph,
-                       log=lines.append, on_session=on_session)
+                       log=echo(lines), on_session=on_session)
     runs["resume"] = _run_row(out, t0, lines, device)
+    runs["resume"]["host_rss_gib"] = _rss_gib()
     del out
     if "resumed from step 0" not in lines:
         raise AssertionError(f"no 'resumed from step 0' in {lines}")
@@ -506,7 +638,7 @@ def run(arch: str, *, eager_steps: int, graph_steps: int, ckpt_dir: str,
     if restore["launches"] != want:
         raise AssertionError(f"restore launches {restore['launches']} != "
                              f"{want}")
-    got = count_launches()
+    got = count_launches("resume")
     if got != want:
         raise AssertionError(f"resume run launches {got} != {want}")
     say(f"resumed from step 0: restore {restore['restore_s']:.2f} s, params "
@@ -535,10 +667,13 @@ def run(arch: str, *, eager_steps: int, graph_steps: int, ckpt_dir: str,
         f"{shape.global_batch} x {shape.seq_len}), over the graphed median "
         f"{g['step_median_s']:.4f} s: {share:.4f} of 989 TFLOP/s bf16")
     shutil.rmtree(ckpt_dir, ignore_errors=True)
+    host_peak = rss.close() if rss is not None else None
     return {"arch": arch, "n_layers": cfg.n_layers,
+            "host_rss_peak_gib": host_peak,
             "params": P_lib.param_count(transformer.param_spec(cfg)),
             "runs": runs, "save": save, "restore": restore,
-            "launches": total, "kernel_check": checks,
+            "launches": total, "model_launches": model_runs,
+            "kernel_check": checks,
             "model_flops": flops, "model_flops_share_of_bf16_peak": share}
 
 
@@ -587,6 +722,77 @@ def scan_remat_peak(arch: str = "hymba-1.5b") -> dict:
     return out
 
 
+def _capture_nodes(fn) -> int:
+    """Nodes of ``fn()`` captured in a CUDA graph (after one eager call on
+    a side stream, as ``core/graphs.py`` warms up)."""
+    import torch
+    from repro_torch.core.graphs import graph_nodes
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    n = graph_nodes(graph)
+    del graph
+    torch.cuda.synchronize()
+    return n
+
+
+def slstm_nodes(arch: str = "xlstm-1.3b") -> dict:
+    """Graph nodes of one sLSTM layer's time loop at ``arch``'s full width
+    and ``FULL_SHAPE`` (bf16), forward alone and forward + backward,
+    captured as ``SLSTMScan`` and as the plain loop under autograd
+    (``slstm_loop``: the loop the port ran before the cell kernels); and
+    each form's share of a full-depth train step's graph: its sLSTM layers
+    x (two forwards, the remat's recompute being the second, + one
+    backward)."""
+    import torch
+    from repro_torch.configs import base as configs
+    from repro_torch.launch import train as T
+    from repro_torch.models import xlstm as X
+
+    cfg = configs.get(arch)
+    b, l = T.FULL_SHAPE.global_batch, T.FULL_SHAPE.seq_len
+    d, nh = cfg.d_model, cfg.n_heads
+    dh = d // nh
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    gx = torch.randn((b, l, 4 * d), generator=gen, device=dev)
+    rg = (torch.randn((4, nh, dh, dh), generator=gen, device=dev)
+          * dh ** -0.5).to(torch.bfloat16)
+    z = torch.zeros((b, nh, dh), device=dev)
+    h0 = z.to(torch.bfloat16)
+    layers = cfg.n_layers // cfg.xlstm.slstm_every
+    out: dict = {"layers": layers}
+    for name in ("scan", "loop"):
+        def run(grad: bool, name=name):
+            g = gx.clone().requires_grad_(grad)
+            r = X._recurrent_weights(rg.clone().requires_grad_(grad))
+            if name == "scan":
+                h = X.SLSTMScan.apply(g, r, z, z, z - 1e30, h0)[0]
+            else:
+                h = X.slstm_loop(cfg, g, r, {"c": z, "n": z, "m": z - 1e30,
+                                             "h": h0})[0]
+            if grad:
+                torch.autograd.grad(h.float().sum(), [g, r])
+        t0 = time.perf_counter()
+        fwd = _capture_nodes(lambda: run(False))
+        both = _capture_nodes(lambda: run(True))
+        out[name] = {"forward": fwd, "forward_backward": both,
+                     "train_step_share": layers * (fwd + both),
+                     "capture_s": time.perf_counter() - t0}
+        print(f"sLSTM nodes, {name}: {out[name]}", flush=True)
+        _free("cuda")
+    out["ratio"] = (out["scan"]["train_step_share"]
+                    / out["loop"]["train_step_share"])
+    return out
+
+
 def _find_oom(exc: BaseException):
     """The out-of-memory error in ``exc``'s chain, or None: the
     allocator's, or the CUDA runtime's ``cudaErrorMemoryAllocation`` (a
@@ -619,6 +825,9 @@ def main() -> int:
     ap.add_argument("--graph-steps", type=int, default=2)
     ap.add_argument("--ckpt-dir", default=os.path.join(
         ROOT, "build", "family_ckpt"))
+    ap.add_argument("--slstm-nodes", action="store_true",
+                    help="instead: the graph nodes of one sLSTM layer's "
+                         "time loop, fused and plain (SLSTM_NODES {json})")
     ap.add_argument("--scan-remat-peak", action="store_true",
                     help="instead: one eager step of --arch with and "
                          "without the SSM scan's per-chunk remat, and "
@@ -633,6 +842,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     result: dict = {"card": card()}
     print(result["card"], flush=True)
+    if args.slstm_nodes:
+        result.update(slstm_nodes(args.arch))
+        print("SLSTM_NODES " + json.dumps(result), flush=True)
+        return 0
     if args.scan_remat_peak:
         result.update(scan_remat_peak(args.arch))
         print("SCAN_REMAT_PEAK " + json.dumps(result), flush=True)
