@@ -55,7 +55,7 @@ class CapturedStep:
 
     ``warmup`` (default ``body``) runs :data:`WARMUP_STEPS` times on a
     side stream before the capture: a body that updates state in place
-    passes its functional form there, so that warming up advances
+    passes a form that writes nothing there, so that warming up advances
     nothing a caller reads (a serving engine's warm-up, with every row
     idle, writes only the scratch page and idle rows' state, which an
     admission overwrites whole; a step with no pool and no kernel, the

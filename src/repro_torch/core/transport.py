@@ -208,38 +208,46 @@ def pack_payload(obj: Any, *, codec: str = "zlib",
     """
     blobs: list[bytes] = []
     pool = codecs.codec_pool() if parallel else None
-
-    def strip(x: Any) -> Any:
-        if x is None or isinstance(x, (bool, int, float, str)):
-            return x
-        if isinstance(x, np.generic):
-            return x.item()
-        if isinstance(x, (bytes, bytearray, memoryview)):
-            blobs.append(bytes(x))
-            return {"__bytes__": len(blobs) - 1}
-        if isinstance(x, torch.Tensor):
-            x = host.to_numpy(x.cpu())
-        if hasattr(x, "dtype") and hasattr(x, "shape"):
-            blobs.append(codecs.encode(np.asarray(x), codec, pool=pool)[0])
-            return {"__tensor__": len(blobs) - 1}
-        if dataclasses.is_dataclass(x) and not isinstance(x, type):
-            return {"__dataclass__": type(x).__name__,
-                    "fields": {f.name: strip(getattr(x, f.name))
-                               for f in dataclasses.fields(x)}}
-        if isinstance(x, dict):
-            return {str(k): strip(v) for k, v in x.items()}
-        if isinstance(x, (list, tuple)):
-            return [strip(v) for v in x]
-        raise TypeError(
-            f"cannot pack payload leaf of type {type(x).__name__} "
-            "(supported: scalars, str, bytes, arrays, dict/list/tuple, "
-            "dataclasses)")
-
-    skeleton = json.dumps(strip(obj)).encode()
+    skeleton = json.dumps(_strip(obj, blobs, codec, pool)).encode()
     parts = [struct.pack("<II", len(skeleton), len(blobs)), skeleton,
              struct.pack(f"<{len(blobs)}q", *(len(b) for b in blobs))]
     parts.extend(blobs)
     return b"".join(parts)
+
+
+# The payload walks recurse through module-level functions: a nested
+# function that calls itself is a reference cycle (it holds its own
+# closure cell), which would keep a frame's blobs alive until the garbage
+# collector runs.
+
+def _strip(x: Any, blobs: list, codec: str, pool) -> Any:
+    """``x`` as JSON-able skeleton, its array and bytes leaves appended to
+    ``blobs`` (arrays framed with ``codec``)."""
+    if x is None or isinstance(x, (bool, int, float, str)):
+        return x
+    if isinstance(x, np.generic):
+        return x.item()
+    if isinstance(x, (bytes, bytearray, memoryview)):
+        blobs.append(bytes(x))
+        return {"__bytes__": len(blobs) - 1}
+    if isinstance(x, torch.Tensor):
+        x = host.to_numpy(x.cpu())
+    if hasattr(x, "dtype") and hasattr(x, "shape"):
+        blobs.append(codecs.encode(np.asarray(x), codec, pool=pool)[0])
+        return {"__tensor__": len(blobs) - 1}
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return {"__dataclass__": type(x).__name__,
+                "fields": {f.name: _strip(getattr(x, f.name), blobs, codec,
+                                          pool)
+                           for f in dataclasses.fields(x)}}
+    if isinstance(x, dict):
+        return {str(k): _strip(v, blobs, codec, pool) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_strip(v, blobs, codec, pool) for v in x]
+    raise TypeError(
+        f"cannot pack payload leaf of type {type(x).__name__} "
+        "(supported: scalars, str, bytes, arrays, dict/list/tuple, "
+        "dataclasses)")
 
 
 def unpack_payload(data: bytes, *, parallel: bool = True) -> Any:
@@ -256,22 +264,23 @@ def unpack_payload(data: bytes, *, parallel: bool = True) -> Any:
         blobs.append(bytes(view[off:off + size]))
         off += size
     pool = codecs.codec_pool() if parallel else None
+    return _rebuild(skeleton, blobs, pool)
 
-    def build(x: Any) -> Any:
-        if isinstance(x, dict):
-            if "__tensor__" in x and len(x) == 1:
-                return codecs.decode(blobs[x["__tensor__"]], pool=pool)
-            if "__bytes__" in x and len(x) == 1:
-                return blobs[x["__bytes__"]]
-            if "__dataclass__" in x and "fields" in x:
-                return {"__dataclass__": x["__dataclass__"],
-                        "fields": build(x["fields"])}
-            return {k: build(v) for k, v in x.items()}
-        if isinstance(x, list):
-            return [build(v) for v in x]
-        return x
 
-    return build(skeleton)
+def _rebuild(x: Any, blobs: list, pool) -> Any:
+    """The payload tree of skeleton ``x`` over ``blobs``."""
+    if isinstance(x, dict):
+        if "__tensor__" in x and len(x) == 1:
+            return codecs.decode(blobs[x["__tensor__"]], pool=pool)
+        if "__bytes__" in x and len(x) == 1:
+            return blobs[x["__bytes__"]]
+        if "__dataclass__" in x and "fields" in x:
+            return {"__dataclass__": x["__dataclass__"],
+                    "fields": _rebuild(x["fields"], blobs, pool)}
+        return {k: _rebuild(v, blobs, pool) for k, v in x.items()}
+    if isinstance(x, list):
+        return [_rebuild(v, blobs, pool) for v in x]
+    return x
 
 
 # ---------------------------------------------------------------------------

@@ -27,18 +27,29 @@ sharding hints; the port places tensors explicitly.
 What XLA's partitioner inserts in the JAX package's sharded step, the
 port issues itself (the last section): :func:`gather_full` and
 :func:`local_shard` move a leaf between its DTensor shard and the whole
-tensor, over :func:`all_gather`, :func:`all_reduce` and
-:func:`ring_shift`. Those pick their path by the group's backend name on
-every call: NCCL takes device tensors as they are; gloo takes host
-tensors, so a device tensor is staged through a host buffer there (two
-processes on one card cannot share an NCCL group). :data:`wire` counts
-the bytes handed to the backend and the bytes staged.
+tensor, over :func:`all_gather`, :func:`all_reduce`,
+:func:`reduce_scatter` and :func:`ring_shift`. Those pick their path by
+the group's backend name on every call: NCCL takes device tensors as
+they are; gloo takes host tensors, so a device tensor is staged through a
+host buffer there (two processes on one card cannot share an NCCL
+group). :data:`wire` counts the bytes handed to the backend and the bytes
+staged.
+
+:class:`BlockGather` is what the sharded step hands the model in place
+of whole parameters: each :class:`ShardedLeaf` (a rank's shard of a
+leaf, or of one layer's slice of a stacked leaf) becomes the whole
+tensor only where the model asks for it, inside a block's remat region,
+and its gradient comes back as the rank's shard: reduce-scattered over
+the mesh dims that split the rows, chunked over those that only shard
+the leaf.
 
 Rule sets are small data, so per-arch overrides and variants are plain
 dicts.
 """
 from __future__ import annotations
 
+import functools
+import math
 from dataclasses import dataclass
 from typing import Any, Mapping, Sequence
 
@@ -282,8 +293,9 @@ class WireStats:
 wire = WireStats(("sent", "staged"))
 
 #: callables ``(kind, operand, group_size)`` told of every collective this
-#: process issues, before it is issued (``kind``: all-gather, all-reduce or
-#: collective-permute): the dry run's record
+#: process issues, before it is issued (``kind``: all-gather, all-reduce,
+#: reduce-scatter or collective-permute; a reduce-scatter's operand is its
+#: result, one rank's chunk): the dry run's record
 #: (``roofline/analysis.py::record_collectives``)
 observers: list = []
 
@@ -361,6 +373,65 @@ def all_reduce(t, op: str, group):
     return _from_wire(buf, t.device, staged)
 
 
+@dataclass(frozen=True)
+class _Shaped:
+    """What an observer reads of an operand, without a tensor (a
+    reduce-scatter is observed by its result, made later)."""
+    shape: tuple
+    dtype: Any
+    itemsize: int
+
+    def element_size(self) -> int:
+        return self.itemsize
+
+
+def _reduce_scatter_single(out, src, group) -> None:
+    import torch.distributed as dist
+
+    # torch 2.13 names it reduce_scatter_single and warns (FutureWarning)
+    # on reduce_scatter_tensor, which is the only name in torch 2.11
+    fn = getattr(dist, "reduce_scatter_single", None)
+    if fn is None:
+        fn = dist.reduce_scatter_tensor
+    fn(out, src, group=group)
+
+
+def reduce_scatter(t, group, dim: int = 0):
+    """A new tensor: this rank's chunk along ``dim`` (its group rank's, as
+    ``chunk`` numbers them) of the sum of ``t`` over ``group``. On gloo,
+    :func:`all_reduce` of the staged tensor, then the chunk, bit for bit
+    (gloo's own reduce-scatter splits the leading dim only, and sums
+    another dim's chunks in another order); the bytes staged and sent are
+    a reduce-scatter's: the whole tensor out, the chunk back."""
+    import torch
+    import torch.distributed as dist
+
+    n = dist.get_world_size(group)
+    if t.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split "
+                         f"over {n} ranks")
+    shape = list(t.shape)
+    shape[dim] //= n
+    _observe("reduce-scatter", _Shaped(tuple(shape), t.dtype,
+                                       t.element_size()), group)
+    if dist.get_backend(group) == "gloo":
+        src, staged = _to_wire(group, t)
+        buf = src if staged else src.clone()
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+        wire.add("sent", buf.numel() * buf.element_size())
+        i = dist.get_group_rank(group, dist.get_rank())
+        out = buf.chunk(n, dim)[i].clone(
+            memory_format=torch.contiguous_format)
+        return _from_wire(out, t.device, staged)
+    x = t.movedim(dim, 0) if dim else t
+    src, staged = _to_wire(group, x)
+    out = torch.empty((src.shape[0] // n,) + tuple(src.shape[1:]),
+                      dtype=src.dtype, device=src.device)
+    _reduce_scatter_single(out, src, group)
+    wire.add("sent", src.numel() * src.element_size())
+    return out.movedim(0, dim).contiguous() if dim else out
+
+
 def ring_shift(t, group):
     """One ring hop on ``group``: ``t`` goes to group rank ``(i + 1) % n``;
     returns what group rank ``(i - 1) % n`` sent."""
@@ -410,3 +481,168 @@ def local_shard(full, placements: Sequence, mesh):
         if pl.is_shard() and sizes[i] > 1:
             out = out.chunk(sizes[i], dim=pl.dim)[coord[i]]
     return out
+
+
+# ---------------------------------------------------------------------------
+# parameters gathered where the model uses them
+# ---------------------------------------------------------------------------
+
+class ShardedLeaf:
+    """A rank's shard of a parameter leaf, or of one layer's slice of a
+    stacked one, handed to the model in place of the whole tensor.
+
+    ``local`` is the shard (a view of the leaf's local tensor),
+    ``placements`` its DTensor placements (a stacked leaf's shard dims,
+    shifted past the layer indices taken), ``key`` the leaf's place in
+    flatten order, ``index`` the layer indices taken and ``offset`` the
+    start of a range taken along the next layer axis. Indexing takes
+    along the leading layer axes, which no rule shards (``layers``:
+    None), as the model takes a block from a stacked tree."""
+
+    __slots__ = ("local", "placements", "key", "index", "offset")
+
+    def __init__(self, local, placements: Sequence, key: int,
+                 index: tuple = (), offset: int = 0):
+        self.local, self.placements = local, tuple(placements)
+        self.key, self.index, self.offset = key, index, offset
+
+    @property
+    def shape(self):
+        return self.local.shape
+
+    def __getitem__(self, i):
+        from torch.distributed.tensor import Shard
+
+        if any(pl.is_shard() and pl.dim == 0 for pl in self.placements):
+            raise ValueError(f"leaf {self.key}: its leading axis is "
+                             f"sharded, not a layer axis")
+        if isinstance(i, slice):
+            start, _, step = i.indices(self.local.shape[0])
+            if step != 1:
+                raise ValueError("a layer range takes every layer")
+            return ShardedLeaf(self.local[i], self.placements, self.key,
+                               self.index, self.offset + start)
+        if not 0 <= i < self.local.shape[0]:
+            raise IndexError(i)
+        pls = tuple(Shard(pl.dim - 1) if pl.is_shard() else pl
+                    for pl in self.placements)
+        return ShardedLeaf(self.local[i], pls, self.key,
+                           self.index + (self.offset + i,))
+
+
+@functools.cache
+def _gather_leaves():
+    """The autograd Function of :meth:`BlockGather.__call__`, made on first
+    use (the rules above need no torch)."""
+    import torch
+
+    class GatherLeaves(torch.autograd.Function):
+        """Forward: each shard whole (:func:`gather_full`). Backward: each
+        whole gradient as the shard's (:meth:`BlockGather.reduce`)."""
+
+        @staticmethod
+        def forward(ctx, gather, shards, *locals_):
+            ctx.gather, ctx.shards = gather, shards
+            out = []
+            for t, s in zip(locals_, shards):
+                w = gather_full(t, s.placements, gather.mesh)
+                # a shard that is only reduced is its whole tensor
+                out.append(t.view_as(t) if w is t else w)
+            return tuple(out)
+
+        @staticmethod
+        def backward(ctx, *grads):
+            gather, shards = ctx.gather, ctx.shards
+            return (None, None) + tuple(gather.reduce(g, s)
+                                        for g, s in zip(grads, shards))
+
+    return GatherLeaves
+
+
+class BlockGather:
+    """``gather(tree) -> tree``: each :class:`ShardedLeaf` of ``tree`` as
+    the whole tensor, every other leaf as it is; what the sharded step
+    hands the model (``transformer.forward``'s ``gather``).
+
+    Autograd sees one leaf a shard (:meth:`leaf`: made on first use and
+    reused, so that a block's remat recompute gathers the same leaf
+    again), and gradients come back as the shard's, mesh dim by mesh dim
+    in :func:`local_shard`'s order (:meth:`reduce`):
+
+    * a dim of ``exact_dims`` (it splits the rows: the gradient is a mean
+      over its ranks) that shards the leaf: :func:`reduce_scatter` in f32;
+    * a dim of ``exact_dims`` that does not shard it: :func:`all_reduce`
+      in f32;
+    * a dim that shards the leaf but does not split the rows ('model'):
+      the rank's chunk, no collective;
+    * any other dim (one of size 1, 'pod' under the pod ring): nothing.
+
+    The sum is divided by the ranks of ``exact_dims`` once and cast back
+    to the gradient's dtype: the mean that the JAX package's partitioner
+    takes. A shard that no dim of more than one rank shards or reduces is
+    the whole tensor already and bypasses the gather. ``on_whole(shard,
+    grad)``, where given, is told of each gathered gradient before it is
+    reduced: the whole gradient of that shard's slice where no dim splits
+    the rows."""
+
+    def __init__(self, mesh, exact_dims: Sequence[int] = (),
+                 on_whole=None):
+        self.mesh = mesh
+        self.sizes = tuple(int(s) for s in mesh.mesh.shape)
+        self.coord = mesh.get_coordinate()
+        self.exact = frozenset(i for i in exact_dims if self.sizes[i] > 1)
+        self.scale = math.prod(self.sizes[i] for i in self.exact)
+        self.on_whole = on_whole
+        #: ``(key, index) -> `` the autograd leaf of that shard
+        self.leaves: dict = {}
+
+    def moves(self, shard: ShardedLeaf) -> bool:
+        """Whether a collective or a chunk touches ``shard``'s leaf."""
+        return any(self.sizes[i] > 1 and (pl.is_shard() or i in self.exact)
+                   for i, pl in enumerate(shard.placements))
+
+    def leaf(self, shard: ShardedLeaf):
+        key = (shard.key, shard.index)
+        t = self.leaves.get(key)
+        if t is None:
+            t = shard.local.detach().requires_grad_(True)
+            self.leaves[key] = t
+        return t
+
+    def __call__(self, tree: PyTree) -> PyTree:
+        from repro_torch.core.pytree import flatten_with_path, keystr, \
+            unflatten_like
+
+        flat = flatten_with_path(tree)
+        out = {keystr(p): (self.leaf(v) if isinstance(v, ShardedLeaf)
+                           else v) for p, v in flat}
+        moved = [(keystr(p), v) for p, v in flat
+                 if isinstance(v, ShardedLeaf) and self.moves(v)]
+        if moved:
+            shards = [s for _, s in moved]
+            whole = _gather_leaves().apply(self, shards,
+                                           *[out[k] for k, _ in moved])
+            for (k, _), w in zip(moved, whole):
+                out[k] = w
+        return unflatten_like(tree, out, "gathered tree")
+
+    def reduce(self, g, shard: ShardedLeaf):
+        """The gradient of ``shard`` from ``g``, its whole tensor's."""
+        if self.on_whole is not None:
+            self.on_whole(shard, g)
+        out, fresh = g, False
+        for i, pl in enumerate(shard.placements):
+            if self.sizes[i] == 1:
+                continue
+            group = self.mesh.get_group(i)
+            if i in self.exact:
+                x = out.float()
+                out = (reduce_scatter(x, group, pl.dim) if pl.is_shard()
+                       else all_reduce(x, "sum", group))
+                fresh = True
+            elif pl.is_shard():
+                out = out.chunk(self.sizes[i], dim=pl.dim)[self.coord[i]]
+        if self.exact:
+            return (out / self.scale).to(g.dtype)
+        # a chunk is a view: a copy lets the whole gradient go
+        return out if fresh else out.clone()

@@ -3,6 +3,7 @@
     PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch A]
         [--shape S] [--mesh single|multi|both]
         [--grad-compress none|bf16|int8] [--rules default|pure_dp]
+        [--moe-grouped [--n-groups N]] [--tag T]
 
 For each cell this driver, on one process that plays rank 0 of the
 production mesh and needs no card:
@@ -29,7 +30,13 @@ production mesh and needs no card:
    makes it to the moment Python and autograd let it go); and the
    structural memory model's bytes (``roofline/memory_model.py``);
 5. writes ``roofline.analysis.analyze``'s report, with those, to
-   ``artifacts/dryrun_torch/<arch>__<shape>__<mesh>.json``.
+   ``artifacts/dryrun_torch/<arch>__<shape>__<mesh>[__<tag>].json``.
+
+``--moe-grouped`` lowers the MoE archs with grouped dispatch
+(``MoEConfig.grouped_dispatch``, ``--n-groups`` groups a chunk), as the
+JAX package's option does: ``run_cell``'s ``cfg_overrides`` takes
+``moe_*`` keys into ``cfg.moe`` and the rest into the config, and
+``tag`` names the variant's report.
 
 A lowering that raises is a FAIL; so is a per-rank peak above the card's
 80 GB ("over memory"), as an out-of-memory at compile is in the JAX
@@ -51,6 +58,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import math
 import time
@@ -352,15 +360,33 @@ class OverMemory(RuntimeError):
     """A cell whose per-rank peak does not fit the card."""
 
 
+def override(cfg: configs.ModelConfig, cfg_overrides: dict | None
+             ) -> configs.ModelConfig:
+    """``cfg`` with ``cfg_overrides``: a ``moe_<field>`` key sets that
+    field of ``cfg.moe`` (ignored for an arch without MoE), any other key
+    the config's own field."""
+    if not cfg_overrides:
+        return cfg
+    moe_kw = {k[4:]: v for k, v in cfg_overrides.items()
+              if k.startswith("moe_")}
+    top = {k: v for k, v in cfg_overrides.items()
+           if not k.startswith("moe_")}
+    if moe_kw and cfg.moe is not None:
+        top["moe"] = dataclasses.replace(cfg.moe, **moe_kw)
+    return dataclasses.replace(cfg, **top)
+
+
 def run_cell(arch: str, shape_name: str, multi_pod: bool, *,
-             grad_compress: str = "none", rules=None) -> dict:
+             grad_compress: str = "none", rules=None,
+             cfg_overrides: dict | None = None, tag: str = "") -> dict:
     """Lower one cell on the production mesh (``launch/mesh.py::
-    make_production_mesh``) and write its report (module docstring).
-    Raises :class:`OverMemory` (after writing the report) when the
-    per-rank peak exceeds the card's memory."""
+    make_production_mesh``) of ``arch``'s config with ``cfg_overrides``
+    (:func:`override`) and write its report (module docstring; ``tag``
+    suffixes its name). Raises :class:`OverMemory` (after writing the
+    report) when the per-rank peak exceeds the card's memory."""
     from repro_torch.serving import kvcache
 
-    cfg = configs.get(arch)
+    cfg = override(configs.get(arch), cfg_overrides)
     shape = configs.SHAPES[shape_name]
     rec = lower_cell(
         cfg, shape, math.prod(mesh_lib.production_geometry(multi_pod)[0]),
@@ -388,9 +414,11 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, *,
         note=rec["note"])
     out = json.loads(report.to_json())
     out.update(lower_s=rec["lower_s"], depth=rec["depth"],
-               grad_compress=grad_compress, n_layers=cfg.n_layers)
+               grad_compress=grad_compress, n_layers=cfg.n_layers, tag=tag)
     ARTIFACTS.mkdir(parents=True, exist_ok=True)
-    path = ARTIFACTS / f"{arch}__{shape.name}__{mesh_desc(sizes)}.json"
+    suffix = f"__{tag}" if tag else ""
+    path = (ARTIFACTS
+            / f"{arch}__{shape.name}__{mesh_desc(sizes)}{suffix}.json")
     path.write_text(json.dumps(out, indent=1))
     if not fits:
         raise OverMemory(f"over memory: per-rank peak {rec['peak_bytes']:,} "
@@ -409,8 +437,17 @@ def main() -> None:
                     choices=["none", "bf16", "int8"])
     ap.add_argument("--rules", default="default",
                     choices=list(sharding.RULE_SETS))
+    ap.add_argument("--moe-grouped", action="store_true",
+                    help="grouped MoE dispatch (MoEConfig.grouped_dispatch)")
+    ap.add_argument("--n-groups", type=int, default=16,
+                    help="dispatch groups a chunk under --moe-grouped")
+    ap.add_argument("--tag", default="",
+                    help="suffix of each report's file name")
     args = ap.parse_args()
     rules = sharding.RULE_SETS[args.rules]
+    overrides = ({"moe_grouped_dispatch": True,
+                  "moe_n_groups": args.n_groups}
+                 if args.moe_grouped else None)
 
     archs = [args.arch] if args.arch else list(configs.ARCH_IDS)
     meshes = {"single": [False], "multi": [True],
@@ -427,7 +464,8 @@ def main() -> None:
                 try:
                     out = run_cell(arch, shape_name, multi,
                                    grad_compress=args.grad_compress,
-                                   rules=rules)
+                                   rules=rules, cfg_overrides=overrides,
+                                   tag=args.tag)
                     mem = out["memory_per_device_bytes"]
                     print(f"OK   {desc}: step={out['step_s'] * 1e3:.2f}ms "
                           f"bottleneck={out['bottleneck']} "

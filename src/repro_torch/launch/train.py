@@ -53,27 +53,42 @@ The sharded step: :func:`jit_train_step` steps a state of DTensors
 placed under :func:`state_shardings` — parameters and moments FSDP over
 'data', TP/EP over 'model', replicated over 'pod' — with the batch's rows
 over ('pod', 'data'), one process a mesh device. It runs eagerly, with no
-collective inside a CUDA graph. Each step gathers every parameter whole
-(the same leaf order on every rank), takes loss and gradients by autograd
-on the rank's rows, averages the gradients over the mesh dims that split
-the rows, takes the global norm once and runs AdamW on the rank's own
-shards of params, moments and masters. With ``grad_compress`` other than
-``none`` and more than one pod, each pod's gradient is exact within the
-pod and crosses the pods through ``optim/grad_compress.py``'s ring with
-error feedback (the residual in the state's ``ef``, its leading axis
-over 'pod'), the embedding gathers hoisted out and reduced exactly, as
-the JAX package's ``_pod_ring_grads`` does. The collectives stage
-through host buffers on a gloo group, so two processes can share one
-card (``distributed/sharding.py``). :func:`gather_state` gathers a
-sharded state whole on every rank (what a save emits).
+collective inside a CUDA graph. The model gets each rank's shards
+(``distributed/sharding.py::ShardedLeaf``) and a ``BlockGather``: the
+leaves outside the block stacks (``embed``, ``final_norm``, MTP) are
+gathered whole before the forward, as the JAX package's are; each block
+is gathered whole inside its remat region (``models/transformer.py::
+_run_blocks``), so a whole block lives only during its forward and its
+recompute in the backward. Autograd's leaves are the shards, and each
+gradient comes back as the rank's shard: summed in f32 and
+reduce-scattered over the mesh dims that split the rows (all-reduced
+where a dim splits the rows but not the leaf), divided by their ranks,
+chunked over 'model'. No whole list of parameters or gradients exists.
+The global norm sums each leaf's squares layer by layer in flatten
+order (``optim/adamw.py::global_norm``'s order, which the one-device
+step shares): where no dim splits the rows every rank squares each
+whole gradient before it takes its shard, so (1, 2) is the one-device
+step bit for bit; elsewhere each shard is counted once and the sums are
+all-reduced. AdamW then runs in place on the rank's own shards of
+params, moments and masters (``optim.adamw.update_``). With
+``grad_compress`` other than ``none`` and more than one pod, each pod's
+gradient is exact within the pod and crosses the pods through
+``optim/grad_compress.py``'s ring with error feedback (the residual in
+the state's ``ef``, its leading axis over 'pod'), the embedding gathers
+hoisted out and reduced exactly, as the JAX package's
+``_pod_ring_grads`` does. The collectives stage through host buffers on
+a gloo group, so two processes can share one card
+(``distributed/sharding.py``). :func:`gather_state` gathers a sharded
+state whole on every rank (what a save emits).
 
-What the sharded step does not do yet: it holds every parameter and
-every gradient whole on each rank during the step (gradients are reduced
-whole, then sliced), so it shards the state between steps but neither
-the step's peak memory nor its matmuls. A model whose parameters and
-gradients do not fit one device does not train this way (ROADMAP).
+What the sharded step does not do yet: split the compute over 'model'.
+Each rank computes every row of its ('pod', 'data') slice on whole
+blocks (tensor, expert and vocabulary parallelism are the next slice,
+ROADMAP item 5.3), so 'model' shards memory but not matmuls.
 ``StepConfig`` has no ``remat``: the JAX package's field is read
-nowhere; remat follows ``cfg.remat``.
+nowhere; remat follows ``cfg.remat``. Every config has it on; without
+it (the dry run's tests lower the step so, for fewer ops) autograd keeps
+each gathered block for the backward, a whole copy of the blocks.
 """
 from __future__ import annotations
 
@@ -248,7 +263,8 @@ def _loss_grads_lr(cfg: configs.ModelConfig, step_cfg: StepConfig,
         total=step_cfg.lr_total)
     ostate = optim.AdamWState(state["count"], state["mu"], state["nu"],
                               state.get("master"))
-    return loss, grads, lr, optim.adamw.global_norm(grads), ostate
+    gnorm = optim.adamw.global_norm(grads, transformer.layer_depths(cfg))
+    return loss, grads, lr, gnorm, ostate
 
 
 def make_train_step(cfg: configs.ModelConfig, step_cfg: StepConfig
@@ -328,6 +344,13 @@ class ShardedTrainStep:
         self.pod_dim = (self.names.index("pod") if "pod" in self.names
                         else None)
         self.ring_probe: Optional[Callable] = None
+        flat = flatten_with_path(transformer.param_spec(cfg))
+        #: per parameter leaf in flatten order: its whole shape, its
+        #: leading layer axes, and whether a block stack holds it
+        self.shapes = [tuple(spec.shape) for _, spec in flat]
+        self.depths = leaves(transformer.layer_depths(cfg))
+        self.in_blocks = [k for k, (path, _) in enumerate(flat)
+                          if path[0] in transformer.BLOCK_STACKS]
 
     # -- collectives over mesh dims ------------------------------------------
 
@@ -370,19 +393,21 @@ class ShardedTrainStep:
 
     # -- the step --------------------------------------------------------------
 
-    def _grads(self, params: PyTree, keys: list, full: list, rows: dict
-               ) -> tuple[torch.Tensor, list, dict]:
-        """Loss and gradients of this rank's rows; under the pod ring
-        also the cotangents of the hoisted embedding gathers."""
+    def _grads(self, params: PyTree, by_key: dict, gather, rows: dict
+               ) -> tuple[torch.Tensor, dict, dict]:
+        """Loss and gradients of this rank's rows: ``{(leaf, layer
+        index): gradient}`` of each autograd leaf of ``gather`` (its shard
+        of a leaf or of a block's slice of one); under the pod ring also
+        the cotangents of the hoisted embedding gathers. ``by_key``: the
+        model's leaves by key, a block stack's as ``ShardedLeaf``."""
         cfg = self.cfg
-        live = {k: t.detach().requires_grad_(True)
-                for k, t in zip(keys, full)}
-        tree = unflatten_like(params, live, "params")
+        tree = unflatten_like(params, by_key, "params")
         if not self.use_ring:
-            loss = transformer.train_loss(tree, cfg, rows)
-            return loss, list(torch.autograd.grad(loss, list(live.values()))
-                              ), {}
-        table = live[EMBED_KEY].detach()
+            loss = transformer.train_loss(tree, cfg, rows, gather=gather)
+            ids = list(gather.leaves)
+            return loss, dict(zip(ids, torch.autograd.grad(
+                loss, [gather.leaves[i] for i in ids]))), {}
+        table = by_key[EMBED_KEY].detach()
         tok = rows["tokens"].long()
         hoisted = {"h0": table[tok]}
         if cfg.family == "moe" and cfg.mtp_weight > 0:
@@ -392,12 +417,14 @@ class ShardedTrainStep:
         mtp_pre = ((hoisted["mtp_cur"], hoisted["mtp_emb"])
                    if "mtp_cur" in hoisted else None)
         loss = transformer.train_loss(tree, cfg, rows, h0=hoisted["h0"],
-                                      mtp_pre=mtp_pre, gather_free=True)
+                                      mtp_pre=mtp_pre, gather_free=True,
+                                      gather=gather)
+        ids = list(gather.leaves)
         outs = torch.autograd.grad(
-            loss, list(live.values()) + list(hoisted.values()),
+            loss, [gather.leaves[i] for i in ids] + list(hoisted.values()),
             materialize_grads=True)
-        return (loss, list(outs[:len(live)]),
-                dict(zip(hoisted, outs[len(live):])))
+        return (loss, dict(zip(ids, outs[:len(ids)])),
+                dict(zip(hoisted, outs[len(ids):])))
 
     def _gather_cotangent(self, dgath: dict, rows: dict, shape: tuple,
                           row_dims) -> torch.Tensor:
@@ -415,6 +442,55 @@ class ShardedTrainStep:
         return self._sum(demb, row_dims) / math.prod(
             self.sizes[i] for i in row_dims)
 
+    def _first_layer(self, k: int, index: tuple) -> int:
+        """The flat (row-major) number of the first layer of leaf ``k``'s
+        slice at ``index``."""
+        shape, depth = self.shapes[k], self.depths[k]
+        flat = 0
+        for i, n in zip(index, shape):
+            flat = flat * n + i
+        return flat * math.prod(shape[len(index):depth])
+
+    def _squares(self, table: dict, k: int, index: tuple, g) -> None:
+        """Leaf ``k``'s per-layer sums of squares from ``g``, the whole
+        gradient of its slice at ``index``, into ``table`` by ``(k, flat
+        layer)``. A block's slice is summed as a slice of the one-device
+        step's stacked gradient is (contiguous)."""
+        first = self._first_layer(k, index)
+        x = g.contiguous() if index else g
+        for j, sq in enumerate(optim.adamw.layer_square_sums(
+                x, self.depths[k] - len(index))):
+            table[(k, first + j)] = sq
+
+    def _owns(self, pls: tuple) -> bool:
+        """Whether this rank's shard of a leaf placed so is the one counted
+        in the global norm: the first of the ranks that hold it."""
+        coord = self.mesh.get_coordinate()
+        return all(coord[i] == 0 for i, pl in enumerate(pls)
+                   if self.sizes[i] > 1 and not pl.is_shard())
+
+    def _stack(self, grads: dict, locs: list) -> list:
+        """Each leaf's gradient from its slices' (``(leaf, layer index) ->
+        gradient``, emptied on the way): a stacked leaf's in layer
+        order."""
+        by_leaf: list = [dict() for _ in locs]
+        for (k, index), g in grads.items():
+            by_leaf[k][index] = g
+        grads.clear()
+        out = []
+        for k, loc in enumerate(locs):
+            parts, by_leaf[k] = by_leaf[k], None
+            if () in parts:
+                out.append(parts.pop(()))
+                continue
+            n = math.prod(self.shapes[k][:self.depths[k]])
+            if len(parts) != n:
+                raise RuntimeError(f"leaf {k}: {len(parts)} of its {n} "
+                                   f"layers have a gradient")
+            out.append(torch.stack([parts[i] for i in sorted(parts)])
+                       .reshape(loc.shape))
+        return out
+
     def __call__(self, state: dict, batch: dict) -> tuple[dict, dict]:
         import torch.distributed as dist
 
@@ -423,10 +499,8 @@ class ShardedTrainStep:
         flat = flatten_with_path(params)
         keys = [keystr(p) for p, _ in flat]
         pls = [tuple(t.placements) for _, t in flat]
-        shapes = [tuple(t.shape) for _, t in flat]
-        # every parameter whole, in one leaf order on every rank
-        full = [sharding.gather_full(t.to_local(), pl, mesh)
-                for (_, t), pl in zip(flat, pls)]
+        locs = [t.to_local() for _, t in flat]
+        del flat
         rows = {k: v.to_local() for k, v in batch.items()}
         row_dims = [i for i, pl in enumerate(batch["tokens"].placements)
                     if pl.is_shard() and self.sizes[i] > 1]
@@ -438,19 +512,33 @@ class ShardedTrainStep:
         # under the ring ('model' replicates the rows: never reduced)
         exact_dims = [i for i in row_dims
                       if not (self.use_ring and i == self.pod_dim)]
-        loss, grads, dgath = self._grads(params, keys, full, rows)
-        del full
+        # where no dim splits the rows, every rank sees each slice's whole
+        # gradient (the one-device step's) before it takes its shard, and
+        # squares it there for the norm
+        squares = None if row_dims else {}
+        on_whole = (None if squares is None else
+                    lambda s, g: self._squares(squares, s.key, s.index, g))
+        gather = sharding.BlockGather(mesh, exact_dims, on_whole=on_whole)
+        shards = [sharding.ShardedLeaf(t, pl, k)
+                  for k, (t, pl) in enumerate(zip(locs, pls))]
+        # the leaves outside the block stacks are gathered here, whole for
+        # the step; a block's inside its remat region (``_run_blocks``)
+        outside = [k for k in range(len(keys)) if k not in self.in_blocks]
+        by_key = {keys[k]: shards[k] for k in self.in_blocks}
+        by_key.update(zip((keys[k] for k in outside),
+                          gather([shards[k] for k in outside])))
+        loss, grads, dgath = self._grads(params, by_key, gather, rows)
+        del by_key, shards
+        if squares is not None:
+            # the leaves that no collective touched: whole here
+            for (k, index), g in grads.items():
+                if (k, self._first_layer(k, index)) not in squares:
+                    self._squares(squares, k, index, g)
+        del gather
         loss = self._mean(loss.detach().float(), row_dims)
-        grads = [self._mean(g, exact_dims) for g in grads]
+        local = self._stack(grads, locs)
         new_res = None
-        if not self.use_ring:
-            # every rank holds the whole gradient: its norm, then its shards
-            gnorm = optim.adamw.global_norm(grads)
-            local = [sharding.local_shard(g, pl, mesh)
-                     for g, pl in zip(grads, pls)]
-        else:
-            local = [sharding.local_shard(g, pl, mesh)
-                     for g, pl in zip(grads, pls)]
+        if self.use_ring:
             ef = state.get("ef")
             if ef is not None:
                 local = grad_compress.ef_pre(
@@ -465,19 +553,26 @@ class ShardedTrainStep:
                 new_res = [r[None] for r in
                            grad_compress.ef_post(local, reduced)]
             i = keys.index(EMBED_KEY)
-            demb = self._gather_cotangent(dgath, rows, shapes[i], row_dims)
+            demb = self._gather_cotangent(dgath, rows, self.shapes[i],
+                                          row_dims)
             reduced[i] = (reduced[i].float() + sharding.local_shard(
                 demb, pls[i], mesh)).to(reduced[i].dtype)
             local = reduced
-            # shards: each counted once over the world, which holds it
-            # world / (full / shard) times
-            world = mesh.size()
-            sq = sum(torch.sum(torch.square(g.float()))
-                     * (math.prod(full_shape) / (g.numel() * world))
-                     for g, full_shape in zip(local, shapes))
+        if squares is not None:
+            gnorm = torch.sqrt(optim.adamw.sum_squares(
+                [[squares[(k, j)] for j in range(
+                    math.prod(self.shapes[k][:self.depths[k]]))]
+                 for k in range(len(keys))]))
+        else:
+            # each shard counted once, by the first rank that holds it
+            sq = optim.adamw.sum_squares(
+                [optim.adamw.layer_square_sums(g, self.depths[k])
+                 if self._owns(pls[k]) else [] for k, g in enumerate(local)])
+            if not torch.is_tensor(sq):
+                sq = torch.zeros((), dtype=torch.float32,
+                                 device=local[0].device)
             gnorm = torch.sqrt(sharding.all_reduce(sq, "sum",
                                                    dist.group.WORLD))
-        del grads
         count = state["count"].to_local()
         step_cfg = self.step_cfg
         lr = optim.schedules.warmup_cosine(
@@ -488,14 +583,9 @@ class ShardedTrainStep:
         ostate = optim.AdamWState(count, loc(state["mu"]), loc(state["nu"]),
                                   loc(master) if master is not None
                                   else None)
-        new_p, new_o = optim.update(local, ostate, loc(params),
-                                    step_cfg.opt, lr=lr, gnorm=gnorm)
-        self._write(params, new_p)
-        self._write(state["mu"], new_o.mu)
-        self._write(state["nu"], new_o.nu)
-        self._write(state["count"], [new_o.count])
-        if new_o.master is not None:
-            self._write(master, new_o.master)
+        # into the state's own tensors, one leaf at a time
+        optim.adamw.update_(local, ostate, locs, step_cfg.opt, lr=lr,
+                            gnorm=gnorm)
         if new_res is not None:
             self._write(state["ef"], new_res)
         new_state = dict(state)
@@ -567,17 +657,24 @@ def graph_train_step(cfg: configs.ModelConfig, step_cfg: StepConfig,
     ``batch`` gives the static batch buffers their shapes and dtypes;
     each ``step(batch)`` copies its batch (host arrays or tensors of the
     same shapes) into them before the replay. The warm-up runs the
-    functional step on a side stream and drops its outputs, so it
-    advances nothing. ``metrics`` are the graph's static outputs: the
-    next step overwrites them.
+    step's arithmetic on a side stream, each leaf's update dropped as it
+    is made (``optim.adamw.dry_update``), so it advances nothing and
+    holds no second state (21.6 GB at full-width xlstm-1.3b, beside a
+    restored state and its allocator's leftovers). ``metrics`` are the
+    graph's static outputs: the next step overwrites them.
     """
     dev = host.resolve_device(leaves(state)[0].device)
     static = {k: torch.as_tensor(v).to(dev, copy=True)
               for k, v in batch.items()}
-    fn = make_train_step(cfg, step_cfg)
     body = inplace_train_step(cfg, step_cfg, state)
-    graph = CapturedStep(lambda: body(static),
-                         warmup=lambda: fn(state, static), device=dev)
+
+    def warmup() -> None:
+        _, grads, lr, gnorm, ostate = _loss_grads_lr(cfg, step_cfg, state,
+                                                     static)
+        optim.adamw.dry_update(grads, ostate, state["params"],
+                               step_cfg.opt, lr=lr, gnorm=gnorm)
+
+    graph = CapturedStep(lambda: body(static), warmup=warmup, device=dev)
 
     def step(batch: dict) -> dict:
         if batch.keys() != static.keys():

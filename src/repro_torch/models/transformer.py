@@ -18,6 +18,12 @@ package's ``lax.scan``), recomputing each block in the backward pass when
 ``cfg.remat`` (its ``jax.checkpoint``). Attention is the plain chunked
 ``flash_attention``: the training path has no TPU kernel to port, so
 PyTorch autograd differentiates it.
+
+The sharded train step passes the stacks of :data:`BLOCK_STACKS` as a
+rank's shards with a ``gather`` callable (``distributed/sharding.py::
+BlockGather``): each block is gathered whole inside the function that
+``checkpoint`` recomputes, so a whole block lives only during its
+forward and its recompute.
 """
 from __future__ import annotations
 
@@ -45,6 +51,11 @@ PyTree = Any
 #: the families whose backbone is the dense stack (audio and vlm add a
 #: training-time prefix of frontend embeddings, and nothing else)
 DENSE_FAMILIES = ("dense", "audio", "vlm")
+
+#: the parameter tree's stacks that the forward runs one block at a time
+#: (``_run_blocks``); every other leaf is used whole
+BLOCK_STACKS = ("blocks", "dense_blocks", "moe_blocks", "global_blocks",
+                "swa_blocks", "super")
 
 
 # ---------------------------------------------------------------------------
@@ -164,6 +175,19 @@ def check_family(cfg: ModelConfig) -> None:
             f"'Other model families')")
 
 
+def layer_depths(cfg: ModelConfig) -> dict:
+    """The number of leading ``layers`` axes of each parameter leaf (2 for
+    xLSTM's mLSTM stack, 1 for another stacked leaf, 0 for a whole one),
+    in the parameter tree's structure."""
+    def depth(s: ParamSpec) -> int:
+        n = 0
+        while n < len(s.axes) and s.axes[n] == "layers":
+            n += 1
+        return n
+
+    return tree_map(depth, param_spec(cfg))
+
+
 def param_spec(cfg: ModelConfig) -> dict:
     check_family(cfg)
     spec: dict = {"embed": embed_spec(cfg.padded_vocab, cfg.d_model,
@@ -231,14 +255,20 @@ def hybrid_block(p, x: torch.Tensor, cfg: ModelConfig, positions, *,
     return x + mlp(p["mlp"], xn)
 
 
-def _run_blocks(stacked, h: torch.Tensor, cfg: ModelConfig, body, aux):
+def _run_blocks(stacked, h: torch.Tensor, cfg: ModelConfig, body, aux,
+                gather=None):
     """One block per layer of a stacked tree; ``body(x, p) -> (x, aux)``,
-    ``aux`` None for a block that has none. Under grad with ``cfg.remat`` each block is recomputed in the backward
-    pass (the JAX package's ``jax.checkpoint`` per block)."""
+    ``aux`` None for a block that has none. Under grad with ``cfg.remat``
+    each block is recomputed in the backward pass (the JAX package's
+    ``jax.checkpoint`` per block). ``gather`` (the sharded step's
+    ``BlockGather``, ``stacked`` then a tree of a rank's shards) makes a
+    block whole inside the recomputed function; without remat, autograd
+    keeps the gathered block for the backward."""
     n = leaves(stacked)[0].shape[0]
     for i in range(n):
         p_i = tree_map(lambda t: t[i], stacked)
-        fn = lambda x, p_i=p_i: body(x, p_i)
+        fn = lambda x, p_i=p_i: body(x, p_i if gather is None
+                                     else gather(p_i))
         if cfg.remat and torch.is_grad_enabled():
             # the block draws no random numbers; saving the RNG state
             # would read the CUDA generator, which a graph capture refuses
@@ -253,7 +283,7 @@ def _run_blocks(stacked, h: torch.Tensor, cfg: ModelConfig, body, aux):
 
 def forward(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor, *,
             prefix_embeds: Optional[torch.Tensor] = None,
-            h0: Optional[torch.Tensor] = None):
+            h0: Optional[torch.Tensor] = None, gather=None):
     """tokens: (B, S_tok) int. Returns (logits, aux_loss, loss_mask).
 
     A frontend arch given ``prefix_embeds`` (B, S_pre, d_model) runs them
@@ -261,7 +291,9 @@ def forward(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor, *,
     mask zero over the prefix. Any other arch ignores them, as the JAX
     package does. ``h0`` (optional) is the tokens' embedding computed
     outside: the sharded step's pod ring hoists the embedding gather out
-    of the loss and reduces its cotangent exactly.
+    of the loss and reduces its cotangent exactly. ``gather``: the
+    stacks of :data:`BLOCK_STACKS` are a rank's shards, each block made
+    whole by ``gather`` where it runs (``_run_blocks``).
 
     The JAX package's ``bspec`` (a sharding hint on the activations) has
     no counterpart: the sharded step places tensors itself and runs this
@@ -278,24 +310,25 @@ def forward(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor, *,
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     dense = lambda x, p: (dense_block(p, x, cfg, positions), None)
     if cfg.family in DENSE_FAMILIES:
-        h, _ = _run_blocks(params["blocks"], h, cfg, dense, aux)
+        h, _ = _run_blocks(params["blocks"], h, cfg, dense, aux, gather)
     elif cfg.family == "hybrid":
-        h = _hybrid_forward(params, cfg, h, positions)
+        h = _hybrid_forward(params, cfg, h, positions, gather)
     elif cfg.family == "ssm":
-        h = _xlstm_forward(params, cfg, h)
+        h = _xlstm_forward(params, cfg, h, gather)
     else:
         if cfg.moe.first_dense:
-            h, _ = _run_blocks(params["dense_blocks"], h, cfg, dense, aux)
+            h, _ = _run_blocks(params["dense_blocks"], h, cfg, dense, aux,
+                               gather)
         h, aux = _run_blocks(params["moe_blocks"], h, cfg,
                              lambda x, p: moe_block(p, x, cfg, positions),
-                             aux)
+                             aux, gather)
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
     logits = unembed(params["embed"], h, cfg.vocab_size)
     return logits, aux, loss_mask
 
 
 def _hybrid_forward(params: PyTree, cfg: ModelConfig, h: torch.Tensor,
-                    positions) -> torch.Tensor:
+                    positions, gather=None) -> torch.Tensor:
     """Global (full-attention) and SWA blocks in layer order, a run of
     one kind at a time (``hymba.layer_runs``)."""
     for is_g, first, count in hymba.layer_runs(cfg):
@@ -305,12 +338,12 @@ def _hybrid_forward(params: PyTree, cfg: ModelConfig, h: torch.Tensor,
         h, _ = _run_blocks(
             part, h, cfg,
             lambda x, p, window=window: (hybrid_block(
-                p, x, cfg, positions, window=window), None), None)
+                p, x, cfg, positions, window=window), None), None, gather)
     return h
 
 
-def _xlstm_forward(params: PyTree, cfg: ModelConfig,
-                   h: torch.Tensor) -> torch.Tensor:
+def _xlstm_forward(params: PyTree, cfg: ModelConfig, h: torch.Tensor,
+                   gather=None) -> torch.Tensor:
     """Each super-block's mLSTM layers, then its sLSTM layer, each block
     recomputed in the backward pass under ``cfg.remat``."""
     sup = params["super"]
@@ -318,23 +351,25 @@ def _xlstm_forward(params: PyTree, cfg: ModelConfig,
     slstm = lambda x, p: (xlstm_lib.slstm_mixer(p, x, cfg)[0], None)
     for i in range(leaves(sup["slstm"])[0].shape[0]):
         h, _ = _run_blocks(tree_map(lambda t: t[i], sup["mlstm"]), h, cfg,
-                           mlstm, None)
+                           mlstm, None, gather)
         h, _ = _run_blocks(tree_map(lambda t: t[i:i + 1], sup["slstm"]), h,
-                           cfg, slstm, None)
+                           cfg, slstm, None, gather)
     return h
 
 
 def train_loss(params: PyTree, cfg: ModelConfig, batch: dict, *,
                h0: Optional[torch.Tensor] = None,
                mtp_pre: Optional[tuple] = None,
-               gather_free: bool = False) -> torch.Tensor:
+               gather_free: bool = False, gather=None) -> torch.Tensor:
     """The masked mean token cross-entropy (+ MTP, + MoE aux). ``h0`` and
     ``mtp_pre`` (``(cur, emb)``, the MTP head's embeddings of the tokens
     and the labels) are embedding gathers made outside, and
     ``gather_free`` picks :func:`cross_entropy`'s gather-free gold logit:
-    the sharded step's pod ring passes all three."""
+    the sharded step's pod ring passes all three. ``gather``: as
+    :func:`forward`'s."""
     logits, aux, mask = forward(params, cfg, batch["tokens"],
-                                prefix_embeds=batch.get("prefix"), h0=h0)
+                                prefix_embeds=batch.get("prefix"), h0=h0,
+                                gather=gather)
     labels = batch["labels"]
     # with a modality prefix the hidden sequence is longer than the token
     # sequence: left-pad the labels (and any user mask) over the prefix,

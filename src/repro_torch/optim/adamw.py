@@ -51,9 +51,34 @@ def init(params: PyTree, cfg: AdamWConfig) -> AdamWState:
                       master)
 
 
-def global_norm(tree: PyTree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                          for x in leaves(tree)))
+def layer_square_sums(x: torch.Tensor, depth: int = 0) -> list:
+    """The f32 sum of squares of each slice of ``x`` along its leading
+    ``depth`` (layer) axes, in row-major order; of all ``x`` at depth 0.
+    The squares are taken over the whole leaf at once (one f32 leaf
+    alive, as a whole-leaf sum has), then summed slice by slice."""
+    sq = torch.square(x.to(torch.float32))
+    if not depth:
+        return [torch.sum(sq)]
+    return [torch.sum(p) for p in
+            sq.reshape((-1,) + tuple(x.shape[depth:])).unbind(0)]
+
+
+def sum_squares(sums: list) -> torch.Tensor:
+    """The total of per-leaf lists of :func:`layer_square_sums`, leaf by
+    leaf in order, each leaf's slices in order: the one order in which
+    the one-device and the sharded steps add them up."""
+    return sum(sum(leaf) for leaf in sums)
+
+
+def global_norm(tree: PyTree, depths: Optional[PyTree] = None
+                ) -> torch.Tensor:
+    """The L2 norm over every leaf of ``tree``; ``depths`` (a tree of ints,
+    ``transformer.layer_depths``) sums a stacked leaf slice by slice, layer
+    by layer, as the sharded step sums a block's gradient."""
+    xs = leaves(tree)
+    ds = leaves(depths) if depths is not None else [0] * len(xs)
+    return torch.sqrt(sum_squares([layer_square_sums(x, d)
+                                   for x, d in zip(xs, ds)]))
 
 
 def _leaf_update(cfg: AdamWConfig, clip, c1, c2, lr, p, g, m, v, pm):
@@ -147,3 +172,16 @@ def update_(grads: PyTree, state: AdamWState, params: PyTree,
                 dst.copy_(src)
         del new
     state.count.copy_(count)
+
+
+@torch.no_grad()
+def dry_update(grads: PyTree, state: AdamWState, params: PyTree,
+               cfg: AdamWConfig, lr: Optional[torch.Tensor] = None, *,
+               gnorm: Optional[torch.Tensor] = None) -> None:
+    """:func:`update_`'s arithmetic, each leaf's new tensors dropped as
+    they are made: nothing is written, and one leaf's new tensors are
+    alive at a time (a captured step's warm-up, which must advance
+    nothing, runs it in place of :func:`update`'s second state)."""
+    _, each = _each_leaf(grads, state, params, cfg, lr, gnorm)
+    for _ in each:
+        pass

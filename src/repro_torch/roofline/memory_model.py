@@ -11,10 +11,12 @@ summed op bytes stay in the report as ``hlo_memory_s``. The formula is
 the JAX package's, term for term.
 
 It assumes compute split over 'model' (``P_use / TP``, ``vocab / TP``), as
-XLA's partitioner splits it. The port's sharded step does not do that
-yet: each rank gathers whole parameters and computes every row of its
-('pod', 'data') slice (ROADMAP queue 1, item 5.3's open part), so on a
-mesh with 'model' > 1 the model is below what the port's step moves.
+XLA's partitioner splits it. The port's sharded step shards its memory
+(each block gathered inside its remat region, its gradient
+reduce-scattered into the rank's shard) but not its compute yet: each
+rank computes every row of its ('pod', 'data') slice on whole blocks
+(ROADMAP queue 1, item 5.3's compute over 'model'), so on a mesh with
+'model' > 1 the model is below what the port's step moves.
 
 Terms (per device):
   train:   state shards r/w (params, mu, nu, grads)            8 x P/chips

@@ -407,3 +407,100 @@ def test_over_memory_is_a_failure_with_its_bytes(tmp_path, monkeypatch):
     assert mem["fits"] is False and mem["peak_bytes"] > 1e9
     assert rep["hlo_flops_per_device"] > 0 and rep["depth"] == "full"
     assert "replicas" in rep["note"]
+
+
+# ---------------------------------------------------------------------------
+# the sharded step's memory, the reference's options
+# ---------------------------------------------------------------------------
+
+#: the growth check's mesh: 'data' > 1 splits the rows and shards the
+#: parameters, as FSDP does
+GROWTH_MESH = ((4, 1), ("data", "model"))
+TINY = tbase.ShapeConfig("tiny", "train", 64, 2)
+
+
+def _block_param_bytes(cfg) -> int:
+    """The bytes of one block of ``cfg``'s ``blocks`` stack, whole."""
+    from repro_torch.core.pytree import leaves
+    from repro_torch.models import transformer
+
+    return sum(math.prod(s.shape[1:]) * s.dtype.itemsize
+               for s in leaves(transformer.param_spec(cfg)["blocks"]))
+
+
+def test_sharded_step_peak_grows_by_a_blocks_share_only():
+    """Full-width smollm-135m at 4 and 8 blocks, lowered on a (4, 1) mesh
+    of a fake world at 2 x 64 tokens: each added block raises the
+    per-rank peak by less than its whole parameters plus gradients (7.08
+    MB each). It adds a quarter of the block's parameters, moments and
+    gradient (measured 7.08 MB a block, the state's own growth 5.31 MB);
+    gathering every block whole before the forward and reducing whole
+    gradients added 17.7 MB a block."""
+    peaks = {}
+    for n in (4, 8):
+        cfg = dataclasses.replace(tbase.get("smollm-135m"), n_layers=n)
+        assert cfg.remat
+        peaks[n] = D.lower_cell(
+            cfg, TINY, math.prod(GROWTH_MESH[0]),
+            functools.partial(mesh_lib.make_mesh, *GROWTH_MESH))["peak_bytes"]
+    per_block = (peaks[8] - peaks[4]) / 4
+    assert 0 < per_block < 2 * _block_param_bytes(cfg), (peaks, per_block)
+
+
+def test_dry_run_lowers_grouped_moonshot(tmp_path, monkeypatch):
+    """``run_cell(cfg_overrides=, tag=)`` as the JAX package's: the
+    ``moe_*`` keys reach ``cfg.moe`` (every MoE layer lowered runs grouped
+    dispatch with 16 groups), another key the config (2 of moonshot's 48
+    layers), the tag the report's name. train_4k's logits alone (16 x
+    4096 rows of a 163,840-entry vocabulary a rank, f32) put the cell
+    over the card's memory at any depth: the report is written first."""
+    from repro_torch.models import moe as moe_lib
+
+    monkeypatch.setattr(D, "ARTIFACTS", tmp_path)
+    seen = []
+    moe_ffn = moe_lib.moe_ffn
+    monkeypatch.setattr(moe_lib, "moe_ffn", lambda p, x, cfg, *a, **k: (
+        seen.append((cfg.moe.grouped_dispatch, cfg.moe.n_groups)),
+        moe_ffn(p, x, cfg, *a, **k))[1])
+    try:
+        D.run_cell("moonshot-v1-16b-a3b", "train_4k", False,
+                   cfg_overrides={"moe_grouped_dispatch": True,
+                                  "moe_n_groups": 16, "n_layers": 2},
+                   tag="grouped")
+    except D.OverMemory:
+        pass
+    rep = json.loads((tmp_path / "moonshot-v1-16b-a3b__train_4k__16x16"
+                                 "__grouped.json").read_text())
+    assert rep["tag"] == "grouped" and rep["n_layers"] == 2
+    assert rep["hlo_flops_per_device"] > 0
+    # every call: the forward and the remat recompute of the one MoE
+    # layer, in the first depth variant's lowering and the full depth's
+    assert seen == [(True, 16)] * 4, seen
+    dense = D.override(tbase.get("smollm-135m"), {"moe_n_groups": 4,
+                                                  "n_layers": 3})
+    assert dense.moe is None and dense.n_layers == 3
+
+
+def test_dry_run_cli_passes_the_grouped_options(monkeypatch, capsys):
+    got = []
+
+    def run_cell(arch, shape, multi, **kw):
+        got.append((arch, shape, multi, kw))
+        return {"step_s": 1.0, "bottleneck": "compute",
+                "roofline_fraction": 0.5, "hlo_flops_per_device": 1.0,
+                "wire_bytes_per_device": 0.0,
+                "memory_per_device_bytes": {"peak_bytes": 1e9},
+                "lower_s": 0.0, "depth": "full"}
+
+    monkeypatch.setattr(D, "run_cell", run_cell)
+    monkeypatch.setattr(sys, "argv", [
+        "dryrun", "--arch", "moonshot-v1-16b-a3b", "--shape", "train_4k",
+        "--mesh", "single", "--moe-grouped", "--n-groups", "8", "--tag",
+        "g8"])
+    D.main()
+    assert len(got) == 1
+    _, _, multi, kw = got[0]
+    assert not multi and kw["tag"] == "g8"
+    assert kw["cfg_overrides"] == {"moe_grouped_dispatch": True,
+                                   "moe_n_groups": 8}
+    assert "all dry-run cells passed" in capsys.readouterr().out

@@ -89,6 +89,32 @@ def test_master_weights_allow_tiny_updates():
     np.testing.assert_array_equal(runs["torch"][1], runs["jax"][1])
 
 
+@pytest.mark.parametrize("master", [False, True])
+def test_dry_update_writes_nothing_and_update_in_place_matches(master):
+    """``dry_update`` (a captured train step's warm-up) leaves params,
+    moments, masters and count as they were; ``update_`` then writes the
+    bits that ``update`` returns."""
+    gen = torch.Generator().manual_seed(0)
+    cfg = TO.AdamWConfig(lr=1e-2, master_weights=master)
+    params = {"a": torch.randn(3, 4, generator=gen).to(torch.bfloat16),
+              "b": {"c": torch.randn(5, generator=gen)}}
+    grads = {"a": torch.randn(3, 4, generator=gen).to(torch.bfloat16),
+             "b": {"c": torch.randn(5, generator=gen)}}
+    st_ = TO.update(grads, TO.init(params, cfg), params, cfg)[1]
+    flat = lambda *trees: [t.clone() for tr in trees
+                           for t in TO.adamw.leaves(tr)]
+    before = flat(params, st_.mu, st_.nu, st_.master or {}, st_.count)
+    TO.adamw.dry_update(grads, st_, params, cfg)
+    after = flat(params, st_.mu, st_.nu, st_.master or {}, st_.count)
+    assert all(torch.equal(x, y) for x, y in zip(before, after))
+    new_p, new_st = TO.update(grads, st_, params, cfg)
+    TO.adamw.update_(grads, st_, params, cfg)
+    assert all(torch.equal(x, y) for x, y in zip(
+        flat(new_p, new_st.mu, new_st.nu, new_st.master or {},
+             new_st.count),
+        flat(params, st_.mu, st_.nu, st_.master or {}, st_.count)))
+
+
 def test_grad_clip():
     j = float(JO.adamw.global_norm({"x": jnp.asarray([100.0, 0.0])}))
     t = float(TO.adamw.global_norm({"x": torch.tensor([100.0, 0.0])}))

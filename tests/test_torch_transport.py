@@ -295,6 +295,34 @@ def test_bf16_leaf_wire_equal_across_packages():
     assert _wire_of(TT, {"x": t}) == _wire_of(JT, {"x": j})
 
 
+@pytest.mark.parametrize("parallel", [False, True])
+def test_a_dropped_payload_frees_its_leaves_without_the_collector(parallel):
+    """A packed and unpacked payload leaves no reference cycle behind: with
+    the garbage collector off, the unpacked arrays die with the payload,
+    and a collection afterwards finds nothing that the round trip left
+    (a walk that calls itself through its own closure keeps the frame's
+    blobs until the collector runs). After one round trip first: the
+    codec pool's threads start on the first."""
+    import gc
+    import weakref
+
+    tree = dict(_tree(), t=torch.arange(64, dtype=torch.float32))
+    TT.unpack_payload(TT.pack_payload(tree, parallel=parallel),
+                      parallel=parallel)
+    gc.collect()
+    gc.disable()
+    try:
+        data = TT.pack_payload(tree, parallel=parallel)
+        got = TT.unpack_payload(data, parallel=parallel)
+        refs = [weakref.ref(got[k]) for k in ("w", "ints", "t")]
+        np.testing.assert_array_equal(got["t"], tree["t"].numpy())
+        del got, data
+        assert [r for r in refs if r() is not None] == []
+        assert gc.collect() == 0
+    finally:
+        gc.enable()
+
+
 @pytest.mark.parametrize("direction", ["port_to_jax", "jax_to_port"])
 def test_frames_and_control_cross_packages(direction):
     """One package's sink, the other's source: payloads decode equal, the

@@ -8,6 +8,8 @@
         --dir DIR --cases CASES.json
     python tests/torch_shard_ranks.py --phase killpoint|resume --rank R \\
         --world W --dir DIR [--device cpu|cuda] [--layers N]
+    python tests/torch_shard_ranks.py --phase scatter|remat --rank R \\
+        --world W --dir DIR
 
 ``cases``: each case of ``CASES.json`` whose mesh has W devices
 (``{"name", "arch", "mesh", "axes", "method", "steps", "step"}``, the
@@ -33,6 +35,19 @@ seed-0 state, under ``roofline.analysis.record_collectives`` with
 ``sharding.wire`` counted from 0; rank 0 writes ``DIR/wire_<W>.json``
 (per case the recorded collectives and the wire counts), which
 ``tests/test_torch_dryrun.py`` holds the dry run's lowering to.
+
+``scatter``: ``sharding.reduce_scatter`` of seeded f32 tensors (this
+rank's seed) along dims 0 and 1 over a one-axis mesh of the world,
+against ``all_reduce`` then ``local_shard``, under
+``record_collectives`` and ``sharding.wire``; each rank writes
+``DIR/scatter_<W>_rank<R>.json``.
+
+``remat``: one ``CHECK_STEP`` step of the smollm smoke config on each
+mesh of :data:`REMAT_MESHES` with the world's size, from the seed-0
+state, with ``remat`` on and off (on: each block gathered again in the
+backward's recompute; off: kept for the backward); rank 0 writes
+``DIR/remat_<W>.json``: whether the states, losses and norms are equal
+bit for bit, and each run's collectives by kind.
 
 ``killpoint`` (a world of 4, a (2, 2) mesh) and ``resume`` (a world of 2)
 are the two halves of ``tools/torch_fault_killpoint.py``'s scenario
@@ -191,6 +206,91 @@ def run_wire(args) -> None:
             json.dump(out, f)
 
 
+def run_scatter(args) -> None:
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import Shard
+    from repro_torch.distributed import sharding
+    from repro_torch.roofline.analysis import record_collectives
+
+    w = args.world
+    mesh = DeviceMesh("cpu", torch.arange(w), mesh_dim_names=("data",))
+    gen = torch.Generator().manual_seed(args.rank)
+    out = {}
+    for name, shape, dim in (("rows", (4 * w, 6), 0),
+                             ("cols", (3, 2 * w, 5), 1),
+                             ("large", (40000 * w,), 0)):
+        x = torch.randn(shape, generator=gen) * torch.exp(
+            4 * torch.randn(shape, generator=gen))
+        sharding.wire.reset()
+        with record_collectives() as ops:
+            got = sharding.reduce_scatter(x, dist.group.WORLD, dim)
+        sent = sharding.wire.bytes["sent"]
+        want = sharding.local_shard(
+            sharding.all_reduce(x, "sum", dist.group.WORLD), (Shard(dim),),
+            mesh)
+        out[name] = {
+            "equal": bool(torch.equal(got, want)),
+            "shape": list(got.shape), "want_shape": list(want.shape),
+            "contiguous": got.is_contiguous(),
+            "ops": [[o.kind, list(o.shape), o.group_size, o.operand_bytes]
+                    for o in ops],
+            "sent": sent, "input_bytes": x.numel() * x.element_size()}
+    with open(os.path.join(args.dir, f"scatter_{w}_rank{args.rank}.json"),
+              "w") as f:
+        json.dump(out, f)
+
+
+#: the ``remat`` phase's meshes over ('data', 'model'), by world size
+REMAT_MESHES = {2: ((2, 1), (1, 2)), 4: ((2, 2),)}
+
+
+def run_remat(args) -> None:
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.configs import base as configs
+    from repro_torch.core.pytree import flatten_with_path, keystr
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.sharding import distribute_tree
+    from repro_torch.launch import train as T
+    from repro_torch.roofline.analysis import record_collectives
+
+    base_cfg = configs.get("smollm-135m", smoke=True)
+    shape = configs.SMOKE_SHAPE
+    sc = _killpoint_tool().check_step_config()
+    out = {}
+    for sizes in REMAT_MESHES[args.world]:
+        mesh = DeviceMesh("cpu", torch.arange(args.world).reshape(sizes),
+                          mesh_dim_names=("data", "model"))
+        runs = {}
+        for remat in (True, False):
+            cfg = dataclasses.replace(base_cfg, remat=remat)
+            step, st_sh, b_sh, _ = T.jit_train_step(cfg, mesh, sc, shape)
+            state = distribute_tree(T.init_state(cfg, 0, sc.opt,
+                                                 device="cpu"), mesh, st_sh)
+            batch = distribute_tree(synth_batch(cfg, shape, 0), mesh, b_sh)
+            with record_collectives() as ops:
+                state, m = step(state, batch)
+            kinds: dict = {}
+            for o in ops:
+                kinds[o.kind] = kinds.get(o.kind, 0) + 1
+            runs[remat] = (float(m["loss"]), float(m["grad_norm"]),
+                           {keystr(p): t for p, t in
+                            flatten_with_path(T.gather_state(state))},
+                           kinds)
+        on, off = runs[True], runs[False]
+        out["x".join(map(str, sizes))] = {
+            "loss": [on[0], off[0]], "grad_norm": [on[1], off[1]],
+            "differ": [k for k in on[2] if not torch.equal(on[2][k],
+                                                           off[2][k])],
+            "kinds": [on[3], off[3]]}
+    if args.rank == 0:
+        with open(os.path.join(args.dir, f"remat_{args.world}.json"),
+                  "w") as f:
+            json.dump(out, f)
+
+
 def run_ring(args) -> None:
     import numpy as np
     import torch
@@ -230,7 +330,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase",
                     choices=["cases", "ring", "wire", "killpoint",
-                             "resume"],
+                             "resume", "scatter", "remat"],
                     required=True)
     ap.add_argument("--rank", type=int, required=True)
     ap.add_argument("--world", type=int, required=True)
@@ -256,6 +356,10 @@ def main() -> int:
             run_wire(args)
         elif args.phase == "ring":
             run_ring(args)
+        elif args.phase == "scatter":
+            run_scatter(args)
+        elif args.phase == "remat":
+            run_remat(args)
         else:
             tool = _killpoint_tool()
             fn = (tool.run_killpoint_rank if args.phase == "killpoint"

@@ -47,7 +47,11 @@ memory by run; the profiled
 replay's device busy ms, idle share and top ops; model FLOPs a step
 (``roofline.model_flops``) over the median graphed step as a share of 989
 TFLOP/s; the save's groups, launches, loop blocking, raw and stored bytes;
-the restore's launches, seconds and worst moment error. If the card runs
+the restore's launches, seconds and worst moment error; the host's
+resident memory at the start and end of each stage of the save, of
+the probe's stages and of the profiler window's (``save_stages``) and
+its peak within each
+(``host_rss_peak_by_phase_gib``). If the card runs
 out of memory, the line carries ``"fault": "out of memory"``, the peak
 and the op (the innermost frame of the port and the allocator's message),
 and the script exits 3; it does not shrink the run.
@@ -305,6 +309,59 @@ class _RssWatch:
         return self.peak
 
 
+class _SaveStages:
+    """Host memory through a checkpoint save's stages: within the block,
+    each stage of ``CheckpointManager`` (the HYBRID device stage, the
+    hand-off to host, the encode fan-out's split, items and gather, the
+    sink) and each named call of :meth:`timed` records this process's
+    resident memory as it starts and ends, and sets ``watch``'s phase
+    (where given) to it meanwhile, so the watch's peak by phase is the
+    peak sampled within it (stages on several workers at once share the
+    label of the last to start). ``rows``: per stage, calls, seconds, the first
+    start's RSS and the highest end's (GiB)."""
+
+    STAGES = ("_device_lossy", "_handoff", "_encode_split",
+              "_encode_leaf_item", "_encode_gather", "_encode_stage",
+              "_write_sink")
+
+    def __init__(self, watch=None):
+        self.watch, self.rows, self._orig = watch, {}, {}
+
+    def timed(self, name: str, fn, *args, **kwargs):
+        before, t0 = _rss_gib()["VmRSS"], time.perf_counter()
+        phase = self.watch.phase if self.watch is not None else None
+        if self.watch is not None:
+            self.watch.phase = f"save {name}"
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            if self.watch is not None:
+                self.watch.phase = phase
+            row = self.rows.setdefault(name, {"calls": 0, "s": 0.0,
+                                              "rss_in_gib": before,
+                                              "rss_out_gib": 0.0})
+            row["calls"] += 1
+            row["s"] += time.perf_counter() - t0
+            row["rss_out_gib"] = max(row["rss_out_gib"],
+                                     _rss_gib()["VmRSS"])
+
+    def __enter__(self):
+        from repro_torch.checkpoint.manager import CheckpointManager
+
+        for name in self.STAGES:
+            fn = self._orig[name] = getattr(CheckpointManager, name)
+            setattr(CheckpointManager, name,
+                    lambda mgr, *a, _n=name.strip("_"), _f=fn, **kw:
+                    self.timed(_n, _f, mgr, *a, **kw))
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from repro_torch.checkpoint.manager import CheckpointManager
+
+        for name, fn in self._orig.items():
+            setattr(CheckpointManager, name, fn)
+
+
 def _rss_gib() -> dict:
     """This process's resident and peak resident host memory, GiB."""
     out = {}
@@ -521,6 +578,7 @@ def run(arch: str, *, eager_steps: int, graph_steps: int, ckpt_dir: str,
     emitted: dict = {}
     window: dict = {}
     last = graph_steps - 1
+    stages = _SaveStages(rss)
 
     def keep(step, payload):
         emitted.update(payload.leaves)
@@ -544,30 +602,40 @@ def run(arch: str, *, eager_steps: int, graph_steps: int, ckpt_dir: str,
         # and count as digests of their bits, the moments copied leaf by
         # leaf into pageable host memory
         TaskSpec(name="probe", stream="train_state", trigger=When(
-            lambda st: st == 0), placement=Placement.SYNC, sink=keep,
-            device_stage=lambda step, st: _Digested(st)),
+            lambda st: st == 0), placement=Placement.SYNC,
+            sink=lambda step, pl: stages.timed("probe sink", keep, step,
+                                               pl),
+            device_stage=lambda step, st: stages.timed("probe", _Digested,
+                                                       st)),
         TaskSpec(name="window_open", stream="train_state", trigger=When(
             lambda st: st == last - 1), placement=Placement.SYNC,
-            sink=open_window),
+            sink=lambda step, pl: stages.timed("window open", open_window,
+                                               step, pl)),
         TaskSpec(name="window_close", stream="grads", trigger=When(
             lambda st: st == last), placement=Placement.SYNC,
-            sink=close_window)])
+            sink=lambda step, pl: stages.timed("window close",
+                                               close_window, step, pl))])
     _free(device)
     reset_launches()
     lines = []
     if rss is not None:
         rss.phase = "graphed"
     t0 = time.perf_counter()
-    out = T.train_loop(arch, smoke=smoke, steps=graph_steps, plan=plan,
-                       device=device, seed=0, cuda_graph=True,
-                       log=echo(lines))
+    with stages:
+        out = T.train_loop(arch, smoke=smoke, steps=graph_steps, plan=plan,
+                           device=device, seed=0, cuda_graph=True,
+                           log=echo(lines))
     runs["graph"] = g = _run_row(out, t0, lines, device)
+    g["save_stages"] = stages.rows
+    if rss is not None:
+        g["host_rss_peak_by_phase_gib"] = dict(rss.peak)
     save_launches = count_launches("graph")
     g["host_rss_gib"] = _rss_gib()
     ck = out["session_report"]["checkpoint"]
     g["save_blocking_s"] = ckpt_blocking_s(out["telemetry"])
     del out
-    dev_ops = _profile_ops(window.pop("prof"))
+    dev_ops = stages.timed("profile read", _profile_ops,
+                           window.pop("prof"))
     busy = sum(dev_ops.values())
     wall_ms = window["wall_s"] * 1e3
     g.update(profiled_wall_ms=wall_ms,
@@ -585,6 +653,8 @@ def run(arch: str, *, eager_steps: int, graph_steps: int, ckpt_dir: str,
             "launches": save_launches, "raw_bytes": ck["raw_bytes"],
             "stored_bytes": ck["stored_bytes"],
             "blocking_s": g["save_blocking_s"]}
+    for name, row in stages.rows.items():
+        say(f"save stage {name}: {row}")
     say(f"graphed: losses {g['losses']} (= eager bit for bit), capture "
         f"{g['capture_s']} s, step/compute s {g['step_s']}, peak "
         f"{g['peak_gib']} GiB; the save: {n_groups} groups of "

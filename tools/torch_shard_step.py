@@ -1,18 +1,26 @@
 """The train step sharded across two processes that share one card
 
-    python3 tools/torch_shard_step.py [--layers 30] [--steps 3]
+    python3 tools/torch_shard_step.py [--arch smollm-135m] [--layers N]
+        [--rows 4] [--steps 3]
 
 Two child processes (``--rank 0|1``) form a gloo world of two on the
 card's device 0 (NCCL refuses two ranks on one device; the collectives
 stage through host buffers, ``distributed/sharding.py``) and run
-``launch.train.jit_train_step`` eagerly for full-width ``smollm-135m``
-(``--layers`` of its 30 blocks; widths unchanged) at ``FULL_SHAPE`` (4 x
-4096 tokens), seed 0, on each mesh of :data:`MESHES`:
+``launch.train.jit_train_step`` eagerly for ``--arch`` at full width
+(``--layers`` of its blocks, all by default; widths unchanged) on
+``--rows`` rows of 4096 tokens (``FULL_SHAPE``'s 4 by default), seed 0,
+on each mesh of :data:`MESHES` (``bench_meshes``: the pod mesh at
+smollm-135m only):
 
-  1x2            (1, 2) over ('data', 'model'), the default rules: every
-                 parameter gathered over 'model', the rows on both ranks;
+  1x2            (1, 2) over ('data', 'model'), the default rules: the
+                 parameters sharded over 'model', each block gathered
+                 whole inside its remat region (twice a step: the
+                 forward and the recompute), the rows on both ranks;
   pod2x1x1_int8  (2, 1, 1) over ('pod', 'data', 'model') with the int8
-                 pod ring and error feedback: two rows a rank.
+                 pod ring and error feedback: half the rows a rank.
+
+``--arch granite-3-2b --rows 2`` is the case whose blocks (40 of 61 M
+parameters) dominate its memory, where gathering block by block shows.
 
 Per step: the wall time between barriers (the card synchronised), the
 bytes each rank staged through host buffers and handed to gloo, the ring's
@@ -35,6 +43,7 @@ the save's largest packed group.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import importlib.util
 import json
@@ -91,13 +100,20 @@ def _killpoint_tool():
 
 
 def _placed(state, dev, mesh, shardings):
+    """``state`` (host tensors, whole) as DTensors on ``mesh`` under
+    ``shardings``: each rank's shard taken on the host and copied to
+    ``dev`` alone, so no whole leaf reaches the card (a copy even on the
+    CPU: the step writes its new state into the placed tensors)."""
+    import torch
+    from torch.distributed.tensor import DTensor
     from repro_torch.core.pytree import tree_map
-    from repro_torch.distributed.sharding import distribute_tree
+    from repro_torch.distributed.sharding import local_shard
 
-    # a copy: the step writes its new state into the placed tensors, which
-    # on the CPU would be the caller's own
-    return distribute_tree(tree_map(lambda t: t.to(dev, copy=True), state),
-                           mesh, shardings)
+    return tree_map(lambda t, pl: DTensor.from_local(
+        local_shard(t, pl, mesh).to(dev, copy=True,
+                                    memory_format=torch.contiguous_format),
+        mesh, list(pl), run_check=False, shape=t.shape, stride=t.stride()),
+        state, shardings)
 
 
 def _batch(cfg, shape, i: int, dev, mesh=None, b_sh=None):
@@ -184,7 +200,38 @@ def _hold_one_device(got: dict, want: dict, init: dict, losses,
 # per rank
 # ---------------------------------------------------------------------------
 
-def bench_rank(layers: int, steps: int) -> dict:
+def bench_setup(arch: str, layers: int, rows: int):
+    """This rank's device (the card's device 0, every rank shares it),
+    ``arch``'s config at full width and ``layers`` blocks (0: all) and the
+    shape of ``rows`` rows of ``FULL_SHAPE``'s 4096 tokens."""
+    import torch
+    from repro_torch.configs import base as configs
+    from repro_torch.launch import train as T
+
+    cfg = configs.get(arch)
+    if cfg.frontend is not None:
+        raise ValueError(f"{arch}: a frontend arch's batch needs its prefix "
+                         f"embeddings, which this tool does not draw")
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    shape = dataclasses.replace(T.FULL_SHAPE, name=f"train_4k_b{rows}",
+                                global_batch=rows)
+    return torch.device("cuda", 0), cfg, shape
+
+
+def bench_meshes(arch: str) -> tuple:
+    """The meshes of :data:`MESHES` that ``arch``'s bench runs. On the pod
+    mesh each rank holds the whole state and its error-feedback residual
+    ('pod' replicates them), two copies on one card: that fits at
+    smollm-135m, not at an arch of billions of parameters, which runs
+    (1, 2) alone."""
+    return tuple(MESHES) if arch == ARCH else ("1x2",)
+
+
+def bench_rank(arch: str, layers: int, rows: int, steps: int) -> dict:
     """``--steps`` timed steps on each mesh, then (rank 0) the
     one-process step."""
     import torch
@@ -193,11 +240,11 @@ def bench_rank(layers: int, steps: int) -> dict:
     from repro_torch.launch import train as T
     from repro_torch.optim import grad_compress as gc
 
-    dev, cfg, shape = _killpoint_tool()._rank_setup("cuda", layers)
+    dev, cfg, shape = bench_setup(arch, layers, rows)
     rank = dist.get_rank()
     out: dict = {"arch": cfg.name, "n_layers": cfg.n_layers,
                  "shape": [shape.global_batch, shape.seq_len], "meshes": {}}
-    for name in MESHES:
+    for name in bench_meshes(arch):
         mesh = _mesh(name, dev)
         sc = T.StepConfig(grad_compress=MESHES[name][2])
         step, st_sh, b_sh, ef = T.jit_train_step(cfg, mesh, sc, shape)
@@ -424,11 +471,13 @@ def smoke_rank(layers: int, ckpt_dir: str, kernel_check=None,
 
 def run_pair(mode: str, *, layers: int, steps: int = 3,
              timeout_s: float = 900.0, device: str = "cuda",
-             out_dir: str | None = None, log=print) -> list:
+             out_dir: str | None = None, log=print, arch: str = ARCH,
+             rows: int = 4) -> list:
     """Runs both ranks (``mode``: ``bench`` or ``smoke``; ``device``
-    ``cpu`` runs the smoke config without kernels) and returns their
-    results, rank 0's first; raises ``RuntimeError`` when a rank fails or
-    the deadline passes."""
+    ``cpu`` runs the smoke config without kernels; ``arch``, ``rows`` and
+    ``meshes`` are the bench's) and returns their results, rank 0's
+    first; raises ``RuntimeError`` when a rank fails or the deadline
+    passes."""
     d = out_dir or os.path.join(ROOT, "build", "shard_step")
     os.makedirs(d, exist_ok=True)
     store = os.path.join(d, f"store_{os.getpid()}")
@@ -439,7 +488,8 @@ def run_pair(mode: str, *, layers: int, steps: int = 3,
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--rank", str(r),
          "--phase", mode, "--layers", str(layers), "--steps", str(steps),
-         "--store", store, "--device", device,
+         "--store", store, "--device", device, "--arch", arch,
+         "--rows", str(rows),
          "--out", os.path.join(d, f"{mode}_rank{r}.json")],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r in range(2)]
@@ -479,13 +529,15 @@ def _child(args) -> int:
                             rank=args.rank, world_size=2)
     try:
         ck = os.path.join(os.path.dirname(args.out), "smoke_ckpt")
+        # the smoke's arch is smollm-135m, at every layer by default
+        layers = args.layers or 30
         if args.phase == "smoke" and args.device == "cpu":
-            out = smoke_rank(args.layers, ck, None, "cpu")
+            out = smoke_rank(layers, ck, None, "cpu")
         elif args.phase == "smoke":
             smoke = _load("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
-            out = smoke_rank(args.layers, ck, smoke._family_kernel_check)
+            out = smoke_rank(layers, ck, smoke._family_kernel_check)
         else:
-            out = bench_rank(args.layers, args.steps)
+            out = bench_rank(args.arch, args.layers, args.rows, args.steps)
         with open(args.out, "w") as f:
             json.dump(out, f)
         dist.barrier()
@@ -496,8 +548,15 @@ def _child(args) -> int:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--layers", type=int, default=30,
-                    help="blocks of smollm-135m's 30 (widths unchanged)")
+    ap.add_argument("--arch", default=ARCH,
+                    help="the bench's arch, at full width (not a frontend "
+                         "arch)")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="the bench's blocks (0: all of the arch's; "
+                         "widths unchanged); --phase smoke: smollm-135m's")
+    ap.add_argument("--rows", type=int, default=4,
+                    help="the bench's rows of 4096 tokens (even: the pod "
+                         "mesh splits them)")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--phase", choices=["bench", "smoke"], default="bench")
     ap.add_argument("--device", default="cuda",
@@ -524,7 +583,8 @@ def main() -> int:
         from repro_torch.kernels import _build
         _build.build(["spectral_lossy"])
     res = run_pair(args.phase, layers=args.layers, steps=args.steps,
-                   log=lambda m: print(m, flush=True))
+                   log=lambda m: print(m, flush=True), arch=args.arch,
+                   rows=args.rows)
     out = {"card": card, "ranks": res,
            "command_s": time.perf_counter() - t0}
     print("SHARD_STEP_RESULT " + json.dumps(out), flush=True)
